@@ -1,0 +1,255 @@
+"""The single-molecule fit of the reference's SpectralFitMCMC
+orchestration (reference inference.py:63-488). Port of
+cha1_mcmc_tpu/pipeline/fit.py.
+
+Flow (reference run(), inference.py:475-488):
+  init_setup (reduce data once) -> choose priors (template or
+  posterior-as-prior from a previous chain) -> optional MLE Ncol init ->
+  rejection-init the walker ball -> sample with per-block checkpoints ->
+  summary table + corner plot.
+
+Sampler selection follows the JAX package: on a CUDA device a
+single-component float32 fit runs through the fused whole-step kernel K1
+(FusedEnsembleSampler); elsewhere, or with use_fused_step=False, the
+general EnsembleSampler over the batched lnprob.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from cha1_mcmc_tpu_torch.constants import CYAN, GRAY, GREEN, RED, RESET
+from cha1_mcmc_tpu_torch.catalogs import load_catalog
+from cha1_mcmc_tpu_torch.catalogs.partition import fit_device_cheb
+from cha1_mcmc_tpu_torch.models.forward import SpectralModel
+from cha1_mcmc_tpu_torch.inference import (
+    ParamSpec,
+    single_component_lnprior,
+    build_lnlike,
+    build_lnprob,
+    estimate_ncol_mle,
+)
+from cha1_mcmc_tpu_torch.sampler import (
+    EnsembleSampler,
+    FusedEnsembleSampler,
+    chain_to_priors,
+    initialize_walkers,
+    load_chain,
+    make_fused_ensemble,
+)
+from cha1_mcmc_tpu_torch.sampler.fused import fused_fits
+from cha1_mcmc_tpu_torch.reduce.datagrid import (
+    Datagrid,
+    reduce_spectrum,
+    save_datagrid,
+)
+from cha1_mcmc_tpu_torch.pipeline.config import FitConfig
+from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results
+from cha1_mcmc_tpu_torch.utils import Throughput
+
+__all__ = ["SpectralFit"]
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class SpectralFit:
+    """End-to-end single-molecule fit on one torch device."""
+
+    def __init__(self, config: FitConfig):
+        self.config = config
+        self.device = torch.device(config.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"FitConfig(device={config.device!r}) but no "
+                               "CUDA device is available")
+        if config.dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
+        if config.n_devices is not None and config.n_devices > 1:
+            raise NotImplementedError("multi-device fits (n_devices > 1) are "
+                                      "ROADMAP P14, not ported yet")
+        if config.n_chains > 1:
+            raise NotImplementedError("multi-chain fits (n_chains > 1) are "
+                                      "ROADMAP P15, not ported yet")
+        if config.use_pallas:
+            raise NotImplementedError("the sparse opacity path (use_pallas) is "
+                                      "ROADMAP P11, not ported yet")
+        if config.profile_dir is not None:
+            raise NotImplementedError("sampling traces (profile_dir) are "
+                                      "ROADMAP P13, not ported yet")
+        self.spec = ParamSpec(ncomp=1, fixed_source_size=config.fixed_source_size)
+        self.dtype = _DTYPES[config.dtype]
+        self.catalog = None
+        self.sampler: EnsembleSampler | None = None
+
+    # -- data reduction ----------------------------------------------------
+    def init_setup(self) -> Datagrid:
+        """Reduce the observed spectrum once (reference inference.py:305-342)."""
+        cfg = self.config
+        print(f"\n{CYAN}Reducing spectral data for {cfg.mol_name}.{RESET}")
+        if not os.path.exists(cfg.catfile_path):
+            raise FileNotFoundError(f"No catalog file found at {cfg.catfile_path}.")
+        os.makedirs(cfg.mol_folder, exist_ok=True)
+        self.catalog = load_catalog(cfg.catfile_path, name=cfg.mol_name)
+        source_size = (cfg.fixed_source_size if cfg.fixed_source_size is not None
+                       else cfg.template_means[0])
+        grid = reduce_spectrum(
+            self.catalog, cfg.data_path,
+            ll=cfg.lower_limit, ul=cfg.upper_limit,
+            aligned_velocity=cfg.aligned_velocity,
+            dish_size=cfg.dish_size, source_size=source_size,
+            block_interlopers=cfg.block_interlopers,
+        )
+        save_datagrid(cfg.datagrid_path, grid)
+        print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}\n")
+        return grid
+
+    # -- model assembly ----------------------------------------------------
+    def build_model(self, grid: Datagrid) -> SpectralModel:
+        cfg = self.config
+        if self.catalog is None:
+            self.catalog = load_catalog(cfg.catfile_path, name=cfg.mol_name)
+        model = SpectralModel.build(
+            self.catalog, grid.covered_trans, grid.freqs,
+            ll=cfg.lower_limit, ul=cfg.upper_limit,
+            dish_size=cfg.dish_size,
+            vel_offset=cfg.aligned_velocity,
+            mask_center=cfg.aligned_velocity,
+            device=self.device, dtype=self.dtype,
+        )
+        if model.q_model.kind == "states":
+            # Chebyshev surrogate of the state sum over the sampler's Tex
+            # prior box (partition.py:fit_device_cheb) for the device
+            # paths; host_eval keeps the exact state sum. Out-of-box Tex
+            # is -inf by the prior before Q's value matters.
+            t_lo, t_hi = cfg.bounds["Tex"]
+            model = model.with_q_model(fit_device_cheb(model.q_model, t_lo, t_hi))
+        return model
+
+    def _is_within_bounds(self, theta) -> bool:
+        """Host-side box check for walker init (reference inference.py:169-190)."""
+        b = self.config.bounds
+        keys = (["Ncol", "Tex", "vlsr", "dV"] if self.spec.fixed_source_size is not None
+                else ["source_size", "Ncol", "Tex", "vlsr", "dV"])
+        return all(b[k][0] < v < b[k][1] for k, v in zip(keys, theta))
+
+    def _use_fused(self, model: SpectralModel) -> bool:
+        """The K1 selection rule (JAX fit.py:319-339): CUDA, one
+        component, float32, and a working set that fits a CTA."""
+        cfg = self.config
+        return (cfg.use_fused_step and self.device.type == "cuda"
+                and self.spec.ncomp == 1 and self.dtype == torch.float32
+                and fused_fits(cfg.nwalkers, self.spec.ndim, model.n_lines,
+                               self.dtype))
+
+    # -- fitting -----------------------------------------------------------
+    def fit(self, grid: Datagrid) -> np.ndarray:
+        """Sample the posterior; returns the (W, S, D) chain
+        (reference fit_multi_gaussian, inference.py:379-473)."""
+        cfg = self.config
+        print(f"{CYAN}Estimating free parameters for {cfg.mol_name}.{RESET}")
+        model = self.build_model(grid)
+        if cfg.use_pallas is None and model.n_lines * model.n_channels > 4_000_000:
+            raise NotImplementedError(
+                f"dense catalog ({model.n_lines} lines x {model.n_channels} "
+                "channels) needs the sparse opacity path: ROADMAP P11, not "
+                "ported yet")
+
+        if cfg.template_run:
+            initial = np.asarray(cfg.template_means, dtype=np.float64)
+            prior_means, prior_stds = initial, np.asarray(cfg.template_stds)
+            print(f"{GRAY}Using template priors and initial positions for {cfg.mol_name}.{RESET}")
+        else:
+            prior_chain = load_chain(cfg.prior_path)
+            prior_means, prior_stds = chain_to_priors(prior_chain)
+            initial = prior_means.copy()
+            print(f"{GRAY}Loaded priors from previous chain: {cfg.prior_path}{RESET}")
+
+        lnprior = single_component_lnprior(self.spec, cfg.bounds, prior_means,
+                                           prior_stds, dtype=self.dtype)
+        lnlike = build_lnlike(model, self.spec, grid.ints, grid.yerrs)
+        lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs, lnprior)
+
+        resuming = cfg.resume and os.path.exists(cfg.chain_path)
+        if cfg.MLE_for_Ncol and not resuming:  # resume discards `initial`
+            print(f"{GRAY}Initializing Ncol via MLE.{RESET}")
+            try:
+                est = estimate_ncol_mle(lnlike, self.spec, initial,
+                                        cfg.bounds["Ncol"], device=self.device,
+                                        dtype=self.dtype)
+                ncol_index = 0 if cfg.fixed_source_size is not None else 1
+                initial = np.array(initial, dtype=np.float64)
+                initial[ncol_index] = est
+                print(f"{GREEN}Successful MLE fit for column density. "
+                      f"Prior Ncol: {est:.3e}{RESET}")
+            except RuntimeError as e:
+                print(f"{RED}Failed to initialize Ncol via MLE: {e}{RESET}")
+                raise
+
+        if self._use_fused(model):
+            # K1: one CUDA kernel launch per k ensemble steps
+            # (sampler/fused.py, csrc/fused_step.cu).
+            run_fn = make_fused_ensemble(
+                model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
+                prior_means, prior_stds, a=cfg.stretch_a)
+            self.sampler = FusedEnsembleSampler(
+                lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
+                a=cfg.stretch_a, dtype=self.dtype, device=self.device,
+                run_fn=run_fn)
+        else:
+            self.sampler = EnsembleSampler(
+                lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
+                a=cfg.stretch_a, dtype=self.dtype, device=self.device)
+        print(f"{GRAY}Sampler: {type(self.sampler).__name__} on {self.device}.{RESET}")
+
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(cfg.seed)
+        if resuming:
+            # Continue an existing chain from its last positions
+            # (reference inference.py:463 / TMC1 restart=False convention).
+            prev = np.load(cfg.chain_path)
+            pos = self.sampler.preload(prev)
+            print(f"{GRAY}Resuming from {cfg.chain_path} "
+                  f"({prev.shape[1]} existing steps).{RESET}")
+            state = self.sampler.load_state(cfg.chain_path)
+            if state is not None:
+                pos, lnp0, rng_state = state  # exact random-stream continuation
+                generator.set_state(rng_state)
+            else:
+                lnp0 = None
+                generator.manual_seed(cfg.seed + prev.shape[1])
+        else:
+            rng = np.random.default_rng(cfg.seed)
+            pos = initialize_walkers(initial, prior_stds, cfg.nwalkers,
+                                     self._is_within_bounds, rng=rng)
+            lnp0 = None
+
+        throughput = Throughput()
+        with throughput:
+            self.sampler.run_mcmc(
+                pos, cfg.nruns, generator, lnp0=lnp0,
+                checkpoint_every=cfg.checkpoint_every,
+                chain_file=cfg.chain_path, progress=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        throughput.add(cfg.nruns, cfg.nwalkers)
+        device_name = (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else "cpu")
+        throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
+                        device=device_name, sampler=type(self.sampler).__name__)
+        self.throughput = throughput
+        print(f"{GRAY}Acceptance fraction: "
+              f"{self.sampler.acceptance_fraction:.3f}  |  "
+              f"{throughput.walker_steps_per_sec:,.0f} walker-steps/s on "
+              f"{device_name} (wall, incl. checkpoints){RESET}")
+        return self.sampler.chain
+
+    # -- full run ----------------------------------------------------------
+    def run(self) -> np.ndarray:
+        cfg = self.config
+        grid = self.init_setup()
+        chain = self.fit(grid)
+        cfg.to_json(os.path.join(cfg.mol_folder, "config.json"))
+        plot_results(cfg.chain_path, self.spec.labels, self.spec.labels_latex)
+        return chain

@@ -1,0 +1,511 @@
+"""K1: the fused whole-ensemble-step kernel and its plain PyTorch version.
+
+Port of cha1_mcmc_tpu/sampler/fused.py. One launch of the CUDA kernel
+(csrc/fused_step.cu) runs k emcee-v3 stretch-move steps of one
+single-component ensemble — both sequential half-updates of every step,
+each with its walker gathers, the LTE forward model, the priors and the
+acceptance write-back — so a fit at the flagship size (128 walkers, ~9
+lines x 561 channels) pays one launch per k steps instead of hundreds of
+small ones per step.
+
+Beside the kernel, `fused_lnprob_plain` / `fused_steps_plain` compute the
+same function with torch ops, in the same formulation (exp2 Gaussians,
+the same statics, the JAX package's randomness layout). The wrappers
+`fused_lnprob` / `fused_step_block` launch the kernel for CUDA tensors and
+take the plain version only for CPU tensors; `LAUNCHES` counts kernel
+launches.
+
+Scope: single-component problems, 4-dim fixed- or 5-dim free-source-size,
+with analytic, Chebyshev or state-sum Q(T).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from cha1_mcmc_tpu_torch.catalogs.partition import QModel
+from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
+from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
+from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, _half_step,
+                                                 draw_randomness)
+from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
+
+__all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain",
+           "fused_steps_plain", "fused_lnprob", "fused_step_block",
+           "FusedEnsemble", "make_fused_ensemble", "FusedEnsembleSampler",
+           "fused_fits", "step_smem_bytes", "load_kernel_library", "LAUNCHES"]
+
+# Limits of the kernel's Statics struct and launch (csrc/fused_step.cu).
+_MAX_DIM, _MAX_POLY, _MAX_CHEB = 5, 8, 65
+_WARPS = 16                      # 512 threads per CTA
+_SMEM_LIMIT = 232_448            # dynamic shared memory a Hopper CTA can use
+_AA = -0.5 * 1.4426950408889634  # -log2(e) / 2: exp(-x^2/2s^2) = exp2(AA x^2/s^2)
+
+#: Kernel launches per K1 entry, counted where each kernel is launched and
+#: nowhere else (plain-version calls do not count).
+LAUNCHES = {"fused_steps": 0, "fused_lnprob": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedStatics:
+    """Scalar constants of the in-kernel lnprob and step (the JAX
+    package's single_statics_tables statics, plus the stretch scale a).
+    q_kind 'cheb' carries the Chebyshev coefficients in q_coeffs and the
+    fit interval in q_power."""
+
+    ss: float | None                 # fixed source size; None = free (5-dim)
+    dish_size: float
+    Tbg: float
+    mask_center: float
+    q_kind: str                      # 'analytic' | 'cheb' | 'states'
+    q_coeffs: tuple
+    q_power: tuple | None
+    q_scale: float
+    bounds_lo: tuple
+    bounds_hi: tuple
+    prior_mean: tuple
+    prior_std: tuple
+    a: float = 2.0
+
+    def q_model(self) -> QModel:
+        if self.q_kind == "cheb":
+            return QModel(kind="states", cheb_interval=self.q_power,
+                          cheb_coeffs=self.q_coeffs)
+        if self.q_kind == "states":
+            return QModel(kind="states")
+        return QModel(kind="analytic", coeffs=self.q_coeffs,
+                      power=self.q_power, scale=self.q_scale)
+
+    @property
+    def ncol_idx(self) -> int:
+        return 0 if self.ss is not None else 1
+
+    def gauss_norms(self) -> tuple:
+        """log(1/(sqrt(2 pi) sd)) per dimension, in f64 on the host."""
+        return tuple(float(np.log(1.0 / (np.sqrt(2.0 * np.pi) * sd)))
+                     for sd in self.prior_std)
+
+
+def single_statics_tables(model, spec, grid_ints, grid_yerrs, bounds,
+                          prior_means, prior_stds, *, a: float = 2.0):
+    """(FusedStatics, tables) for the single-component K1 lnprob. Tables
+    are tensors on the model's device and dtype: lines (5, L) = freq,
+    elower, aij, gup, glow; vel (L, C); chans (3, C) = freq, y,
+    1/sigma^2; qst (2, S) = state-sum g, E (a dummy (2, 8) for the other
+    Q kinds). Prior sigmas carry the overrides sigma_vlsr = 0.8 mean_dV,
+    sigma_dV = 0.3 mean_dV (reference inference.py:200-201)."""
+    if spec.ncomp != 1:
+        raise ValueError("K1 supports single-component layouts only")
+    qm = model.q_model
+    free_ss = spec.fixed_source_size is None
+    means = np.asarray(prior_means, dtype=np.float64)
+    stds = np.asarray(prior_stds, dtype=np.float64).copy()
+    dv_mean = means[4] if free_ss else means[3]
+    stds[-2] = dv_mean * 0.8   # sigma_vlsr override
+    stds[-1] = dv_mean * 0.3   # sigma_dV override
+    names = (["source_size"] if free_ss else []) + ["Ncol", "Tex", "vlsr", "dV"]
+    dev, dt = model.device, model.dtype
+    lines = torch.stack([model.line_freq, model.line_elower, model.line_aij,
+                         model.line_gup, model.line_glow])
+    chans = torch.stack([model.grid_freq,
+                         torch.as_tensor(grid_ints, dtype=dt, device=dev),
+                         1.0 / torch.as_tensor(grid_yerrs, dtype=dt, device=dev) ** 2])
+    vel = model.vel_grid.contiguous()
+    qst = torch.zeros((2, 8), dtype=dt, device=dev)
+    if qm.cheb_coeffs is not None:
+        q = dict(q_kind="cheb", q_coeffs=tuple(qm.cheb_coeffs),
+                 q_power=tuple(qm.cheb_interval), q_scale=1.0)
+    elif qm.kind == "states":
+        qst = torch.stack([model.q_g, model.q_E])
+        q = dict(q_kind="states", q_coeffs=(), q_power=None, q_scale=1.0)
+    else:
+        q = dict(q_kind="analytic", q_coeffs=tuple(qm.coeffs),
+                 q_power=None if qm.power is None else tuple(qm.power),
+                 q_scale=float(qm.scale))
+    statics = FusedStatics(
+        ss=None if free_ss else float(spec.fixed_source_size),
+        dish_size=float(model.dish_size), Tbg=float(model.Tbg),
+        mask_center=float(model.mask_center), **q,
+        bounds_lo=tuple(float(bounds[k][0]) for k in names),
+        bounds_hi=tuple(float(bounds[k][1]) for k in names),
+        prior_mean=tuple(float(m) for m in means),
+        prior_std=tuple(float(s) for s in stds), a=float(a))
+    return statics, (lines, vel, chans, qst)
+
+
+# -- plain PyTorch version ---------------------------------------------------
+
+def fused_lnprob_plain(theta, tables, st: FusedStatics):
+    """K1's lnprob with torch ops, (N, D) -> (N,): box + Gaussian priors
+    (flat Ncol) + chi^2 of the windowed-exp2 LTE model (the JAX package's
+    _make_dense_lnprob), summing the lines in line order as the kernel
+    does."""
+    lines, vel, chans, qst = tables
+    lf, le, la, lgu, lgl = lines
+    gf, y, isig = chans
+    dt, dev = theta.dtype, theta.device
+    if st.ss is None:
+        ss_w, Ncol, Tex, vlsr, dV = (theta[:, i] for i in range(5))
+        ss_w = ss_w[:, None]
+    else:
+        ss_w = torch.tensor(st.ss, dtype=dt, device=dev)
+        Ncol, Tex, vlsr, dV = (theta[:, i] for i in range(4))
+    Q = st.q_model()(Tex, states=(qst[0], qst[1]))
+    taus = tau_sticks(torch, lf, le, la, lgu, lgl, Q[:, None], Ncol[:, None],
+                      Tex[:, None], dV[:, None])                  # (N, L)
+    sigma = dV / FWHM_TO_SIGMA_MODEL
+    aa = (_AA / (sigma * sigma))[:, None, None]
+    window = (torch.abs(vel - st.mask_center)
+              < VELOCITY_WINDOW_DV * dV[:, None, None])             # (N, L, C)
+    d = vel - vlsr[:, None, None]
+    gauss = torch.where(window, torch.exp2(aa * (d * d)), 0.0)
+    opac = torch.zeros((theta.shape[0], vel.shape[1]), dtype=dt, device=dev)
+    for l in range(vel.shape[0]):
+        opac = opac + taus[:, l:l + 1] * gauss[:, l]
+    J_T = planck_J(torch, gf, Tex[:, None], guard=1e-10)
+    J_Tbg = planck_J(torch, gf, torch.tensor(st.Tbg, dtype=dt, device=dev),
+                     guard=1e-10)
+    dil = beam_dilution(torch, gf, ss_w, st.dish_size)
+    m = dil * (J_T - J_Tbg) * (1.0 - torch.exp(-opac))
+    resid = y - m
+    ll = -0.5 * torch.sum(resid * resid * isig - torch.log(isig), dim=-1)
+
+    ok = torch.ones(theta.shape[0], dtype=torch.bool, device=dev)
+    for i, (lo, hi) in enumerate(zip(st.bounds_lo, st.bounds_hi)):
+        ok = ok & (theta[:, i] > lo) & (theta[:, i] < hi)
+    lp = torch.zeros_like(ll)
+    for i, norm in enumerate(st.gauss_norms()):
+        if i != st.ncol_idx:   # Ncol flat
+            lp = lp + (norm - 0.5 * ((theta[:, i] - st.prior_mean[i])
+                                     / st.prior_std[i]) ** 2)
+    val = lp + ll
+    return torch.where(ok & torch.isfinite(val), val, -torch.inf)
+
+
+def fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
+                      st: FusedStatics):
+    """k = z_u.shape[0] // 2 whole stretch-move steps with torch ops.
+
+    coords (W, D), lnp (W,); per block randomness in the kernel's layout:
+    perm (k*W,) the per-step permutations, z_u / pair / acc_u (2k, h) with
+    row r = 2*step + half. Returns chain (k*W, D), lnps (k*W,) and the
+    accepted count per step, acc (k,) float32."""
+    W, D = coords.shape
+    h = W // 2
+    k = z_u.shape[0] // 2
+    coords, lnp = coords.clone(), lnp.clone()
+    chain = torch.empty((k, W, D), dtype=coords.dtype, device=coords.device)
+    lnps = torch.empty((k, W), dtype=lnp.dtype, device=coords.device)
+    acc = torch.zeros(k, dtype=torch.float32, device=coords.device)
+    lnprob = functools.partial(fused_lnprob_plain, tables=tables, st=st)
+    with torch.no_grad():
+        for step in range(k):
+            pm = perm[step * W:(step + 1) * W].long()
+            for half in range(2):
+                r = 2 * step + half
+                active, comp = (pm[:h], pm[h:]) if half == 0 else (pm[h:], pm[:h])
+                acc[step] += _half_step(lnprob, D, st.a, coords, lnp, active,
+                                        comp, z_u[r], pair[r].long(), acc_u[r])
+            chain[step] = coords
+            lnps[step] = lnp
+    return chain.reshape(k * W, D), lnps.reshape(k * W), acc
+
+
+# -- the CUDA kernel ---------------------------------------------------------
+
+def _statics_type(real):
+    class Statics(ctypes.Structure):
+        _fields_ = [("lo", real * _MAX_DIM), ("hi", real * _MAX_DIM),
+                    ("mean", real * _MAX_DIM), ("sd", real * _MAX_DIM),
+                    ("norm", real * _MAX_DIM), ("poly", real * _MAX_POLY),
+                    ("cheb", real * _MAX_CHEB)]
+        _fields_ += [(n, real) for n in ("ss", "dish_size", "Tbg", "mask_center",
+                                         "a", "q_scale", "q_pa", "q_pb",
+                                         "cheb_lo", "cheb_scale")]
+        _fields_ += [(n, ctypes.c_int32) for n in ("ndim", "free_ss", "ncol_idx",
+                                                   "q_kind", "n_poly", "has_power",
+                                                   "n_cheb", "pad")]
+    return Statics
+
+
+_STATICS = {torch.float32: _statics_type(ctypes.c_float),
+            torch.float64: _statics_type(ctypes.c_double)}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_Q_KIND = {"analytic": 0, "cheb": 1, "states": 2}
+
+_library = None
+
+
+def load_kernel_library():
+    """Build K1 (at first use) and load it: returns (ctypes library, nvcc
+    build log, empty when a cached build was loaded)."""
+    global _library
+    if _library is None:
+        path, log = build_library("fused_step.cu")
+        lib = ctypes.CDLL(str(path))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for dtype, sfx in _SUFFIX.items():
+            steps = getattr(lib, f"k1_fused_steps_{sfx}")
+            steps.argtypes, steps.restype = [P] * 14 + [I] * 6 + [P], I
+            lnprob = getattr(lib, f"k1_lnprob_{sfx}")
+            lnprob.argtypes, lnprob.restype = [P] * 7 + [I] * 5 + [P], I
+            size = getattr(lib, f"k1_statics_size_{sfx}")
+            size.argtypes, size.restype = [], I
+            if size() != ctypes.sizeof(_STATICS[dtype]):
+                raise RuntimeError(f"K1 Statics<{sfx}> is {size()} bytes in "
+                                   f"the library but {ctypes.sizeof(_STATICS[dtype])}"
+                                   " in the binding")
+        lib.k1_error_string.argtypes, lib.k1_error_string.restype = [I], ctypes.c_char_p
+        _library = (lib, log)
+    return _library
+
+
+@functools.lru_cache(maxsize=16)
+def _pack_statics(st: FusedStatics, dtype):
+    """The kernel's Statics struct for `st`, each f64 constant rounded to
+    `dtype` once."""
+    D = len(st.bounds_lo)
+    n_poly = len(st.q_coeffs) if st.q_kind == "analytic" else 0
+    n_cheb = len(st.q_coeffs) if st.q_kind == "cheb" else 0
+    if D > _MAX_DIM or n_poly > _MAX_POLY or n_cheb > _MAX_CHEB:
+        raise ValueError(f"K1 takes <= {_MAX_DIM} dims, <= {_MAX_POLY} "
+                         f"polynomial and <= {_MAX_CHEB} Chebyshev terms")
+    s = _STATICS[dtype]()
+    for name, vals in (("lo", st.bounds_lo), ("hi", st.bounds_hi),
+                       ("mean", st.prior_mean), ("sd", st.prior_std),
+                       ("norm", st.gauss_norms())):
+        getattr(s, name)[:D] = vals
+    if n_poly:
+        s.poly[:n_poly] = st.q_coeffs
+        s.q_scale = st.q_scale
+        if st.q_power is not None:
+            s.has_power, (s.q_pa, s.q_pb) = 1, st.q_power
+    if n_cheb:
+        s.cheb[:n_cheb] = st.q_coeffs
+        t_lo, t_hi = st.q_power
+        s.cheb_lo, s.cheb_scale = t_lo, 2.0 / (t_hi - t_lo)
+    s.ss = 0.0 if st.ss is None else st.ss
+    s.dish_size, s.Tbg, s.mask_center, s.a = st.dish_size, st.Tbg, st.mask_center, st.a
+    s.ndim, s.free_ss, s.ncol_idx = D, int(st.ss is None), st.ncol_idx
+    s.q_kind, s.n_poly, s.n_cheb = _Q_KIND[st.q_kind], n_poly, n_cheb
+    return s
+
+
+def step_smem_bytes(nwalkers: int, ndim: int, n_lines: int, dtype) -> int:
+    """Dynamic shared memory of one K1 step launch (csrc/fused_step.cu:
+    step_smem_bytes)."""
+    h = nwalkers // 2
+    item = torch.empty((), dtype=dtype).element_size()
+    return (item * (nwalkers * (ndim + 1) + h * (ndim + 1) + h + _WARPS * n_lines)
+            + 4 * (h + 1))
+
+
+def fused_fits(nwalkers: int, ndim: int, n_lines: int, dtype) -> bool:
+    """Does one ensemble's K1 working set fit a CTA's shared memory?"""
+    return step_smem_bytes(nwalkers, ndim, n_lines, dtype) <= _SMEM_LIMIT
+
+
+def _check(t, name, dtype, shape, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"K1: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
+                         f"the kernel takes {dtype} {tuple(shape)} on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"K1: {name} must be contiguous")
+
+
+def _check_tables(tables, dtype, device):
+    lines, vel, chans, qst = tables
+    L, C = vel.shape
+    _check(lines, "lines", dtype, (5, L), device)
+    _check(vel, "vel", dtype, (L, C), device)
+    _check(chans, "chans", dtype, (3, C), device)
+    _check(qst, "qst", dtype, (2, qst.shape[1]), device)
+    return L, C, qst.shape[1]
+
+
+def _raise_on(err: int, lib, entry: str):
+    if err:
+        raise RuntimeError(f"K1 {entry} launch failed: CUDA error {err} "
+                           f"({lib.k1_error_string(err).decode()})")
+
+
+def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st):
+    lib, _ = load_kernel_library()
+    dtype, dev = coords.dtype, coords.device
+    if dtype not in _SUFFIX:
+        raise ValueError(f"K1 takes float32 or float64 walkers, not {dtype}")
+    W, D = coords.shape
+    h, k = W // 2, z_u.shape[0] // 2
+    if W % 2 or D != len(st.bounds_lo):
+        raise ValueError(f"K1: {W} walkers x {D} dims for a "
+                         f"{len(st.bounds_lo)}-dim problem")
+    _check(coords, "coords", dtype, (W, D), dev)
+    _check(lnp, "lnp", dtype, (W,), dev)
+    _check(perm, "perm", torch.int32, (k * W,), dev)
+    _check(z_u, "z_u", dtype, (2 * k, h), dev)
+    _check(pair, "pair", torch.int32, (2 * k, h), dev)
+    _check(acc_u, "acc_u", dtype, (2 * k, h), dev)
+    L, C, S = _check_tables(tables, dtype, dev)
+    if not fused_fits(W, D, L, dtype):
+        raise ValueError(f"K1: {W} walkers x {L} lines need "
+                         f"{step_smem_bytes(W, D, L, dtype)} B of shared memory")
+    out_chain = torch.empty((k * W, D), dtype=dtype, device=dev)
+    out_lnps = torch.empty(k * W, dtype=dtype, device=dev)
+    out_acc = torch.empty(k, dtype=torch.float32, device=dev)
+    packed = _pack_statics(st, dtype)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"k1_fused_steps_{_SUFFIX[dtype]}")(
+            coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
+            pair.data_ptr(), acc_u.data_ptr(),
+            *(t.data_ptr() for t in tables),
+            out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
+            ctypes.addressof(packed), W, D, L, C, S, k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "fused_steps")
+    LAUNCHES["fused_steps"] += 1
+    return out_chain, out_lnps, out_acc
+
+
+def _launch_lnprob(theta, tables, st):
+    lib, _ = load_kernel_library()
+    dtype, dev = theta.dtype, theta.device
+    if dtype not in _SUFFIX:
+        raise ValueError(f"K1 takes float32 or float64 thetas, not {dtype}")
+    N, D = theta.shape
+    if D != len(st.bounds_lo):
+        raise ValueError(f"K1: {D}-dim thetas for a {len(st.bounds_lo)}-dim problem")
+    _check(theta, "theta", dtype, (N, D), dev)
+    L, C, S = _check_tables(tables, dtype, dev)
+    out = torch.empty(N, dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"k1_lnprob_{_SUFFIX[dtype]}")(
+            theta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
+            ctypes.addressof(_pack_statics(st, dtype)), N, D, L, C, S,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "fused_lnprob")
+    LAUNCHES["fused_lnprob"] += 1
+    return out
+
+
+def _route(t):
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type == "cpu":
+        return "cpu"
+    raise ValueError(f"K1 runs on CUDA (kernel) or on the CPU (plain version), "
+                     f"not on {t.device}")
+
+
+def fused_lnprob(theta, tables, st: FusedStatics):
+    """K1's lnprob, (N, D) -> (N,): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if _route(theta) == "cuda":
+        return _launch_lnprob(theta, tables, st)
+    return fused_lnprob_plain(theta, tables, st)
+
+
+def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
+                     st: FusedStatics):
+    """k whole steps (see fused_steps_plain for the layout): one CUDA
+    kernel launch for CUDA tensors, the plain version for CPU tensors."""
+    if _route(coords) == "cuda":
+        return _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st)
+    return fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedEnsemble:
+    """run(pos0, lnp0, nsteps, k_steps) with run_ensemble's contract and
+    randomness layout, each k steps one K1 launch (`make_fused_ensemble`)."""
+
+    tables: tuple
+    statics: FusedStatics
+
+    def lnprob(self, theta):
+        return fused_lnprob(theta, self.tables, self.statics)
+
+    def __call__(self, pos0, lnp0, nsteps: int, k_steps: int = 16, *,
+                 generator: torch.Generator | None = None, randomness=None):
+        """Returns (chain (nsteps, W, D), lnps (nsteps, W), accepted
+        (nsteps,) float32, (pos, lnp)). Randomness as in run_ensemble:
+        `randomness=(perms, z_u, pair, acc_u)` for nsteps raw steps, or
+        drawn from `generator`."""
+        W, D = pos0.shape
+        if W % 2:
+            raise ValueError(f"nwalkers={W} must be even")
+        h = W // 2
+        while nsteps % k_steps:       # largest divisor <= k_steps
+            k_steps -= 1
+        nblocks = nsteps // k_steps
+        if randomness is None:
+            if generator is None:
+                raise ValueError("FusedEnsemble needs a generator or randomness")
+            randomness = draw_randomness(nsteps, W, generator,
+                                         device=pos0.device, dtype=pos0.dtype)
+        perms, z_u, pair, acc_u = randomness
+        # block layout: the kernel's inner row r = 2*step + half indexes the
+        # (2k, h) slices in (step, half) order
+        perm_b = perms.to(torch.int32).reshape(nblocks, k_steps * W)
+        z_b = z_u.reshape(nblocks, 2 * k_steps, h)
+        pair_b = pair.to(torch.int32).reshape(nblocks, 2 * k_steps, h)
+        acc_b = acc_u.reshape(nblocks, 2 * k_steps, h)
+        coords, lnp = pos0.contiguous(), lnp0.contiguous()
+        chains, lnpss, accs = [], [], []
+        for b in range(nblocks):
+            chain_blk, lnps_blk, acc = fused_step_block(
+                coords, lnp, perm_b[b], z_b[b], pair_b[b], acc_b[b],
+                self.tables, self.statics)
+            coords = chain_blk[(k_steps - 1) * W:]
+            lnp = lnps_blk[(k_steps - 1) * W:]
+            chains.append(chain_blk)
+            lnpss.append(lnps_blk)
+            accs.append(acc)
+        return (torch.cat(chains).reshape(nsteps, W, D),
+                torch.cat(lnpss).reshape(nsteps, W), torch.cat(accs),
+                (coords, lnp))
+
+
+def make_fused_ensemble(model, spec, grid_ints, grid_yerrs, bounds,
+                        prior_means, prior_stds, *, a: float = 2.0) -> FusedEnsemble:
+    """K1 runner for a single-component problem (bounds / prior_means /
+    prior_stds in single_component_lnprior's vocabulary)."""
+    statics, tables = single_statics_tables(model, spec, grid_ints, grid_yerrs,
+                                            bounds, prior_means, prior_stds, a=a)
+    return FusedEnsemble(tables, statics)
+
+
+@dataclasses.dataclass
+class FusedEnsembleSampler(EnsembleSampler):
+    """EnsembleSampler whose blocks run through K1 (`run_fn` from
+    make_fused_ensemble), k_steps steps per launch.
+
+    The starting lnp comes from K1's own lnprob (`run_fn.lnprob`), so a
+    run's acceptance tests compare values of one lnprob formulation.
+    Thinning is exact: the run draws the raw stream for nsteps * thin
+    moves and keeps every thin-th state — bitwise what a thinned
+    run_ensemble records from the same stream.
+    """
+
+    run_fn: FusedEnsemble | None = None
+    k_steps: int = 16
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.run_fn is None:
+            raise ValueError("FusedEnsembleSampler requires run_fn from "
+                             "make_fused_ensemble")
+
+    def lnp0(self, pos):
+        with torch.no_grad():
+            return self.run_fn.lnprob(pos)
+
+    def _run_block(self, pos, lnp, generator, nsteps: int, thin: int):
+        chain, lnps, acc, final = self.run_fn(pos, lnp, nsteps * thin,
+                                              self.k_steps, generator=generator)
+        chain, lnps, acc = self.thin(chain, lnps, acc, thin)
+        return chain, lnps, acc, final

@@ -1,0 +1,273 @@
+"""Goodman & Weare affine-invariant stretch-move ensemble sampler.
+
+Port of cha1_mcmc_tpu/sampler/stretch.py (single ensemble). Semantics
+match emcee v3's StretchMove + RedBlueMove (reference
+inference.py:456-473, emcee==3.1.6):
+
+  * per step the ensemble is split into two random halves
+    (RedBlueMove randomize_split);
+  * halves update sequentially — the second half sees the first half's
+    *updated* coordinates;
+  * each active walker draws a partner uniformly from the complementary
+    half, a stretch factor z with density g(z) = 1/sqrt(z) on [1/a, a]
+    via z = ((a-1) u + 1)^2 / a, and proposes Y = c + z (s - c);
+  * acceptance: ln U < (ndim - 1) ln z + lnprob(Y) - lnprob(s).
+
+All randomness of a run is drawn up front in the JAX package's stream
+layout: per raw step a permutation of the W walkers, then z_u, pair and
+acc_u, each (n_raw, 2, W/2). Passing the four arrays in (`randomness=`)
+replays any stream exactly, e.g. one generated by the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from cha1_mcmc_tpu_torch.sampler.chain import last_position
+
+__all__ = ["draw_randomness", "run_ensemble", "EnsembleSampler",
+           "PACKAGE_TAG"]
+
+#: Written into every `.state.npz` sidecar; a sidecar without it (e.g. one
+#: holding a JAX PRNG key) cannot continue a stream here.
+PACKAGE_TAG = "cha1_mcmc_tpu_torch"
+
+
+def _state_path(chain_file: str) -> str:
+    root, _ = os.path.splitext(chain_file)
+    return root + ".state.npz"
+
+
+def draw_randomness(n_raw: int, nwalkers: int, generator: torch.Generator, *,
+                    device=None, dtype=torch.float32):
+    """The four bulk random arrays of `n_raw` raw ensemble steps, in the
+    JAX package's layout: perms (n_raw, W) int64 (argsort of uniforms: a
+    uniformly random half-split per step), z_u (n_raw, 2, h) and acc_u
+    (n_raw, 2, h) uniforms in `dtype`, pair (n_raw, 2, h) int64 partner
+    indices into the complementary half."""
+    h = nwalkers // 2
+    perms = torch.argsort(torch.rand((n_raw, nwalkers), generator=generator,
+                                     device=device), dim=1)
+    z_u = torch.rand((n_raw, 2, h), generator=generator, device=device, dtype=dtype)
+    pair = torch.randint(0, h, (n_raw, 2, h), generator=generator, device=device)
+    acc_u = torch.rand((n_raw, 2, h), generator=generator, device=device, dtype=dtype)
+    return perms, z_u, pair, acc_u
+
+
+def stretch_z(z_u, a: float):
+    """Stretch factor z = ((a-1) u + 1)^2 / a from uniforms u."""
+    return ((a - 1.0) * z_u + 1.0) ** 2 / a
+
+
+def propose(c, z, s):
+    """Y = c + z (s - c), with the multiply-add fused into one rounding,
+    as the JAX package's compiled step rounds it."""
+    return torch.addcmul(c, z, s - c)
+
+
+def _half_step(lnprob_batch, ndim, a, coords, lnp, active_idx, comp_idx,
+               z_u, pair, acc_u):
+    """Update walkers `active_idx` (in place) using complement `comp_idx`
+    with pre-drawn uniforms. Returns the number accepted."""
+    s = coords[active_idx]
+    c = coords[comp_idx][pair]
+    z = stretch_z(z_u, a)
+    proposal = propose(c, z[:, None], s)
+
+    lnp_new = lnprob_batch(proposal)
+    lnpdiff = (ndim - 1.0) * torch.log(z) + lnp_new - lnp[active_idx]
+    accept = torch.log(acc_u) < lnpdiff
+
+    coords[active_idx] = torch.where(accept[:, None], proposal, s)
+    lnp[active_idx] = torch.where(accept, lnp_new, lnp[active_idx])
+    return accept.sum()
+
+
+@torch.no_grad()
+def run_ensemble(lnprob_fn, pos0, lnp0, nsteps: int, a: float = 2.0,
+                 thin: int = 1, *, generator: torch.Generator | None = None,
+                 randomness=None):
+    """Run `nsteps` ensemble steps from (pos0, lnp0).
+
+    lnprob_fn: batched (N, D) -> (N,) log-probability.
+    pos0: (W, D) initial walker coordinates; lnp0: (W,) their lnprob.
+    Each of the `nsteps` recorded steps advances the ensemble by `thin`
+    raw ensemble moves. Randomness is `randomness=(perms, z_u, pair,
+    acc_u)` for n_raw = nsteps * thin raw moves (see draw_randomness), or
+    is drawn from `generator`. Returns (chain (nsteps, W, D), lnps
+    (nsteps, W), accepted (nsteps,), final (pos, lnp)).
+    """
+    W, D = pos0.shape
+    if W % 2:
+        raise ValueError(f"nwalkers={W} must be even (complementary halves)")
+    h = W // 2
+    n_raw = nsteps * thin
+    if randomness is None:
+        if generator is None:
+            raise ValueError("run_ensemble needs a generator or randomness")
+        randomness = draw_randomness(n_raw, W, generator, device=pos0.device,
+                                     dtype=pos0.dtype)
+    perms, z_u, pair, acc_u = randomness
+    if perms.shape != (n_raw, W) or z_u.shape != (n_raw, 2, h):
+        raise ValueError(f"randomness shaped {tuple(perms.shape)} / "
+                         f"{tuple(z_u.shape)} does not cover {n_raw} raw "
+                         f"steps of {W} walkers")
+
+    coords, lnp = pos0.clone(), lnp0.clone()
+    chain = torch.empty((nsteps, W, D), dtype=pos0.dtype, device=pos0.device)
+    lnps = torch.empty((nsteps, W), dtype=lnp0.dtype, device=pos0.device)
+    accepted = torch.zeros(nsteps, dtype=torch.int64, device=pos0.device)
+    for i in range(nsteps):
+        for r in range(i * thin, (i + 1) * thin):
+            first, second = perms[r, :h], perms[r, h:]
+            accepted[i] += _half_step(lnprob_fn, D, a, coords, lnp, first,
+                                      second, z_u[r, 0], pair[r, 0], acc_u[r, 0])
+            accepted[i] += _half_step(lnprob_fn, D, a, coords, lnp, second,
+                                      first, z_u[r, 1], pair[r, 1], acc_u[r, 1])
+        chain[i] = coords
+        lnps[i] = lnp
+    return chain, lnps, accepted, (coords, lnp)
+
+
+@dataclasses.dataclass
+class EnsembleSampler:
+    """Stateful wrapper with the reference chain-file contract.
+
+    The reference drives emcee one step at a time, saving the cumulative
+    chain as a (nwalkers, nsteps, ndim) .npy after every step and resuming
+    from chain[:, -1, :] (reference inference.py:460-473). Here steps run
+    on the device in blocks of `checkpoint_every` and the same .npy
+    contract is honored at block boundaries, with a `.state.npz` sidecar
+    (positions, lnprob, acceptance counters and the generator state) for
+    an exact continuation of the random stream.
+    """
+
+    lnprob_fn: callable
+    nwalkers: int
+    ndim: int
+    a: float = 2.0
+    dtype: torch.dtype = torch.float32
+    device: torch.device | str = "cpu"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self._chain_blocks: list[np.ndarray] = []   # each (W, K, D)
+        self._lnp_blocks: list[np.ndarray] = []
+        self.accepted = 0
+        self.total_proposals = 0
+
+    def preload(self, chain: np.ndarray, lnprobability: np.ndarray | None = None):
+        """Seed the sampler with an existing (W, S, D) chain so further
+        run_mcmc calls append to it — the cross-run resume convention
+        (reference inference.py:462-463 re-saves the cumulative chain and
+        restarts from chain[:, -1, :])."""
+        chain = np.asarray(chain)
+        if chain.shape[0] != self.nwalkers or chain.shape[2] != self.ndim:
+            raise ValueError(f"chain shaped {chain.shape} does not hold "
+                             f"{self.nwalkers} walkers of {self.ndim} dims")
+        self._chain_blocks = [chain]
+        self._lnp_blocks = ([np.asarray(lnprobability)] if lnprobability is not None
+                            else [np.full(chain.shape[:2], np.nan)])
+        return last_position(chain)
+
+    @property
+    def chain(self) -> np.ndarray:
+        """(nwalkers, nsteps, ndim), emcee layout (reference inference.py:462)."""
+        if not self._chain_blocks:
+            return np.empty((self.nwalkers, 0, self.ndim))
+        return np.concatenate(self._chain_blocks, axis=1)
+
+    @property
+    def lnprobability(self) -> np.ndarray:
+        if not self._lnp_blocks:
+            return np.empty((self.nwalkers, 0))
+        return np.concatenate(self._lnp_blocks, axis=1)
+
+    @property
+    def acceptance_fraction(self) -> float:
+        return self.accepted / max(self.total_proposals, 1)
+
+    def lnp0(self, pos: torch.Tensor) -> torch.Tensor:
+        """lnprob of the starting positions."""
+        with torch.no_grad():
+            return self.lnprob_fn(pos)
+
+    def thin(self, chain, lnps, accepted, thin: int):
+        """Keep every thin-th of the raw steps of a (n_raw, W, D) block
+        ending each group of `thin` raw moves: bitwise what
+        run_ensemble(nsteps, thin=thin) records from the same stream."""
+        if thin == 1:
+            return chain, lnps, accepted
+        n = chain.shape[0] // thin
+        return (chain[thin - 1::thin], lnps[thin - 1::thin],
+                accepted.reshape(n, thin).sum(dim=1))
+
+    def _run_block(self, pos, lnp, generator, nsteps: int, thin: int):
+        """One checkpoint block, (nsteps, W, D) layout."""
+        return run_ensemble(self.lnprob_fn, pos, lnp, nsteps, a=self.a,
+                            thin=thin, generator=generator)
+
+    def run_mcmc(self, pos, nsteps: int, generator: torch.Generator,
+                 checkpoint_every: int = 256, chain_file: str | None = None,
+                 progress: bool = False, thin: int = 1, lnp0=None):
+        """Run `nsteps` steps, checkpointing the cumulative chain per block.
+
+        Alongside the chain .npy, a `<chain>.state.npz` sidecar records the
+        exact sampler state (positions, lnprob, generator state, acceptance
+        counters) so a later run can continue the random stream exactly
+        (load_state). Randomness is drawn from `generator` block by block,
+        so a run split at a block boundary and resumed equals the unsplit
+        run bitwise. `lnp0` (from load_state) continues with the saved lnp
+        rather than recomputing it.
+        """
+        pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        lnp = (self.lnp0(pos) if lnp0 is None
+               else torch.as_tensor(lnp0, dtype=self.dtype, device=self.device))
+        done = 0
+        while done < nsteps:
+            block = min(checkpoint_every, nsteps - done)
+            chain, lnps, accepted, (pos, lnp) = self._run_block(
+                pos, lnp, generator, block, thin)
+            # device (K, W, D) -> emcee layout (W, K, D)
+            self._chain_blocks.append(chain.cpu().numpy().transpose(1, 0, 2))
+            self._lnp_blocks.append(lnps.cpu().numpy().T)
+            self.accepted += int(accepted.sum())
+            self.total_proposals += block * thin * self.nwalkers
+            done += block
+            if chain_file is not None:
+                np.save(chain_file, self.chain)
+                np.savez(_state_path(chain_file),
+                         pos=pos.cpu().numpy(), lnp=lnp.cpu().numpy(),
+                         rng_state=generator.get_state().numpy(),
+                         accepted=self.accepted,
+                         total_proposals=self.total_proposals,
+                         package=PACKAGE_TAG)
+            if progress:
+                print(f"MCMC sampling: {done}/{nsteps} steps "
+                      f"(acceptance {self.acceptance_fraction:.3f})", flush=True)
+        return pos.cpu().numpy(), lnp.cpu().numpy()
+
+    def load_state(self, chain_file: str):
+        """Restore (pos, lnp, generator_state) from a `.state.npz` sidecar
+        for an exact continuation (pass lnp to run_mcmc's lnp0 and the
+        state to `generator.set_state`); returns None if no sidecar
+        exists. Refuses a sidecar this package did not write: its random
+        state (e.g. a JAX PRNG key) cannot continue a stream here."""
+        state_path = _state_path(chain_file)
+        if not os.path.exists(state_path):
+            return None
+        state = np.load(state_path)
+        if "package" not in state.files or str(state["package"]) != PACKAGE_TAG:
+            raise ValueError(
+                f"{state_path} was not written by {PACKAGE_TAG} (no package "
+                "tag): its random state cannot continue a stream here; "
+                "remove the sidecar to restart from the chain's last "
+                "positions with a fresh stream")
+        self.accepted = int(state["accepted"])
+        self.total_proposals = int(state["total_proposals"])
+        return (state["pos"], state["lnp"],
+                torch.from_numpy(state["rng_state"].copy()))

@@ -1,0 +1,112 @@
+"""Shared helpers for the parity tests of the torch port against the JAX
+package (tests/test_torch_*.py): the synthetic flagship problem as seen by
+both packages, the JAX model's constants as NumPy arrays, and the JAX
+sampler's randomness rebuilt exactly as cha1_mcmc_tpu/sampler/stretch.py
+draws it."""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+
+import numpy as np
+import pytest
+import torch
+
+from tests.port_problems import (ALIGNED_VELOCITY, DISH_SIZE, LL, UL,
+                                 SOURCE_SIZE, write_hc5n_problem)
+
+BOUNDS = {"source_size": (30.0, 90.0), "Ncol": (1e8, 1e14),
+          "Tex": (3.5, 12.0), "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
+MEANS_4 = np.array([3.4e10, 8.0, 4.3, 0.7575])
+STDS_4 = np.array([0.34e10, 3.0, 0.06, 0.22])
+MEANS_5 = np.array([46.91, 3.4e10, 8.0, 4.3, 0.7575])
+STDS_5 = np.array([6.5, 0.34e10, 3.0, 0.06, 0.22])
+TRUTH_4 = np.array([3.24e12, 7.5, 4.11, 0.78])
+TRUTH_5 = np.array([52.0, 3.24e12, 7.5, 4.11, 0.78])
+
+_MODEL_FIELDS = ("line_freq", "line_elower", "line_aij", "line_gup",
+                 "line_glow", "grid_freq", "vel_grid")
+
+
+@pytest.fixture(scope="module")
+def problem(tmp_path_factory):
+    """The synthetic hc5n_hfs catalog and 561-channel spectrum on disk."""
+    return write_hc5n_problem(str(tmp_path_factory.mktemp("hc5n")))
+
+
+def jax_reduce(problem):
+    """(catalog, datagrid) from the JAX package, reduction log silenced."""
+    from cha1_mcmc_tpu.catalogs import load_catalog
+    from cha1_mcmc_tpu.reduce.datagrid import reduce_spectrum
+
+    cat = load_catalog(problem["cat_path"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        grid = reduce_spectrum(cat, problem["data_path"], ll=LL, ul=UL,
+                               aligned_velocity=ALIGNED_VELOCITY,
+                               dish_size=DISH_SIZE, source_size=SOURCE_SIZE)
+    return cat, grid
+
+
+def jax_model(cat, grid, dtype, q_model=None):
+    """The JAX SpectralModel of the flagship geometry (build it inside
+    jax.enable_x64() for float64)."""
+    import jax.numpy as jnp
+    from cha1_mcmc_tpu.models.forward import SpectralModel
+
+    return SpectralModel.build(cat, grid.covered_trans, grid.freqs, ll=LL,
+                               ul=UL, dish_size=DISH_SIZE,
+                               vel_offset=ALIGNED_VELOCITY,
+                               mask_center=ALIGNED_VELOCITY,
+                               q_model=q_model, dtype=jnp.dtype(dtype))
+
+
+def model_arrays(jmodel) -> dict:
+    return {k: np.asarray(getattr(jmodel, k)) for k in _MODEL_FIELDS}
+
+
+def q_dict(qm) -> dict:
+    return dataclasses.asdict(qm)
+
+
+def port_model(jmodel, dtype):
+    """The port's SpectralModel on the JAX model's exact constants."""
+    from cha1_mcmc_tpu_torch.models.forward import model_from_arrays
+
+    return model_from_arrays(model_arrays(jmodel), q_dict(jmodel.q_model),
+                             mask_center=jmodel.mask_center,
+                             dish_size=jmodel.dish_size, Tbg=jmodel.Tbg,
+                             vel_offset=jmodel.vel_offset, device="cpu",
+                             dtype=dtype)
+
+
+def jax_randomness(key, n_raw: int, W: int, dtype):
+    """(perms, z_u, pair, acc_u) as NumPy, drawn exactly as
+    cha1_mcmc_tpu/sampler/stretch.py:98-104 (and fused.py:403-407) draw
+    them from `key`."""
+    import jax
+
+    h = W // 2
+    k_perm, k_z, k_pair, k_acc = jax.random.split(key, 4)
+    perms = jax.numpy.argsort(jax.random.uniform(k_perm, (n_raw, W)), axis=1)
+    z_u = jax.random.uniform(k_z, (n_raw, 2, h), dtype=dtype)
+    pair = jax.random.randint(k_pair, (n_raw, 2, h), 0, h)
+    acc_u = jax.random.uniform(k_acc, (n_raw, 2, h), dtype=dtype)
+    return tuple(np.asarray(t) for t in (perms, z_u, pair, acc_u))
+
+
+def to_torch(arrays):
+    return tuple(torch.from_numpy(np.array(a)) for a in arrays)
+
+
+def walker_ball(center, W, seed, scale=0.01):
+    rng = np.random.default_rng(seed)
+    return np.asarray(center) * (1 + scale * rng.standard_normal((W, len(center))))
+
+
+def spec_and_prior(ndim):
+    """(fixed source size or None, means, stds, bounds) for 4/5 dims."""
+    if ndim == 4:
+        return SOURCE_SIZE, MEANS_4, STDS_4, BOUNDS
+    return None, MEANS_5, STDS_5, BOUNDS
