@@ -13,8 +13,9 @@ imports none of it.
     explicit device and dtype, and randomness comes from an explicit
     torch.Generator.
   * The flagship single-component fit runs its whole ensemble step in one
-    hand-written CUDA kernel (K1, csrc/fused_step.cu), with a plain
-    PyTorch version beside it.
+    hand-written CUDA kernel (K1, csrc/fused_step.cu), and the
+    K-component GOTHAM multifit in another (K2, csrc/multi_step.cu),
+    each with a plain PyTorch version beside it.
 """
 
 __version__ = "0.1.0"
@@ -23,8 +24,10 @@ from cha1_mcmc_tpu_torch import constants
 from cha1_mcmc_tpu_torch.catalogs import Catalog, load_catalog, QModel
 from cha1_mcmc_tpu_torch.models import SpectralModel
 from cha1_mcmc_tpu_torch.sampler import (EnsembleSampler, FusedEnsembleSampler,
-                                         make_fused_ensemble, run_ensemble)
-from cha1_mcmc_tpu_torch.pipeline import FitConfig, SpectralFit
+                                         make_fused_ensemble,
+                                         make_fused_ensemble_multi, run_ensemble)
+from cha1_mcmc_tpu_torch.pipeline import (FitConfig, SpectralFit, MultiFitConfig,
+                                          MultiComponentFit, load_preset)
 
 __all__ = [
     "constants",
@@ -35,8 +38,12 @@ __all__ = [
     "EnsembleSampler",
     "FusedEnsembleSampler",
     "make_fused_ensemble",
+    "make_fused_ensemble_multi",
     "run_ensemble",
     "FitConfig",
     "SpectralFit",
+    "MultiFitConfig",
+    "MultiComponentFit",
+    "load_preset",
     "__version__",
 ]

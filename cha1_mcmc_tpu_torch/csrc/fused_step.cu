@@ -47,8 +47,8 @@
 //    torch.addcmul rounds it) and the acceptance difference use explicitly
 //    rounded intrinsics, so in float64 the kernel's trajectories equal the
 //    plain version's bitwise.
-//  * the step loop is written once (run_step_loop), templated on the
-//    device lnprob, for the kernels that share it later.
+//  * the step loop is written once (run_step_loop in step_loop.cuh),
+//    templated on the device lnprob; K2 (multi_step.cu) shares it.
 //
 // C entries (all return cudaGetLastError() after the launch):
 //   k1_fused_steps_{f32,f64}: k whole steps of one ensemble;
@@ -56,19 +56,13 @@
 //   k1_statics_size_{f32,f64}: sizeof(Statics<T>), checked by the binding;
 //   k1_error_string: the CUDA error message of a returned code.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "step_loop.cuh"
 
 namespace {
 
 constexpr int kMaxDim = 5;
 constexpr int kMaxPoly = 8;
 constexpr int kMaxCheb = 65;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-
-enum QKind : int32_t { kQAnalytic = 0, kQCheb = 1, kQStates = 2 };
 
 template <typename T>
 struct Statics {
@@ -90,87 +84,6 @@ struct Tables {
   const T* qst;    // (2, S): state-sum g, E
   int L, C, S;
 };
-
-// Overloads so one template body serves float and double.
-__device__ __forceinline__ float ex(float x) { return expf(x); }
-__device__ __forceinline__ double ex(double x) { return exp(x); }
-__device__ __forceinline__ float ex2(float x) { return exp2f(x); }
-__device__ __forceinline__ double ex2(double x) { return exp2(x); }
-__device__ __forceinline__ float lg(float x) { return logf(x); }
-__device__ __forceinline__ double lg(double x) { return log(x); }
-__device__ __forceinline__ float ab(float x) { return fabsf(x); }
-__device__ __forceinline__ double ab(double x) { return fabs(x); }
-__device__ __forceinline__ float pw(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double pw(double x, double y) { return pow(x, y); }
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-
-template <typename T>
-__device__ __forceinline__ T neg_inf() { return -T(INFINITY); }
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// x**n by binary exponentiation, multiplying in jax.lax.integer_pow's order.
-template <typename T>
-__device__ __forceinline__ T int_pow(T x, int n) {
-  if (n == 0) return T(1);
-  T acc = T(0);
-  bool have = false;
-  while (n > 0) {
-    if (n & 1) {
-      acc = have ? acc * x : x;
-      have = true;
-    }
-    n >>= 1;
-    if (n > 0) x = x * x;
-  }
-  return acc;
-}
-
-// Q(Tex), identical on every lane of the warp (_make_q_of).
-template <typename T>
-__device__ T q_of(T Tex, const Statics<T>& st, const Tables<T>& tb, int lane) {
-  if (st.q_kind == kQCheb) {
-    const T x = (Tex - st.cheb_lo) * st.cheb_scale - T(1);
-    T bk1 = T(0), bk2 = T(0);
-    for (int i = st.n_cheb - 1; i >= 1; --i) {
-      const T nb = st.cheb[i] + T(2) * x * bk1 - bk2;
-      bk2 = bk1;
-      bk1 = nb;
-    }
-    return st.cheb[0] + x * bk1 - bk2;
-  }
-  if (st.q_kind == kQStates) {
-    T part = T(0);
-    for (int s = lane; s < tb.S; s += 32)
-      part += tb.qst[s] * ex(-tb.qst[tb.S + s] / (T(0.69503476) * Tex));
-    return warp_sum(part);
-  }
-  T q = T(0);
-  for (int i = 0; i < st.n_poly; ++i) q = q + st.poly[i] * int_pow(Tex, i);
-  if (st.has_power) q = q + st.q_pa * pw(Tex, st.q_pb);
-  return st.q_scale * q;
-}
-
-// Planck radiation temperature with the hot loop's 1e-10 guard.
-template <typename T>
-__device__ __forceinline__ T planck_J(T freq_mhz, T temp) {
-  const T x = T(6.626e-34) * freq_mhz * T(1e6) / T(1.381e-23);
-  return x / (ex(x / temp) - T(1) + T(1e-10));
-}
 
 // lnprob of one proposal, evaluated by one warp; `tau` is the warp's
 // (L,) scratch. The value is returned on every lane.
@@ -200,18 +113,11 @@ __device__ T dense_lnprob(const T* th, const Statics<T>& st,
   if (!ok) return neg_inf<T>();  // the whole warp leaves together
 
   // Stick opacities (ops/lte.py:tau_sticks), one line per lane.
-  const T Q = q_of(Tex, st, tb, lane);
+  const T Q = q_of(Tex, st, tb.qst, tb.S, lane);
   for (int l = lane; l < tb.L; l += 32) {
-    const T lf = tb.lines[l], le = tb.lines[tb.L + l];
-    const T la = tb.lines[2 * tb.L + l], lgu = tb.lines[3 * tb.L + l];
-    const T lgl = tb.lines[4 * tb.L + l];
-    const T Nl = Ncol * lgl * ex(-le / (T(0.695) * Tex)) / Q;
-    const T nu = lf * T(1e6);
-    const T r = T(2.998e10) / nu;
-    const T num = r * r * la * lgu * Nl
-                  * (T(1) - ex(-(T(6.626e-34) * nu) / (T(1.381e-23) * Tex)));
-    const T den = T(8.0 * 3.141592653589793) * (dV * nu / T(2.998e5)) * lgl;
-    tau[l] = num / den;
+    tau[l] = tau_stick(tb.lines[l], tb.lines[tb.L + l], tb.lines[2 * tb.L + l],
+                       tb.lines[3 * tb.L + l], tb.lines[4 * tb.L + l], Q, Ncol,
+                       Tex, dV);
   }
   __syncwarp();
 
@@ -232,9 +138,7 @@ __device__ T dense_lnprob(const T* th, const Statics<T>& st,
     const T gf = tb.chans[c], y = tb.chans[tb.C + c], isig = tb.chans[2 * tb.C + c];
     const T J_T = planck_J(gf, Tex);
     const T J_Tbg = planck_J(gf, st.Tbg);
-    const T wl = T(2.998e8) / (gf * T(1e6));
-    const T beam = wl * T(206265.0) * T(1.22) / st.dish_size;
-    const T dil = ss_w * ss_w / (beam * beam + ss_w * ss_w);
+    const T dil = beam_dilution(gf, ss_w, st.dish_size);
     const T m = dil * (J_T - J_Tbg) * (T(1) - ex(-opac));
     const T resid = y - m;
     part += resid * resid * isig - lg(isig);
@@ -254,84 +158,6 @@ struct DenseLnProb {
     return dense_lnprob(th, st, tb, tau + warp * tb.L, lane);
   }
 };
-
-// z = ((a - 1) u + 1)^2 / a, each operation rounded as the plain version's.
-template <typename T>
-__device__ __forceinline__ T stretch_z(T u, T a) {
-  const T t = add_rn(mul_rn(a - T(1), u), T(1));
-  return div_rn(mul_rn(t, t), a);
-}
-
-// k whole ensemble steps of one ensemble (the CTA), around any warp-level
-// lnprob(theta, warp, lane). Shared state: `state` (W, D+1),
-// `prop` (h, D+1), `zz` (h,), `flag` (h,), `acc_count`.
-template <typename T, typename LnProb>
-__device__ void run_step_loop(const T* coords, const T* lnp0,
-                              const int32_t* perm, const T* zu,
-                              const int32_t* pair, const T* au,
-                              T* out_chain, T* out_lnps, float* out_acc,
-                              int W, int D, int k, T a, T* state, T* prop,
-                              T* zz, int* flag, int* acc_count,
-                              const LnProb& lnprob) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = W / 2, D1 = D + 1;
-  for (int i = tid; i < W * D; i += kThreads) state[(i / D) * D1 + i % D] = coords[i];
-  for (int w = tid; w < W; w += kThreads) state[w * D1 + D] = lnp0[w];
-  __syncthreads();
-
-  for (int step = 0; step < k; ++step) {
-    const int32_t* pm = perm + (size_t)step * W;
-    if (tid == 0) *acc_count = 0;
-    for (int half = 0; half < 2; ++half) {
-      const int r = 2 * step + half;
-      const int32_t* act = pm + half * h;
-      const int32_t* cmp = pm + (1 - half) * h;
-      // Phase 1: proposals Y = c + z (s - c) from indexed gathers.
-      for (int j = tid; j < h; j += kThreads) {
-        const T* s = state + act[j] * D1;
-        const T* c = state + cmp[pair[r * h + j]] * D1;
-        const T z = stretch_z(zu[r * h + j], a);
-        zz[j] = z;
-        for (int d = 0; d < D; ++d)
-          prop[j * D1 + d] = fma_rn(z, sub_rn(s[d], c[d]), c[d]);
-      }
-      __syncthreads();
-      // Phase 2: one warp per proposal; lane 0 decides acceptance.
-      for (int j = warp; j < h; j += kWarps) {
-        const T lnp_new = lnprob(prop + j * D1, warp, lane);
-        if (lane == 0) {
-          const T lnp_s = state[act[j] * D1 + D];
-          const T diff = sub_rn(add_rn(mul_rn(T(D - 1), lg(zz[j])), lnp_new), lnp_s);
-          const bool accept = lg(au[r * h + j]) < diff;
-          prop[j * D1 + D] = lnp_new;
-          flag[j] = accept;
-          if (accept) atomicAdd(acc_count, 1);
-        }
-      }
-      __syncthreads();
-      // Phase 3: write accepted proposals back (a select, not a delta).
-      for (int j = tid; j < h; j += kThreads) {
-        if (flag[j]) {
-          T* dst = state + act[j] * D1;
-          for (int d = 0; d < D1; ++d) dst[d] = prop[j * D1 + d];
-        }
-      }
-      __syncthreads();
-    }
-    T* oc = out_chain + (size_t)step * W * D;
-    for (int i = tid; i < W * D; i += kThreads) oc[i] = state[(i / D) * D1 + i % D];
-    for (int w = tid; w < W; w += kThreads) out_lnps[(size_t)step * W + w] = state[w * D1 + D];
-    if (tid == 0) out_acc[step] = (float)(*acc_count);
-    __syncthreads();
-  }
-}
-
-template <typename T>
-size_t step_smem_bytes(int W, int D, int L) {
-  const int h = W / 2;
-  return sizeof(T) * ((size_t)W * (D + 1) + (size_t)h * (D + 1) + h + (size_t)kWarps * L)
-         + sizeof(int) * (h + 1);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -379,7 +205,7 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm,
   const Tables<T> tb{static_cast<const T*>(lines), static_cast<const T*>(vel),
                      static_cast<const T*>(chans), static_cast<const T*>(qst),
                      L, C, S};
-  const size_t smem = step_smem_bytes<T>(W, D, L);
+  const size_t smem = step_smem_bytes<T>(W, D, (size_t)kWarps * L);
   cudaError_t err = cudaFuncSetAttribute(
       fused_steps_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -1,10 +1,13 @@
 """Affine-invariant ensemble MCMC on the device: the general stretch-move
-sampler and the fused whole-step kernel K1."""
+sampler and the fused whole-step kernels K1 (one component) and K2
+(K components)."""
 
 from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_randomness,
                                                  run_ensemble)
 from cha1_mcmc_tpu_torch.sampler.fused import (FusedEnsemble, FusedEnsembleSampler,
                                                make_fused_ensemble)
+from cha1_mcmc_tpu_torch.sampler.fused_multi import (MultiFusedEnsemble,
+                                                     make_fused_ensemble_multi)
 from cha1_mcmc_tpu_torch.sampler.chain import (
     save_chain,
     load_chain,
@@ -18,6 +21,8 @@ __all__ = [
     "FusedEnsemble",
     "FusedEnsembleSampler",
     "make_fused_ensemble",
+    "MultiFusedEnsemble",
+    "make_fused_ensemble_multi",
     "draw_randomness",
     "run_ensemble",
     "save_chain",

@@ -36,7 +36,7 @@ from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, _half_step,
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain",
-           "fused_steps_plain", "fused_lnprob", "fused_step_block",
+           "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
            "FusedEnsemble", "make_fused_ensemble", "FusedEnsembleSampler",
            "fused_fits", "step_smem_bytes", "load_kernel_library", "LAUNCHES"]
 
@@ -73,13 +73,7 @@ class FusedStatics:
     a: float = 2.0
 
     def q_model(self) -> QModel:
-        if self.q_kind == "cheb":
-            return QModel(kind="states", cheb_interval=self.q_power,
-                          cheb_coeffs=self.q_coeffs)
-        if self.q_kind == "states":
-            return QModel(kind="states")
-        return QModel(kind="analytic", coeffs=self.q_coeffs,
-                      power=self.q_power, scale=self.q_scale)
+        return statics_q_model(self)
 
     @property
     def ncol_idx(self) -> int:
@@ -87,8 +81,43 @@ class FusedStatics:
 
     def gauss_norms(self) -> tuple:
         """log(1/(sqrt(2 pi) sd)) per dimension, in f64 on the host."""
-        return tuple(float(np.log(1.0 / (np.sqrt(2.0 * np.pi) * sd)))
-                     for sd in self.prior_std)
+        return tuple(gauss_norm(sd) for sd in self.prior_std)
+
+
+def gauss_norm(sd: float) -> float:
+    """log(1/(sqrt(2 pi) sd)) in f64 on the host, as the JAX kernels
+    compute their Gaussian normalisations from Python-float statics."""
+    return float(np.log(1.0 / (np.sqrt(2.0 * np.pi) * sd)))
+
+
+def statics_q_model(st) -> QModel:
+    """The torch QModel of a kernel statics' Q fields (q_kind, q_coeffs,
+    q_power, q_scale); a state sum takes its (g, E) from the tables."""
+    if st.q_kind == "cheb":
+        return QModel(kind="states", cheb_interval=st.q_power,
+                      cheb_coeffs=st.q_coeffs)
+    if st.q_kind == "states":
+        return QModel(kind="states")
+    return QModel(kind="analytic", coeffs=st.q_coeffs, power=st.q_power,
+                  scale=st.q_scale)
+
+
+def q_statics(model):
+    """(Q fields of a kernel statics, qst table) for the model's Q(T):
+    the Chebyshev surrogate when one is attached (q_power carries its fit
+    interval), else the state sum (qst = (2, S) g, E) or the analytic
+    form (qst a dummy (2, 8))."""
+    qm = model.q_model
+    qst = torch.zeros((2, 8), dtype=model.dtype, device=model.device)
+    if qm.cheb_coeffs is not None:
+        return dict(q_kind="cheb", q_coeffs=tuple(qm.cheb_coeffs),
+                    q_power=tuple(qm.cheb_interval), q_scale=1.0), qst
+    if qm.kind == "states":
+        return (dict(q_kind="states", q_coeffs=(), q_power=None, q_scale=1.0),
+                torch.stack([model.q_g, model.q_E]))
+    return dict(q_kind="analytic", q_coeffs=tuple(qm.coeffs),
+                q_power=None if qm.power is None else tuple(qm.power),
+                q_scale=float(qm.scale)), qst
 
 
 def single_statics_tables(model, spec, grid_ints, grid_yerrs, bounds,
@@ -101,7 +130,6 @@ def single_statics_tables(model, spec, grid_ints, grid_yerrs, bounds,
     sigma_dV = 0.3 mean_dV (reference inference.py:200-201)."""
     if spec.ncomp != 1:
         raise ValueError("K1 supports single-component layouts only")
-    qm = model.q_model
     free_ss = spec.fixed_source_size is None
     means = np.asarray(prior_means, dtype=np.float64)
     stds = np.asarray(prior_stds, dtype=np.float64).copy()
@@ -116,17 +144,7 @@ def single_statics_tables(model, spec, grid_ints, grid_yerrs, bounds,
                          torch.as_tensor(grid_ints, dtype=dt, device=dev),
                          1.0 / torch.as_tensor(grid_yerrs, dtype=dt, device=dev) ** 2])
     vel = model.vel_grid.contiguous()
-    qst = torch.zeros((2, 8), dtype=dt, device=dev)
-    if qm.cheb_coeffs is not None:
-        q = dict(q_kind="cheb", q_coeffs=tuple(qm.cheb_coeffs),
-                 q_power=tuple(qm.cheb_interval), q_scale=1.0)
-    elif qm.kind == "states":
-        qst = torch.stack([model.q_g, model.q_E])
-        q = dict(q_kind="states", q_coeffs=(), q_power=None, q_scale=1.0)
-    else:
-        q = dict(q_kind="analytic", q_coeffs=tuple(qm.coeffs),
-                 q_power=None if qm.power is None else tuple(qm.power),
-                 q_scale=float(qm.scale))
+    q, qst = q_statics(model)
     statics = FusedStatics(
         ss=None if free_ss else float(spec.fixed_source_size),
         dish_size=float(model.dish_size), Tbg=float(model.Tbg),
@@ -187,11 +205,11 @@ def fused_lnprob_plain(theta, tables, st: FusedStatics):
     return torch.where(ok & torch.isfinite(val), val, -torch.inf)
 
 
-def fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
-                      st: FusedStatics):
-    """k = z_u.shape[0] // 2 whole stretch-move steps with torch ops.
+def steps_plain(lnprob, a: float, coords, lnp, perm, z_u, pair, acc_u):
+    """k = z_u.shape[0] // 2 whole stretch-move steps of a step kernel's
+    plain version, around the batched `lnprob` (N, D) -> (N,).
 
-    coords (W, D), lnp (W,); per block randomness in the kernel's layout:
+    coords (W, D), lnp (W,); per block randomness in the kernels' layout:
     perm (k*W,) the per-step permutations, z_u / pair / acc_u (2k, h) with
     row r = 2*step + half. Returns chain (k*W, D), lnps (k*W,) and the
     accepted count per step, acc (k,) float32."""
@@ -202,18 +220,24 @@ def fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
     chain = torch.empty((k, W, D), dtype=coords.dtype, device=coords.device)
     lnps = torch.empty((k, W), dtype=lnp.dtype, device=coords.device)
     acc = torch.zeros(k, dtype=torch.float32, device=coords.device)
-    lnprob = functools.partial(fused_lnprob_plain, tables=tables, st=st)
     with torch.no_grad():
         for step in range(k):
             pm = perm[step * W:(step + 1) * W].long()
             for half in range(2):
                 r = 2 * step + half
                 active, comp = (pm[:h], pm[h:]) if half == 0 else (pm[h:], pm[:h])
-                acc[step] += _half_step(lnprob, D, st.a, coords, lnp, active,
+                acc[step] += _half_step(lnprob, D, a, coords, lnp, active,
                                         comp, z_u[r], pair[r].long(), acc_u[r])
             chain[step] = coords
             lnps[step] = lnp
     return chain.reshape(k * W, D), lnps.reshape(k * W), acc
+
+
+def fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
+                      st: FusedStatics):
+    """K1's k whole steps with torch ops (layout as in steps_plain)."""
+    lnprob = functools.partial(fused_lnprob_plain, tables=tables, st=st)
+    return steps_plain(lnprob, st.a, coords, lnp, perm, z_u, pair, acc_u)
 
 
 # -- the CUDA kernel ---------------------------------------------------------
@@ -241,45 +265,53 @@ _Q_KIND = {"analytic": 0, "cheb": 1, "states": 2}
 _library = None
 
 
+def bind_kernel_library(source_name: str, prefix: str, steps_args, lnprob_args,
+                        statics_types):
+    """Build `csrc/<source_name>` (at first use) and bind its C entries:
+    <prefix>_fused_steps_{f32,f64} and <prefix>_lnprob_{f32,f64}, each
+    taking (pointers, ints) = steps_args / lnprob_args counts then the
+    stream and returning a CUDA error code; <prefix>_statics_size_*,
+    checked against the ctypes statics struct per dtype; and
+    <prefix>_error_string. Returns (library, nvcc build log, empty when a
+    cached build was loaded)."""
+    path, log = build_library(source_name)
+    lib = ctypes.CDLL(str(path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for dtype, sfx in _SUFFIX.items():
+        for entry, (n_ptr, n_int) in (("fused_steps", steps_args),
+                                      ("lnprob", lnprob_args)):
+            fn = getattr(lib, f"{prefix}_{entry}_{sfx}")
+            fn.argtypes, fn.restype = [P] * n_ptr + [I] * n_int + [P], I
+        size = getattr(lib, f"{prefix}_statics_size_{sfx}")
+        size.argtypes, size.restype = [], I
+        if size() != ctypes.sizeof(statics_types[dtype]):
+            raise RuntimeError(f"{source_name}: the {sfx} statics struct is "
+                               f"{size()} bytes in the library but "
+                               f"{ctypes.sizeof(statics_types[dtype])} in the binding")
+    error_string = getattr(lib, f"{prefix}_error_string")
+    error_string.argtypes, error_string.restype = [I], ctypes.c_char_p
+    return lib, log
+
+
 def load_kernel_library():
     """Build K1 (at first use) and load it: returns (ctypes library, nvcc
     build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
-        path, log = build_library("fused_step.cu")
-        lib = ctypes.CDLL(str(path))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        for dtype, sfx in _SUFFIX.items():
-            steps = getattr(lib, f"k1_fused_steps_{sfx}")
-            steps.argtypes, steps.restype = [P] * 14 + [I] * 6 + [P], I
-            lnprob = getattr(lib, f"k1_lnprob_{sfx}")
-            lnprob.argtypes, lnprob.restype = [P] * 7 + [I] * 5 + [P], I
-            size = getattr(lib, f"k1_statics_size_{sfx}")
-            size.argtypes, size.restype = [], I
-            if size() != ctypes.sizeof(_STATICS[dtype]):
-                raise RuntimeError(f"K1 Statics<{sfx}> is {size()} bytes in "
-                                   f"the library but {ctypes.sizeof(_STATICS[dtype])}"
-                                   " in the binding")
-        lib.k1_error_string.argtypes, lib.k1_error_string.restype = [I], ctypes.c_char_p
-        _library = (lib, log)
+        _library = bind_kernel_library("fused_step.cu", "k1", (14, 6), (7, 5),
+                                       _STATICS)
     return _library
 
 
-@functools.lru_cache(maxsize=16)
-def _pack_statics(st: FusedStatics, dtype):
-    """The kernel's Statics struct for `st`, each f64 constant rounded to
-    `dtype` once."""
-    D = len(st.bounds_lo)
+def pack_q(s, st, kernel: str = "K1"):
+    """Fill the Q(T) fields of a kernel's statics struct `s` (poly /
+    n_poly / has_power / q_pa / q_pb / q_scale, cheb / n_cheb / cheb_lo /
+    cheb_scale, q_kind) from the statics `st`."""
     n_poly = len(st.q_coeffs) if st.q_kind == "analytic" else 0
     n_cheb = len(st.q_coeffs) if st.q_kind == "cheb" else 0
-    if D > _MAX_DIM or n_poly > _MAX_POLY or n_cheb > _MAX_CHEB:
-        raise ValueError(f"K1 takes <= {_MAX_DIM} dims, <= {_MAX_POLY} "
-                         f"polynomial and <= {_MAX_CHEB} Chebyshev terms")
-    s = _STATICS[dtype]()
-    for name, vals in (("lo", st.bounds_lo), ("hi", st.bounds_hi),
-                       ("mean", st.prior_mean), ("sd", st.prior_std),
-                       ("norm", st.gauss_norms())):
-        getattr(s, name)[:D] = vals
+    if n_poly > _MAX_POLY or n_cheb > _MAX_CHEB:
+        raise ValueError(f"{kernel} takes <= {_MAX_POLY} polynomial and "
+                         f"<= {_MAX_CHEB} Chebyshev terms of Q(T)")
     if n_poly:
         s.poly[:n_poly] = st.q_coeffs
         s.q_scale = st.q_scale
@@ -289,16 +321,32 @@ def _pack_statics(st: FusedStatics, dtype):
         s.cheb[:n_cheb] = st.q_coeffs
         t_lo, t_hi = st.q_power
         s.cheb_lo, s.cheb_scale = t_lo, 2.0 / (t_hi - t_lo)
+    s.q_kind, s.n_poly, s.n_cheb = _Q_KIND[st.q_kind], n_poly, n_cheb
+
+
+@functools.lru_cache(maxsize=16)
+def _pack_statics(st: FusedStatics, dtype):
+    """The kernel's Statics struct for `st`, each f64 constant rounded to
+    `dtype` once."""
+    D = len(st.bounds_lo)
+    if D > _MAX_DIM:
+        raise ValueError(f"K1 takes <= {_MAX_DIM} dims")
+    s = _STATICS[dtype]()
+    for name, vals in (("lo", st.bounds_lo), ("hi", st.bounds_hi),
+                       ("mean", st.prior_mean), ("sd", st.prior_std),
+                       ("norm", st.gauss_norms())):
+        getattr(s, name)[:D] = vals
+    pack_q(s, st)
     s.ss = 0.0 if st.ss is None else st.ss
     s.dish_size, s.Tbg, s.mask_center, s.a = st.dish_size, st.Tbg, st.mask_center, st.a
     s.ndim, s.free_ss, s.ncol_idx = D, int(st.ss is None), st.ncol_idx
-    s.q_kind, s.n_poly, s.n_cheb = _Q_KIND[st.q_kind], n_poly, n_cheb
     return s
 
 
 def step_smem_bytes(nwalkers: int, ndim: int, n_lines: int, dtype) -> int:
-    """Dynamic shared memory of one K1 step launch (csrc/fused_step.cu:
-    step_smem_bytes)."""
+    """Dynamic shared memory of one step launch (csrc/step_loop.cuh:
+    step_smem_bytes) with `n_lines` values of per-warp scratch: K1's
+    (L,) opacities, K2's (K, La)."""
     h = nwalkers // 2
     item = torch.empty((), dtype=dtype).element_size()
     return (item * (nwalkers * (ndim + 1) + h * (ndim + 1) + h + _WARPS * n_lines)
@@ -310,28 +358,32 @@ def fused_fits(nwalkers: int, ndim: int, n_lines: int, dtype) -> bool:
     return step_smem_bytes(nwalkers, ndim, n_lines, dtype) <= _SMEM_LIMIT
 
 
-def _check(t, name, dtype, shape, device):
+def check_tensor(t, name, dtype, shape, device, kernel: str = "K1"):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
     if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"K1: {name} is {t.dtype} {tuple(t.shape)} on {t.device}; "
-                         f"the kernel takes {dtype} {tuple(shape)} on {device}")
+        raise ValueError(f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}; the kernel takes {dtype} {tuple(shape)} "
+                         f"on {device}")
     if not t.is_contiguous():
-        raise ValueError(f"K1: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _check_tables(tables, dtype, device):
     lines, vel, chans, qst = tables
     L, C = vel.shape
-    _check(lines, "lines", dtype, (5, L), device)
-    _check(vel, "vel", dtype, (L, C), device)
-    _check(chans, "chans", dtype, (3, C), device)
-    _check(qst, "qst", dtype, (2, qst.shape[1]), device)
+    check_tensor(lines, "lines", dtype, (5, L), device)
+    check_tensor(vel, "vel", dtype, (L, C), device)
+    check_tensor(chans, "chans", dtype, (3, C), device)
+    check_tensor(qst, "qst", dtype, (2, qst.shape[1]), device)
     return L, C, qst.shape[1]
 
 
-def _raise_on(err: int, lib, entry: str):
+def raise_on(err: int, error_string, entry: str, kernel: str = "K1"):
+    """Raise if a C entry returned a CUDA error (`error_string` maps the
+    code to its message)."""
     if err:
-        raise RuntimeError(f"K1 {entry} launch failed: CUDA error {err} "
-                           f"({lib.k1_error_string(err).decode()})")
+        raise RuntimeError(f"{kernel} {entry} launch failed: CUDA error {err} "
+                           f"({error_string(err).decode()})")
 
 
 def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st):
@@ -344,12 +396,12 @@ def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st):
     if W % 2 or D != len(st.bounds_lo):
         raise ValueError(f"K1: {W} walkers x {D} dims for a "
                          f"{len(st.bounds_lo)}-dim problem")
-    _check(coords, "coords", dtype, (W, D), dev)
-    _check(lnp, "lnp", dtype, (W,), dev)
-    _check(perm, "perm", torch.int32, (k * W,), dev)
-    _check(z_u, "z_u", dtype, (2 * k, h), dev)
-    _check(pair, "pair", torch.int32, (2 * k, h), dev)
-    _check(acc_u, "acc_u", dtype, (2 * k, h), dev)
+    check_tensor(coords, "coords", dtype, (W, D), dev)
+    check_tensor(lnp, "lnp", dtype, (W,), dev)
+    check_tensor(perm, "perm", torch.int32, (k * W,), dev)
+    check_tensor(z_u, "z_u", dtype, (2 * k, h), dev)
+    check_tensor(pair, "pair", torch.int32, (2 * k, h), dev)
+    check_tensor(acc_u, "acc_u", dtype, (2 * k, h), dev)
     L, C, S = _check_tables(tables, dtype, dev)
     if not fused_fits(W, D, L, dtype):
         raise ValueError(f"K1: {W} walkers x {L} lines need "
@@ -366,7 +418,7 @@ def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st):
             out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
             ctypes.addressof(packed), W, D, L, C, S, k,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib, "fused_steps")
+    raise_on(err, lib.k1_error_string, "fused_steps")
     LAUNCHES["fused_steps"] += 1
     return out_chain, out_lnps, out_acc
 
@@ -379,7 +431,7 @@ def _launch_lnprob(theta, tables, st):
     N, D = theta.shape
     if D != len(st.bounds_lo):
         raise ValueError(f"K1: {D}-dim thetas for a {len(st.bounds_lo)}-dim problem")
-    _check(theta, "theta", dtype, (N, D), dev)
+    check_tensor(theta, "theta", dtype, (N, D), dev)
     L, C, S = _check_tables(tables, dtype, dev)
     out = torch.empty(N, dtype=dtype, device=dev)
     with torch.cuda.device(dev):
@@ -387,24 +439,26 @@ def _launch_lnprob(theta, tables, st):
             theta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
             ctypes.addressof(_pack_statics(st, dtype)), N, D, L, C, S,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib, "fused_lnprob")
+    raise_on(err, lib.k1_error_string, "fused_lnprob")
     LAUNCHES["fused_lnprob"] += 1
     return out
 
 
-def _route(t):
+def route(t, kernel: str = "K1") -> str:
+    """'cuda' (launch the kernel) or 'cpu' (the plain version) for a
+    tensor; any other device raises."""
     if t.is_cuda:
         return "cuda"
     if t.device.type == "cpu":
         return "cpu"
-    raise ValueError(f"K1 runs on CUDA (kernel) or on the CPU (plain version), "
-                     f"not on {t.device}")
+    raise ValueError(f"{kernel} runs on CUDA (kernel) or on the CPU (plain "
+                     f"version), not on {t.device}")
 
 
 def fused_lnprob(theta, tables, st: FusedStatics):
     """K1's lnprob, (N, D) -> (N,): the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    if _route(theta) == "cuda":
+    if route(theta) == "cuda":
         return _launch_lnprob(theta, tables, st)
     return fused_lnprob_plain(theta, tables, st)
 
@@ -413,7 +467,7 @@ def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: FusedStatics):
     """k whole steps (see fused_steps_plain for the layout): one CUDA
     kernel launch for CUDA tensors, the plain version for CPU tensors."""
-    if _route(coords) == "cuda":
+    if route(coords) == "cuda":
         return _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st)
     return fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
 
@@ -421,13 +475,20 @@ def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
 @dataclasses.dataclass(frozen=True)
 class FusedEnsemble:
     """run(pos0, lnp0, nsteps, k_steps) with run_ensemble's contract and
-    randomness layout, each k steps one K1 launch (`make_fused_ensemble`)."""
+    randomness layout, each k steps one K1 launch (`make_fused_ensemble`).
+    K2's runner (sampler/fused_multi.py) subclasses it with its own
+    `lnprob` and `step_block`."""
 
     tables: tuple
     statics: FusedStatics
 
     def lnprob(self, theta):
         return fused_lnprob(theta, self.tables, self.statics)
+
+    def step_block(self, coords, lnp, perm, z_u, pair, acc_u):
+        """k whole steps from one block of randomness (fused_step_block)."""
+        return fused_step_block(coords, lnp, perm, z_u, pair, acc_u,
+                                self.tables, self.statics)
 
     def __call__(self, pos0, lnp0, nsteps: int, k_steps: int = 16, *,
                  generator: torch.Generator | None = None, randomness=None):
@@ -457,9 +518,8 @@ class FusedEnsemble:
         coords, lnp = pos0.contiguous(), lnp0.contiguous()
         chains, lnpss, accs = [], [], []
         for b in range(nblocks):
-            chain_blk, lnps_blk, acc = fused_step_block(
-                coords, lnp, perm_b[b], z_b[b], pair_b[b], acc_b[b],
-                self.tables, self.statics)
+            chain_blk, lnps_blk, acc = self.step_block(
+                coords, lnp, perm_b[b], z_b[b], pair_b[b], acc_b[b])
             coords = chain_blk[(k_steps - 1) * W:]
             lnp = lnps_blk[(k_steps - 1) * W:]
             chains.append(chain_blk)
@@ -481,11 +541,14 @@ def make_fused_ensemble(model, spec, grid_ints, grid_yerrs, bounds,
 
 @dataclasses.dataclass
 class FusedEnsembleSampler(EnsembleSampler):
-    """EnsembleSampler whose blocks run through K1 (`run_fn` from
-    make_fused_ensemble), k_steps steps per launch.
+    """EnsembleSampler whose blocks run through a whole-step kernel,
+    k_steps steps per launch: K1 (`run_fn` from make_fused_ensemble) or
+    K2 (from fused_multi.make_fused_ensemble_multi).
 
-    The starting lnp comes from K1's own lnprob (`run_fn.lnprob`), so a
-    run's acceptance tests compare values of one lnprob formulation.
+    The starting lnp comes from the kernel's own lnprob entry
+    (`run_fn.lnprob`), so a run's acceptance tests compare values of one
+    lnprob formulation. (The JAX multifit starts K2 from the gather
+    path's lnprob instead, which differs from K2's by rounding.)
     Thinning is exact: the run draws the raw stream for nsteps * thin
     moves and keeps every thin-th state — bitwise what a thinned
     run_ensemble records from the same stream.
@@ -498,7 +561,7 @@ class FusedEnsembleSampler(EnsembleSampler):
         super().__post_init__()
         if self.run_fn is None:
             raise ValueError("FusedEnsembleSampler requires run_fn from "
-                             "make_fused_ensemble")
+                             "make_fused_ensemble or make_fused_ensemble_multi")
 
     def lnp0(self, pos):
         with torch.no_grad():

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
 Each `csrc/*.cu` file has a plain C interface and is compiled by `nvcc`
-into a `.so` that the kernel's module loads with ctypes. The library is
-cached under `build/cha1_mcmc_tpu_torch/` beside the package, named by a
-hash of the source and the compiler flags, so a second process (or a
-second run from the same checkout) loads it without compiling.
+into a `.so` that the kernel's module loads with ctypes. The sources share
+device code through headers (`csrc/*.cuh`). A library is cached under
+`build/cha1_mcmc_tpu_torch/` beside the package, named by `source_digest`
+— a hash of the source, every header in `csrc/` and the compiler flags —
+so a second process (or a second run from the same checkout) loads it
+without compiling, and an edit to a shared header rebuilds every source.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR", "find_nvcc", "build_library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC_DIR", "find_nvcc", "source_digest",
+           "build_library"]
 
 #: Hopper target (the `a` keeps wgmma/setmaxnreg available), IEEE math:
 #: no --use_fast_math, so no flush-to-zero and correctly rounded div/sqrt.
@@ -37,14 +40,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def source_digest(source: Path, csrc_dir: Path = CSRC_DIR) -> str:
+    """16 hex digits of SHA-256 over the source, every `*.cuh` header of
+    `csrc_dir` (by name and content, in name order) and NVCC_FLAGS: the
+    name of the source's cached library."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    for header in sorted(Path(csrc_dir).glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build_library(source_name: str) -> tuple[Path, str]:
-    """Compile `csrc/<source_name>` into a shared library (cached by the
-    hash of the source and flags) and return (path, build log). The log
-    is empty when the cached library was reused."""
+    """Compile `csrc/<source_name>` into a shared library (cached by
+    `source_digest`) and return (path, build log). The log is empty when
+    the cached library was reused."""
     source = CSRC_DIR / source_name
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    out = BUILD_DIR / f"{source.stem}-{source_digest(source)}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

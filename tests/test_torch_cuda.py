@@ -1,11 +1,15 @@
-"""K1's CUDA kernel against its plain PyTorch version, on an NVIDIA GPU.
+"""The CUDA kernels K1 and K2 against their plain PyTorch versions, on an
+NVIDIA GPU.
 
-The same checks as phase 3 of chip_smoke.py (synthetic flagship problem,
-128 walkers; analytic, Chebyshev and state-sum Q; 4- and 5-dim): the f32
-lnprob entry (rtol 2e-5), the f64 whole-step kernel over 64 steps (chain
-and acceptances bitwise, lnps rtol 1e-12) and the f32 whole-step kernel
-over 2048 steps (acceptance fraction within 0.02). Every test here needs a
-CUDA device and nvcc, and skips without them; on the card run
+The same checks as phase 3 of chip_smoke.py, through its check functions:
+K1 on the synthetic flagship problem (128 walkers; analytic, Chebyshev
+and state-sum Q; 4- and 5-dim), K2 on the full-size synthetic GOTHAM
+problem (128 walkers; K=4 with the three Q kinds, and the K=1 ordered
+family): the f32 lnprob entry (rtol 2e-5), the f64 whole-step kernel
+over 64 steps (chain and acceptances bitwise, lnps rtol 1e-12) and the
+f32 whole-step kernel over 2048 (K1) / 1024 (K2) steps (acceptance
+fraction within 0.02). Every test here needs a CUDA device and nvcc, and
+skips without them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
 
@@ -21,21 +25,35 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def cuda_cases(tmp_path_factory):
+def _require_card():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the K1 kernel runs only on the card")
+        pytest.skip("no CUDA device: the kernels run only on the card")
     from cha1_mcmc_tpu_torch.utils.cuda_build import find_nvcc
 
     try:
         find_nvcc()
     except RuntimeError:
-        pytest.skip("no nvcc: K1 cannot be built here")
+        pytest.skip("no nvcc: the kernels cannot be built here")
+
+
+@pytest.fixture(scope="module")
+def cuda_cases(tmp_path_factory):
+    _require_card()
     import chip_smoke
     from tests.port_problems import write_hc5n_problem
 
     prob = write_hc5n_problem(str(tmp_path_factory.mktemp("hc5n")))
     return {c[0]: c for c in chip_smoke.cases(prob)}
+
+
+@pytest.fixture(scope="module")
+def gotham_cases(tmp_path_factory):
+    _require_card()
+    import chip_smoke
+    from tests.port_problems import write_hc9n_problem
+
+    prob = write_hc9n_problem(str(tmp_path_factory.mktemp("hc9n")))
+    return {c[0]: c for c in chip_smoke.multi_cases(prob)}
 
 
 @pytest.mark.parametrize("label", ["analytic-4d", "states-4d", "cheb-4d",
@@ -49,4 +67,18 @@ def test_k1_kernel_matches_plain(cuda_cases, label):
     before = fused.LAUNCHES["fused_steps"]
     fracs = chip_smoke.check_case(*cuda_cases[label], gen, {})
     assert fused.LAUNCHES["fused_steps"] > before
+    assert 0.1 < fracs["kernel"] < 0.9
+
+
+@pytest.mark.parametrize("label", ["analytic-4c", "cheb-4c", "states-4c",
+                                   "analytic-1c"])
+def test_k2_kernel_matches_plain(gotham_cases, label):
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.sampler import fused_multi
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    before = fused_multi.LAUNCHES["multi_steps"]
+    fracs = chip_smoke.check_multi_case(*gotham_cases[label], gen, {})
+    assert fused_multi.LAUNCHES["multi_steps"] > before
     assert 0.1 < fracs["kernel"] < 0.9

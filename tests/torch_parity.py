@@ -1,8 +1,8 @@
 """Shared helpers for the parity tests of the torch port against the JAX
-package (tests/test_torch_*.py): the synthetic flagship problem as seen by
-both packages, the JAX model's constants as NumPy arrays, and the JAX
-sampler's randomness rebuilt exactly as cha1_mcmc_tpu/sampler/stretch.py
-draws it."""
+package (tests/test_torch_*.py): the synthetic flagship and GOTHAM
+problems as seen by both packages, the JAX model's constants as NumPy
+arrays, and the JAX sampler's randomness rebuilt exactly as
+cha1_mcmc_tpu/sampler/stretch.py draws it."""
 
 from __future__ import annotations
 
@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from tests.port_problems import (ALIGNED_VELOCITY, DISH_SIZE, LL, UL,
-                                 SOURCE_SIZE, write_hc5n_problem)
+from tests.port_problems import (ALIGNED_VELOCITY, DISH_SIZE, GOTHAM_CENTER,
+                                 GOTHAM_DISH, GOTHAM_LL, GOTHAM_UL, LL, UL,
+                                 SOURCE_SIZE, write_hc5n_problem,
+                                 write_hc9n_problem)
 
 BOUNDS = {"source_size": (30.0, 90.0), "Ncol": (1e8, 1e14),
           "Tex": (3.5, 12.0), "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
@@ -59,6 +61,47 @@ def jax_model(cat, grid, dtype, q_model=None):
                                ul=UL, dish_size=DISH_SIZE,
                                vel_offset=ALIGNED_VELOCITY,
                                mask_center=ALIGNED_VELOCITY,
+                               q_model=q_model, dtype=jnp.dtype(dtype))
+
+
+@pytest.fixture(scope="module")
+def gotham_problem(tmp_path_factory):
+    """The synthetic GOTHAM hc9n_hfs catalog and spectrum at a small size
+    (4 multiplets: 12 lines, ~200 channels)."""
+    return write_hc9n_problem(str(tmp_path_factory.mktemp("hc9n")),
+                              n_multiplets=4)
+
+
+def jax_gotham_reduce(problem):
+    """(catalog, datagrid) of the GOTHAM problem from the JAX package: the
+    multifit's fiducial stick simulation, then read_spectrum_gotham."""
+    from cha1_mcmc_tpu.catalogs import load_catalog
+    from cha1_mcmc_tpu.models.forward import simulate_sticks_host
+    from cha1_mcmc_tpu.pipeline.multifit import MultiFitConfig
+    from cha1_mcmc_tpu.reduce.datagrid import read_spectrum_gotham
+
+    cfg = MultiFitConfig(mol_name="hc9n_hfs")
+    cat = load_catalog(problem["cat_path"], name="hc9n_hfs")
+    C, dV, T, ss = cfg.fiducial
+    freq_sim, int_sim, _ = simulate_sticks_host(
+        cat, C=[C], dV=[dV], T=[T], ll=[GOTHAM_LL], ul=[GOTHAM_UL],
+        source_size=ss, dish_size=GOTHAM_DISH)
+    with contextlib.redirect_stdout(io.StringIO()):
+        grid = read_spectrum_gotham(np.load(problem["data_path"]), freq_sim,
+                                    int_sim)
+    return cat, grid
+
+
+def jax_gotham_model(cat, grid, dtype, q_model=None):
+    """The JAX SpectralModel of the multifit geometry (mask center 5.8, no
+    velocity offset, 100 m dish); build it inside jax.enable_x64() for
+    float64. port_model carries its constants across."""
+    import jax.numpy as jnp
+    from cha1_mcmc_tpu.models.forward import SpectralModel
+
+    return SpectralModel.build(cat, grid.covered_trans, grid.freqs,
+                               ll=GOTHAM_LL, ul=GOTHAM_UL, dish_size=GOTHAM_DISH,
+                               vel_offset=0.0, mask_center=GOTHAM_CENTER,
                                q_model=q_model, dtype=jnp.dtype(dtype))
 
 
