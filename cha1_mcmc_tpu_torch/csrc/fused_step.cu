@@ -48,7 +48,9 @@
 //    rounded intrinsics, so in float64 the kernel's trajectories equal the
 //    plain version's bitwise.
 //  * the step loop is written once (run_step_loop in step_loop.cuh),
-//    templated on the device lnprob; K2 (multi_step.cu) shares it.
+//    templated on the device lnprob; K2 (multi_step.cu) shares it. The
+//    statics struct, the theta unpack and the prior are shared with K3
+//    (single_statics.cuh).
 //
 // C entries (all return cudaGetLastError() after the launch):
 //   k1_fused_steps_{f32,f64}: k whole steps of one ensemble;
@@ -56,25 +58,9 @@
 //   k1_statics_size_{f32,f64}: sizeof(Statics<T>), checked by the binding;
 //   k1_error_string: the CUDA error message of a returned code.
 
-#include "step_loop.cuh"
+#include "single_statics.cuh"
 
 namespace {
-
-constexpr int kMaxDim = 5;
-constexpr int kMaxPoly = 8;
-constexpr int kMaxCheb = 65;
-
-template <typename T>
-struct Statics {
-  T lo[kMaxDim], hi[kMaxDim];  // strict box bounds per theta dim
-  T mean[kMaxDim], sd[kMaxDim];  // Gaussian priors (sd with overrides)
-  T norm[kMaxDim];             // log(1/(sqrt(2 pi) sd)), computed in f64
-  T poly[kMaxPoly];            // analytic Q: ascending coefficients
-  T cheb[kMaxCheb];            // Chebyshev Q: c_0 .. c_deg
-  T ss, dish_size, Tbg, mask_center, a;
-  T q_scale, q_pa, q_pb, cheb_lo, cheb_scale;
-  int32_t ndim, free_ss, ncol_idx, q_kind, n_poly, has_power, n_cheb, pad;
-};
 
 template <typename T>
 struct Tables {
@@ -91,26 +77,10 @@ template <typename T>
 __device__ T dense_lnprob(const T* th, const Statics<T>& st,
                           const Tables<T>& tb, T* tau, int lane) {
   T ss_w, Ncol, Tex, vlsr, dV;
-  if (st.free_ss) {
-    ss_w = th[0]; Ncol = th[1]; Tex = th[2]; vlsr = th[3]; dV = th[4];
-  } else {
-    ss_w = st.ss; Ncol = th[0]; Tex = th[1]; vlsr = th[2]; dV = th[3];
-  }
+  unpack_single(th, st, ss_w, Ncol, Tex, vlsr, dV);
   // Box bounds + Gaussian priors, Ncol flat (_prior_box).
-  bool ok = true;
-  T lp = T(0);
-#pragma unroll
-  for (int i = 0; i < kMaxDim; ++i) {
-    if (i < st.ndim) {
-      const T x = th[i];
-      ok = ok && (x > st.lo[i]) && (x < st.hi[i]);
-      if (i != st.ncol_idx) {
-        const T u = (x - st.mean[i]) / st.sd[i];
-        lp = lp + (st.norm[i] - T(0.5) * (u * u));
-      }
-    }
-  }
-  if (!ok) return neg_inf<T>();  // the whole warp leaves together
+  T lp;
+  if (!single_prior(th, st, lp)) return neg_inf<T>();  // the whole warp leaves together
 
   // Stick opacities (ops/lte.py:tau_sticks), one line per lane.
   const T Q = q_of(Tex, st, tb.qst, tb.S, lane);

@@ -5,10 +5,11 @@ Port of cha1_mcmc_tpu/inference/likelihood.py. `build_lnlike` /
 scalar functions that callers vmap, here they return explicitly batched
 (N, D) -> (N,) functions, so one call evaluates every proposal of a
 half-step. `build_lnprob_batched` / `build_lnlike_batched` add the choice
-of opacity formulation: dense, or the channel-major gather tables of
-models/sparse_opacity.py (the multifit's general path). The Pallas
-block-sparse and CSR formulations (`pallas_kernel="block"` / `"csr"`)
-are ROADMAP P11 and raise NotImplementedError here.
+of opacity formulation: dense, the channel-major gather tables of
+models/sparse_opacity.py (`pallas_kernel="gather"`, the general path of
+the multifit and of dense fits), or the block-sparse and CSR kernels K4a
+/ K4b of models/opacity_kernels.py (`"block"` / `"csr"`), each with one
+formula on every device.
 
 Failure semantics: the reference converts exceptions and non-finite values
 to -inf so the sampler rejects the proposal (reference inference.py:145-147,
@@ -20,14 +21,17 @@ from __future__ import annotations
 import torch
 
 from cha1_mcmc_tpu_torch.models.forward import SpectralModel
+from cha1_mcmc_tpu_torch.models.opacity_kernels import (
+    opacity_pallas_csr, opacity_pallas_mxu, unmasked_is_exact)
 from cha1_mcmc_tpu_torch.models.sparse_opacity import (
-    build_opacity_gather, build_opacity_gather_split, opacity_gather,
-    opacity_gather_split)
+    block_activity_mask, build_opacity_csr, build_opacity_gather,
+    build_opacity_gather_split, opacity_gather, opacity_gather_split)
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.inference.params import ParamSpec
 
 __all__ = ["build_lnlike", "build_lnprob", "build_lnlike_batched",
-           "build_lnprob_batched", "batched_model_gather",
+           "build_lnprob_batched", "batched_model_pallas",
+           "batched_model_pallas_csr", "batched_model_gather",
            "batched_model_gather_split"]
 
 
@@ -58,6 +62,40 @@ def _batched_opacity_model(opacity_fn, line_freq, line_elower, line_aij,
     opac = opacity_fn(taus.reshape(N * K, -1), vlsr.reshape(N * K),
                       dV[:, None].expand(N, K).reshape(N * K)).reshape(N, K, -1)
     return _rt_tail(opac, ss, Tex, grid_freq, dish_size, Tbg)
+
+
+def batched_model_pallas(line_freq, line_elower, line_aij, line_gup, line_glow,
+                         vel_grid, q_fn, grid_freq, mask_center, dish_size, Tbg,
+                         spec, thetas, block_mask, *, unmasked: bool = False):
+    """(N, C) walker-batched forward model with the block-sparse opacity
+    kernel K4a in the exp2 form (models/opacity_kernels.py:
+    opacity_pallas_mxu) over the full (L, C) velocity grid. unmasked must
+    only be set when unmasked_is_exact() holds for the parameter box."""
+    return _batched_opacity_model(
+        lambda t, v, d: opacity_pallas_mxu(t, v.contiguous(), d.contiguous(),
+                                           vel_grid, block_mask,
+                                           mask_center=mask_center,
+                                           unmasked=unmasked),
+        line_freq, line_elower, line_aij, line_gup, line_glow, q_fn,
+        grid_freq, dish_size, Tbg, spec, thetas)
+
+
+def batched_model_pallas_csr(line_freq, line_elower, line_aij, line_gup,
+                             line_glow, q_fn, grid_freq, mask_center,
+                             dish_size, Tbg, spec, thetas, line_table,
+                             vel_compact, tile_counts, n_channels: int, *,
+                             unmasked: bool = False):
+    """(N, C) walker-batched forward model with the compacted (CSR)
+    opacity kernel K4b (models/opacity_kernels.py:opacity_pallas_csr).
+    unmasked as in batched_model_pallas."""
+    return _batched_opacity_model(
+        lambda t, v, d: opacity_pallas_csr(t, v.contiguous(), d.contiguous(),
+                                           line_table, vel_compact, tile_counts,
+                                           mask_center=mask_center,
+                                           n_channels=n_channels,
+                                           unmasked=unmasked),
+        line_freq, line_elower, line_aij, line_gup, line_glow, q_fn,
+        grid_freq, dish_size, Tbg, spec, thetas)
 
 
 def batched_model_gather(line_freq, line_elower, line_aij, line_gup,
@@ -131,28 +169,55 @@ def build_lnprob(model: SpectralModel, spec: ParamSpec, grid_ints, grid_yerrs,
 
 def _build_batched_model(model: SpectralModel, spec: ParamSpec, *,
                          use_pallas: bool = False, dv_max: float | None = None,
-                         pallas_kernel: str = "gather"):
-    """Batched forward model, thetas (N, D) -> (N, C): the dense
-    model, or (use_pallas=True, pallas_kernel="gather") the channel-major
-    gather tables built for the prior's dV bound `dv_max` — the split
-    tables where they save >= 1.3x of the element work."""
+                         pallas_kernel: str = "gather",
+                         dv_min: float | None = None,
+                         vlsr_bounds: tuple | None = None):
+    """Batched forward model, thetas (N, D) -> (N, C): the dense model, or
+    (use_pallas=True) a sparse opacity formulation built for the prior's
+    dV bound `dv_max`: "gather" — the channel-major gather tables, split
+    where that saves >= 1.3x of the element work; "csr" — K4b; "block" —
+    K4a. With the prior's dv_min and vlsr_bounds, the K4 kernels drop the
+    per-element window select where unmasked_is_exact holds for that box."""
     if not use_pallas:
         def model_batch(thetas):
             return model(*spec.unpack(thetas))
         return model_batch
-    if pallas_kernel != "gather":
-        raise NotImplementedError(
-            f"pallas_kernel={pallas_kernel!r}: the Pallas block-sparse and CSR "
-            "opacity kernels (K4a/K4b) are ROADMAP P11, not ported yet")
+    if pallas_kernel not in ("gather", "csr", "block"):
+        raise ValueError(f"pallas_kernel={pallas_kernel!r}: one of 'gather', "
+                         "'csr', 'block'")
     if dv_max is None:
         raise ValueError("use_pallas=True requires dv_max (from prior bounds)")
-    def index(a):
-        return torch.as_tensor(a, dtype=torch.long, device=model.device)
+    unmasked = (dv_min is not None and vlsr_bounds is not None
+                and unmasked_is_exact(
+                    dv_min, max(abs(vlsr_bounds[0] - model.mask_center),
+                                abs(vlsr_bounds[1] - model.mask_center)),
+                    model.dtype))
+
+    def index(a, dtype=torch.long):
+        return torch.as_tensor(a, dtype=dtype, device=model.device)
 
     def vel(a):
         return torch.as_tensor(a, dtype=model.dtype, device=model.device)
 
     vel_grid = model.vel_grid.cpu().numpy()
+    all_lines = (model.line_freq, model.line_elower, model.line_aij,
+                 model.line_gup, model.line_glow)
+    common = (model.q, model.grid_freq, model.mask_center, model.dish_size,
+              model.Tbg, spec)
+    if pallas_kernel == "csr":
+        line_table, vel_compact, tile_counts = build_opacity_csr(
+            vel_grid, model.mask_center, dv_max)
+        csr = (index(line_table, torch.int32), vel(vel_compact),
+               index(tile_counts, torch.int32), model.n_channels)
+        return lambda thetas: batched_model_pallas_csr(
+            *all_lines, *common, thetas, *csr, unmasked=unmasked)
+    if pallas_kernel == "block":
+        block_mask = index(block_activity_mask(vel_grid, model.mask_center, dv_max),
+                           torch.int32)
+        return lambda thetas: batched_model_pallas(
+            *all_lines, model.vel_grid, *common, thetas, block_mask,
+            unmasked=unmasked)
+
     split = build_opacity_gather_split(vel_grid, model.mask_center, dv_max)
     if split is not None:
         t1, v1, t2, v2, heavy, active = split
@@ -161,10 +226,7 @@ def _build_batched_model(model: SpectralModel, spec: ParamSpec, *,
         table, vel_t, active = build_opacity_gather(vel_grid, model.mask_center,
                                                     dv_max)
         table, vel_t = index(table), vel(vel_t)
-    lines = tuple(getattr(model, name)[index(active)] for name in
-                  ("line_freq", "line_elower", "line_aij", "line_gup", "line_glow"))
-    common = (model.q, model.grid_freq, model.mask_center, model.dish_size,
-              model.Tbg, spec)
+    lines = tuple(x[index(active)] for x in all_lines)
 
     def model_batch(thetas):
         if split is not None:
@@ -194,18 +256,24 @@ def build_lnlike_batched(model: SpectralModel, spec: ParamSpec, grid_ints,
 def build_lnprob_batched(model: SpectralModel, spec: ParamSpec, grid_ints,
                          grid_yerrs, lnprior_fn, *, use_pallas: bool = False,
                          dv_max: float | None = None,
-                         pallas_kernel: str = "gather"):
+                         pallas_kernel: str = "gather",
+                         dv_min: float | None = None,
+                         vlsr_bounds: tuple | None = None):
     """Batched lnprob(thetas (N, D)) -> (N,) with a choice of opacity
-    formulation: dense (use_pallas=False), or the channel-major gather
-    tables (use_pallas=True, pallas_kernel="gather", the default) built
+    formulation: dense (use_pallas=False), or (use_pallas=True) the
+    channel-major gather tables (pallas_kernel="gather", the default), the
+    CSR kernel K4b ("csr") or the block-sparse kernel K4a ("block"), built
     for `dv_max` — the upper bound on dV the prior enforces, so the static
-    window structure is exact for every in-bounds walker. "csr" and
-    "block" are ROADMAP P11. `lnprior_fn` is batched, (N, D) -> (N,)."""
+    window structure is exact for every in-bounds walker. dv_min /
+    vlsr_bounds: optional prior-box bounds; when unmasked_is_exact holds
+    for them, K4a / K4b drop the per-element window select. `lnprior_fn`
+    is batched, (N, D) -> (N,)."""
     y = torch.as_tensor(grid_ints, dtype=model.dtype, device=model.device)
     inv_sigma2 = 1.0 / torch.as_tensor(grid_yerrs, dtype=model.dtype,
                                        device=model.device) ** 2
     model_batch = _build_batched_model(model, spec, use_pallas=use_pallas,
-                                       dv_max=dv_max, pallas_kernel=pallas_kernel)
+                                       dv_max=dv_max, pallas_kernel=pallas_kernel,
+                                       dv_min=dv_min, vlsr_bounds=vlsr_bounds)
 
     def lnprob_batch(thetas):
         ll = model.chi2_lnlike(model_batch(thetas), y, inv_sigma2)

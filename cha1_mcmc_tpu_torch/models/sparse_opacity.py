@@ -1,8 +1,15 @@
-"""Channel-major gather opacity: the ±10·dV window sparsity transposed.
+"""Static sparsity tables of the ±10·dV velocity window, and the
+channel-major gather opacity.
 
-Port of the jnp (not Pallas) part of cha1_mcmc_tpu/models/
-pallas_kernels.py:459-608 — `build_opacity_gather`, `opacity_gather`,
-`build_opacity_gather_split`, `opacity_gather_split`. The static tables
+Port of the host-side table functions and the jnp (not Pallas) part of
+cha1_mcmc_tpu/models/pallas_kernels.py: `block_activity_mask` (:49-60)
+and `build_opacity_csr` (:312-341), the tables of the block-sparse and
+CSR opacity kernels K4a / K4b (models/opacity_kernels.py), with their
+tile sizes; `window_is_exact` (:115-133); and `build_opacity_gather`,
+`opacity_gather`, `build_opacity_gather_split`, `opacity_gather_split`
+(:459-608). The traced mask function and the DMA redirect table
+(`block_activity_mask_traced`, `_dma_redirect_table`) are TPU plumbing
+of the sharded and Pallas paths and are not ported. The gather tables
 are per *channel*: line_table[m, c] lists the lines whose widest-possible
 window (±10·dv_max around the mask center) covers channel c. The opacity
 becomes a gather + an (N, M, C) elementwise Gaussian + a length-M
@@ -23,8 +30,87 @@ import torch
 
 from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
 
-__all__ = ["build_opacity_gather", "opacity_gather",
+__all__ = ["TC", "TL", "block_activity_mask", "window_is_exact",
+           "build_opacity_csr", "build_opacity_gather", "opacity_gather",
            "build_opacity_gather_split", "opacity_gather_split"]
+
+#: Channel and line tile of the block activity mask; TC is also the
+#: channel tile of the CSR tables (the tables are defined by them).
+TC, TL = 128, 512
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def block_activity_mask(vel_grid: np.ndarray, mask_center: float,
+                        dv_max: float, *, tl: int = TL,
+                        tc: int = TC) -> np.ndarray:
+    """(nL, nC) int32 mask: does any (line, channel) in the tile fall inside
+    the widest possible velocity window 10 * dv_max? Static per datagrid."""
+    L, C = vel_grid.shape
+    nL, nC = _ceil_to(L, tl) // tl, _ceil_to(C, tc) // tc
+    inside = np.abs(np.asarray(vel_grid) - mask_center) < VELOCITY_WINDOW_DV * dv_max
+    padded = np.zeros((nL * tl, nC * tc), dtype=bool)
+    padded[:L, :C] = inside
+    blocks = padded.reshape(nL, tl, nC, tc).any(axis=(1, 3))
+    return blocks.astype(np.int32)
+
+
+def window_is_exact(dv_min: float, max_vlsr_offset: float,
+                    margin: float = 1.1) -> bool:
+    """Is dropping the per-element ±10·dV window select *exactly* lossless
+    in f32 for every in-bounds (vlsr, dV)?
+
+    At the window edge the Gaussian argument is
+        z_edge = (10·dV − |vlsr − center|) / (dV / 2.355),
+    worst-cased at dV = dv_min and |vlsr − center| = max_vlsr_offset.
+    exp(−z²/2) flushes to exactly 0.0 in f32 (TPUs flush subnormals) once
+    z ≳ 14.37 (2^−126 ≈ exp(−87.3)); with z_edge above that, every
+    out-of-window channel underflows and the select is a no-op. Below it,
+    the unmasked kernels would silently diverge from the reference window
+    semantics — callers must use the masked variants.
+
+    (Verbatim from the JAX package. On a CUDA card nothing flushes
+    subnormals; models/opacity_kernels.py re-derives the threshold there.)
+    """
+    if dv_min <= 0:
+        return False
+    z_edge = (VELOCITY_WINDOW_DV * dv_min - max_vlsr_offset) * \
+        FWHM_TO_SIGMA_MODEL / dv_min
+    return z_edge >= 14.37 * margin
+
+
+def build_opacity_csr(vel_grid: np.ndarray, mask_center: float,
+                      dv_max: float, *, tc: int = TC, tl: int = 128):
+    """Precompute the static compaction tables for the CSR opacity kernel.
+
+    Returns (line_table (nC, K) int32, vel_compact (nC * K, tc) f32,
+    tile_counts (nC,) int32) where K is the max number of active lines over
+    channel tiles, padded to a multiple of tl, and tile_counts[j] is the
+    number of active lines for channel tile j — the band is uneven, so
+    most tiles have far fewer than K active lines; the kernel predicates
+    the all-padding line-tile steps off. Padding entries point at velocity
+    1e30, which underflows the Gaussian to exactly 0 regardless of tau.
+    Static per (datagrid, prior dV bound) — same inputs as
+    block_activity_mask.
+    """
+    vel_grid = np.asarray(vel_grid)
+    L, C = vel_grid.shape
+    nC = _ceil_to(C, tc) // tc
+    inside = np.abs(vel_grid - mask_center) < VELOCITY_WINDOW_DV * dv_max
+    active = [np.flatnonzero(inside[:, j * tc:(j + 1) * tc].any(axis=1))
+              for j in range(nC)]
+    K = _ceil_to(max((len(a) for a in active), default=1), tl)
+    line_table = np.zeros((nC, K), dtype=np.int32)
+    vel_compact = np.full((nC, K, tc), 1e30, dtype=vel_grid.dtype)
+    tile_counts = np.zeros(nC, dtype=np.int32)
+    for j, idx in enumerate(active):
+        line_table[j, :len(idx)] = idx
+        chunk = vel_grid[idx, j * tc:min((j + 1) * tc, C)]
+        vel_compact[j, :len(idx), :chunk.shape[1]] = chunk
+        tile_counts[j] = len(idx)
+    return line_table, vel_compact.reshape(nC * K, tc), tile_counts
 
 
 def build_opacity_gather(vel_grid: np.ndarray, mask_center: float,

@@ -69,12 +69,13 @@ class FitConfig:
                                      # total; enables cross-chain R-hat)
     stretch_a: float = 2.0
     use_pallas: bool | None = None   # sparse opacity path for dense
-                                     # catalogs (ROADMAP P11; not in the
-                                     # port yet). None = auto: needed when
+                                     # catalogs (the gather tables, K3 on
+                                     # the card). None = auto: taken when
+                                     # n_lines x n_channels > 4e6, where
                                      # the dense (W/2, L, C) intermediate
                                      # would be too large.
-    use_fused_step: bool = True      # fused whole-step kernel K1 when
-                                     # applicable
+    use_fused_step: bool = True      # fused whole-step kernel (K1, or K3
+                                     # on the sparse path) when applicable
     resume: bool = False             # continue an existing chain file
     profile_dir: str | None = None   # trace of sampling (ROADMAP P13; not
                                      # in the port yet)

@@ -8,10 +8,14 @@ Flow (reference run(), inference.py:475-488):
   rejection-init the walker ball -> sample with per-block checkpoints ->
   summary table + corner plot.
 
-Sampler selection follows the JAX package: on a CUDA device a
-single-component float32 fit runs through the fused whole-step kernel K1
-(FusedEnsembleSampler); elsewhere, or with use_fused_step=False, the
-general EnsembleSampler over the batched lnprob.
+Sampler selection follows the JAX package. A dense catalog (n_lines x
+n_channels > 4e6, or use_pallas=True) takes the sparse opacity path: the
+channel-major gather lnprob, and on a CUDA device, for a float32
+single-component fit, the dense whole-step kernel K3
+(FusedEnsembleSampler over sampler/fused_gather.py). Otherwise on a CUDA
+device a single-component float32 fit runs through the fused whole-step
+kernel K1. Elsewhere, or with use_fused_step=False, the general
+EnsembleSampler over the batched lnprob.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from cha1_mcmc_tpu_torch.inference import (
     ParamSpec,
     single_component_lnprior,
     build_lnlike,
+    build_lnlike_batched,
     build_lnprob,
+    build_lnprob_batched,
     estimate_ncol_mle,
 )
 from cha1_mcmc_tpu_torch.sampler import (
@@ -41,6 +47,8 @@ from cha1_mcmc_tpu_torch.sampler import (
     make_fused_ensemble,
 )
 from cha1_mcmc_tpu_torch.sampler.fused import fused_fits
+from cha1_mcmc_tpu_torch.sampler.fused_gather import (make_fused_ensemble_gather,
+                                                      plan_fused_gather)
 from cha1_mcmc_tpu_torch.reduce.datagrid import (
     Datagrid,
     reduce_spectrum,
@@ -53,6 +61,10 @@ from cha1_mcmc_tpu_torch.utils import Throughput
 __all__ = ["SpectralFit"]
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+#: use_pallas=None takes the sparse opacity path above this n_lines x
+#: n_channels (the JAX package's rule, JAX fit.py:187).
+DENSE_AUTO_THRESHOLD = 4_000_000
 
 
 class SpectralFit:
@@ -72,9 +84,6 @@ class SpectralFit:
         if config.n_chains > 1:
             raise NotImplementedError("multi-chain fits (n_chains > 1) are "
                                       "ROADMAP P15, not ported yet")
-        if config.use_pallas:
-            raise NotImplementedError("the sparse opacity path (use_pallas) is "
-                                      "ROADMAP P11, not ported yet")
         if config.profile_dir is not None:
             raise NotImplementedError("sampling traces (profile_dir) are "
                                       "ROADMAP P13, not ported yet")
@@ -82,6 +91,7 @@ class SpectralFit:
         self.dtype = _DTYPES[config.dtype]
         self.catalog = None
         self.sampler: EnsembleSampler | None = None
+        self._gather_plan = None
 
     # -- data reduction ----------------------------------------------------
     def init_setup(self) -> Datagrid:
@@ -143,6 +153,19 @@ class SpectralFit:
                 and fused_fits(cfg.nwalkers, self.spec.ndim, model.n_lines,
                                self.dtype))
 
+    def _use_fused_gather(self, model: SpectralModel) -> bool:
+        """The K3 selection rule (JAX fit.py:292-296), for the sparse
+        path: CUDA, use_fused_step, one component, float32, and a plan
+        within the kernel's limits. The plan (the channel-major tables) is
+        kept, so the check and the kernel build share one construction."""
+        cfg = self.config
+        if not (cfg.use_fused_step and self.device.type == "cuda"
+                and self.spec.ncomp == 1 and self.dtype == torch.float32):
+            return False
+        self._gather_plan = plan_fused_gather(model, self.spec, cfg.bounds["dV"][1],
+                                              nwalkers=cfg.nwalkers)
+        return self._gather_plan is not None
+
     # -- fitting -----------------------------------------------------------
     def fit(self, grid: Datagrid) -> np.ndarray:
         """Sample the posterior; returns the (W, S, D) chain
@@ -150,11 +173,6 @@ class SpectralFit:
         cfg = self.config
         print(f"{CYAN}Estimating free parameters for {cfg.mol_name}.{RESET}")
         model = self.build_model(grid)
-        if cfg.use_pallas is None and model.n_lines * model.n_channels > 4_000_000:
-            raise NotImplementedError(
-                f"dense catalog ({model.n_lines} lines x {model.n_channels} "
-                "channels) needs the sparse opacity path: ROADMAP P11, not "
-                "ported yet")
 
         if cfg.template_run:
             initial = np.asarray(cfg.template_means, dtype=np.float64)
@@ -168,8 +186,27 @@ class SpectralFit:
 
         lnprior = single_component_lnprior(self.spec, cfg.bounds, prior_means,
                                            prior_stds, dtype=self.dtype)
-        lnlike = build_lnlike(model, self.spec, grid.ints, grid.yerrs)
-        lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs, lnprior)
+        use_pallas = cfg.use_pallas
+        if use_pallas is None:
+            # Auto-select the sparse opacity path for dense catalogs: the
+            # dense model materialises a (W/2, L, C) Gaussian per half-step.
+            use_pallas = model.n_lines * model.n_channels > DENSE_AUTO_THRESHOLD
+            if use_pallas:
+                print(f"{GRAY}Dense catalog ({model.n_lines} lines x "
+                      f"{model.n_channels} channels): auto-selected the "
+                      f"sparse opacity path.{RESET}")
+        sparse = dict(use_pallas=True, dv_max=cfg.bounds["dV"][1],
+                      dv_min=cfg.bounds["dV"][0], vlsr_bounds=cfg.bounds["vlsr"])
+        if use_pallas:
+            lnprob = build_lnprob_batched(model, self.spec, grid.ints, grid.yerrs,
+                                          lnprior, **sparse)
+            # the dense lnlike closes over the (L, C) grid; the MLE takes
+            # the gather tables' batched lnlike instead
+            lnlike = build_lnlike_batched(model, self.spec, grid.ints, grid.yerrs,
+                                          **sparse)
+        else:
+            lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs, lnprior)
+            lnlike = build_lnlike(model, self.spec, grid.ints, grid.yerrs)
 
         resuming = cfg.resume and os.path.exists(cfg.chain_path)
         if cfg.MLE_for_Ncol and not resuming:  # resume discards `initial`
@@ -187,7 +224,21 @@ class SpectralFit:
                 print(f"{RED}Failed to initialize Ncol via MLE: {e}{RESET}")
                 raise
 
-        if self._use_fused(model):
+        if use_pallas and self._use_fused_gather(model):
+            # K3: the dense whole-step kernel over the channel-major tables,
+            # one call per k ensemble steps spread over the card
+            # (sampler/fused_gather.py, csrc/gather_step.cu).
+            print(f"{GRAY}Dense catalog: fused channel-major step kernel (K3) "
+                  f"selected.{RESET}")
+            run_fn = make_fused_ensemble_gather(
+                model, self.spec, grid.ints, grid.yerrs, cfg.bounds, prior_means,
+                prior_stds, dv_max=cfg.bounds["dV"][1], a=cfg.stretch_a,
+                nwalkers=cfg.nwalkers, plan=self._gather_plan)
+            self.sampler = FusedEnsembleSampler(
+                lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
+                a=cfg.stretch_a, dtype=self.dtype, device=self.device,
+                run_fn=run_fn)
+        elif not use_pallas and self._use_fused(model):
             # K1: one CUDA kernel launch per k ensemble steps
             # (sampler/fused.py, csrc/fused_step.cu).
             run_fn = make_fused_ensemble(

@@ -35,7 +35,7 @@ from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, _half_step,
                                                  draw_randomness)
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 
-__all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain",
+__all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
            "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
            "FusedEnsemble", "make_fused_ensemble", "FusedEnsembleSampler",
            "fused_fits", "step_smem_bytes", "load_kernel_library", "LAUNCHES"]
@@ -193,16 +193,24 @@ def fused_lnprob_plain(theta, tables, st: FusedStatics):
     resid = y - m
     ll = -0.5 * torch.sum(resid * resid * isig - torch.log(isig), dim=-1)
 
-    ok = torch.ones(theta.shape[0], dtype=torch.bool, device=dev)
+    ok, lp = prior_box(theta, st)
+    val = lp + ll
+    return torch.where(ok & torch.isfinite(val), val, -torch.inf)
+
+
+def prior_box(theta, st: FusedStatics):
+    """(ok, lp) of the single-component prior, (N, D) -> (N,) each: the
+    strict box bounds and the Gaussian priors with Ncol flat (the JAX
+    package's _prior_box)."""
+    ok = torch.ones(theta.shape[0], dtype=torch.bool, device=theta.device)
     for i, (lo, hi) in enumerate(zip(st.bounds_lo, st.bounds_hi)):
         ok = ok & (theta[:, i] > lo) & (theta[:, i] < hi)
-    lp = torch.zeros_like(ll)
+    lp = torch.zeros(theta.shape[0], dtype=theta.dtype, device=theta.device)
     for i, norm in enumerate(st.gauss_norms()):
         if i != st.ncol_idx:   # Ncol flat
             lp = lp + (norm - 0.5 * ((theta[:, i] - st.prior_mean[i])
                                      / st.prior_std[i]) ** 2)
-    val = lp + ll
-    return torch.where(ok & torch.isfinite(val), val, -torch.inf)
+    return ok, lp
 
 
 def steps_plain(lnprob, a: float, coords, lnp, perm, z_u, pair, acc_u):
@@ -476,8 +484,8 @@ def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
 class FusedEnsemble:
     """run(pos0, lnp0, nsteps, k_steps) with run_ensemble's contract and
     randomness layout, each k steps one K1 launch (`make_fused_ensemble`).
-    K2's runner (sampler/fused_multi.py) subclasses it with its own
-    `lnprob` and `step_block`."""
+    K2's runner (sampler/fused_multi.py) and K3's (sampler/fused_gather.py)
+    subclass it with their own `lnprob` and `step_block`."""
 
     tables: tuple
     statics: FusedStatics
@@ -542,8 +550,9 @@ def make_fused_ensemble(model, spec, grid_ints, grid_yerrs, bounds,
 @dataclasses.dataclass
 class FusedEnsembleSampler(EnsembleSampler):
     """EnsembleSampler whose blocks run through a whole-step kernel,
-    k_steps steps per launch: K1 (`run_fn` from make_fused_ensemble) or
-    K2 (from fused_multi.make_fused_ensemble_multi).
+    k_steps steps per launch: K1 (`run_fn` from make_fused_ensemble), K2
+    (from fused_multi.make_fused_ensemble_multi) or K3 (from
+    fused_gather.make_fused_ensemble_gather).
 
     The starting lnp comes from the kernel's own lnprob entry
     (`run_fn.lnprob`), so a run's acceptance tests compare values of one
@@ -561,7 +570,8 @@ class FusedEnsembleSampler(EnsembleSampler):
         super().__post_init__()
         if self.run_fn is None:
             raise ValueError("FusedEnsembleSampler requires run_fn from "
-                             "make_fused_ensemble or make_fused_ensemble_multi")
+                             "make_fused_ensemble, make_fused_ensemble_multi or "
+                             "make_fused_ensemble_gather")
 
     def lnp0(self, pos):
         with torch.no_grad():

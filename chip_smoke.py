@@ -9,31 +9,47 @@ Phases (each prints its own lines; any failure exits non-zero before the
 last line):
   1. device  — a CUDA device must be present; prints its name and the
      `nvidia-smi` name / power limit;
-  2. build   — builds K1 (csrc/fused_step.cu) and K2 (csrc/multi_step.cu)
-     with nvcc, one process each, started together;
+  2. build   — builds K1 (csrc/fused_step.cu), K2 (csrc/multi_step.cu),
+     K3 (csrc/gather_step.cu) and K4a/K4b (csrc/opacity.cu) with nvcc, one
+     process each, started together; prints each build's registers and
+     spills, and K3's launch geometry at the dense size;
   3. check   — each kernel against its plain PyTorch version on the card.
      K1 on the synthetic flagship problem (tests/port_problems.py), for
      analytic, Chebyshev and state-sum Q(T), 4- and 5-dim: the f32 lnprob
      entry on 512 thetas (rtol 2e-5), the f64 whole-step kernel over 64
      steps (chain and acceptances bitwise, lnps rtol 1e-12) and the f32
-     whole-step kernel over 2048 steps (acceptance within 0.02). K2 on the
+     whole-step kernel over 1024 steps (acceptance within 0.02). K2 on the
      full-size synthetic GOTHAM problem (22 multiplets, 66 lines, ~1,133
      channels) at 128 walkers, K=4 for the three Q kinds and the K=1
-     ordered family: the same three checks, the f32 run over 1024 steps;
-  4. time    — each kernel and its plain version in us per ensemble step
-     (128 walkers, k=16) and per lnprob call of 128 thetas, CUDA events
-     after warm-up, in turns (plain, kernel, kernel, plain), median and
-     quartiles;
+     ordered family: the same three checks, the f32 run over 512 steps.
+     K3 on the full-size dense problem (write_dense_problem: ~2,200 lines
+     x ~10,900 channels) at 128 walkers, for Chebyshev and state-sum Q on
+     the split tables, Chebyshev on the rectangular table and analytic Q
+     in 5 dims: the same three checks (the f32 run over 1024 steps), the
+     lnprob entry also against the port's plain batched gather lnprob.
+     K4a / K4b on the same problem: the opacity of 128 walkers in both
+     formulas, masked and unmasked, against the plain versions;
+  4. time    — K1, K2 and K3 and their plain versions in us per ensemble
+     step (128 walkers, k=16) and per lnprob call of 128 thetas; K3's
+     lnprob with Q replaced by ones and at channel blocks of 128, 256 and
+     512; K4a / K4b per opacity evaluation of 128 walkers; the batched
+     gather lnprob of 128 thetas. CUDA events after warm-up, in turns
+     (plain, kernel, kernel, plain), median and quartiles;
   5. slice   — SpectralFit(...).run() at 128 walkers x 4096 steps through
-     FusedEnsembleSampler (K1), then MultiComponentFit(...).run() at 128
-     walkers x 4096 steps through FusedEnsembleSampler (K2), each with the
-     launch counts of that run, and MultiComponentFit with
-     use_fused_step=False (the general gather path) on the card;
-then one JSON line of per-kernel results and, last, the device JSON line.
+     FusedEnsembleSampler (K1), MultiComponentFit(...).run() at 128
+     walkers x 4096 steps through K2 and with use_fused_step=False (the
+     general gather path), and SpectralFit(...).run() on the full-size
+     dense problem (the sparse path auto-selected) at 128 walkers x 2048
+     steps through K3 and, for 256 steps, with use_fused_step=False —
+     each with the launch counts of that run;
+then one JSON line of per-kernel results, the card's name and power
+limit, and, last, the device JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -48,10 +64,23 @@ LNPROB_KERNEL_TPU = "cha1_mcmc_tpu/sampler/fused.py:168"
 CU_SOURCE_K2 = "cha1_mcmc_tpu_torch/csrc/multi_step.cu"
 STEP_KERNEL_TPU_K2 = "cha1_mcmc_tpu/sampler/fused_multi.py:370"
 LNPROB_KERNEL_TPU_K2 = "cha1_mcmc_tpu/sampler/fused_multi.py:227"
+CU_SOURCE_K3 = "cha1_mcmc_tpu_torch/csrc/gather_step.cu"
+STEP_KERNEL_TPU_K3 = "cha1_mcmc_tpu/sampler/fused_gather.py:706"
+LNPROB_KERNEL_TPU_K3 = "cha1_mcmc_tpu/sampler/fused_gather.py:539"
+CU_SOURCE_K4 = "cha1_mcmc_tpu_torch/csrc/opacity.cu"
+BLOCK_KERNEL_TPU = "cha1_mcmc_tpu/models/pallas_kernels.py:136"
+CSR_KERNEL_TPU = "cha1_mcmc_tpu/models/pallas_kernels.py:344"
 W, K_STEPS = 128, 16
 TIMING_PAIRS = 5
 DEVICE = "cuda"
 DV_BOUND = 0.3            # MultiFitConfig.dv_bound
+DENSE_DV_MAX = 1.5        # the dense prior's dV upper bound
+#: The card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
+#: device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s
+#: (132 SMs x 128 lanes x 2 x 1.98 GHz), and the special-function units'
+#: 16 results per clock per SM at that clock (exp, exp2, log, and the
+#: reciprocal that starts an IEEE divide).
+MEM_RATE, FLOP_RATE, SFU_RATE = 3.35e12, 67e12, 132 * 16 * 1.98e9
 
 
 def phase(n, name, msg):
@@ -216,7 +245,7 @@ def check_case(label, m32, m64, spec, cfg, grid, gen, errs):
     pos0 = torch.as_tensor(center * (1 + 0.01 * rng.standard_normal((W, ndim))),
                            dtype=torch.float64, device=DEVICE)
     fns = (fused_lnprob, fused_lnprob_plain, fused_step_block, fused_steps_plain)
-    return check_kernel(label, fns, t32, t64, th, pos0, grid.yerrs, gen, errs, 2048)
+    return check_kernel(label, fns, t32, t64, th, pos0, grid.yerrs, gen, errs, 1024)
 
 
 def multi_cases(problem_dir):
@@ -314,7 +343,7 @@ def check_multi_case(label, m32, m64, spec, means, stds, pert, grid, gen, errs):
     th = multi_thetas(512, spec.ncomp, means, gen).to(torch.float32)
     fns = (multi_lnprob, multi_lnprob_plain, multi_step_block, multi_steps_plain)
     return check_kernel(label, fns, t32, t64, th, multi_pos0(means, pert),
-                        grid.yerrs, gen, errs, 1024)
+                        grid.yerrs, gen, errs, 512)
 
 
 def time_kernel(fns, tables, st, pos0, th, gen, kernel_blocks=64, plain_blocks=4):
@@ -385,7 +414,9 @@ def time_steps(m32, spec, cfg, grid, gen):
                            dtype=torch.float32, device=DEVICE)
     th = in_box_thetas(W, 4, cfg.bounds, gen).to(torch.float32)
     fns = (fused_lnprob, fused_lnprob_plain, fused_step_block, fused_steps_plain)
-    return time_kernel(fns, tb, st, pos0, th, gen)
+    work = {"fused_steps": tuple(K_STEPS * x for x in k1_work(m32, pos0[:, -1])),
+            "fused_lnprob": k1_work(m32, th[:, -1])}
+    return time_kernel(fns, tb, st, pos0, th, gen), work
 
 
 def time_multi(case, gen):
@@ -403,8 +434,371 @@ def time_multi(case, gen):
     pos0 = multi_pos0(means, pert, seed=1).to(torch.float32)
     th = multi_thetas(W, spec.ncomp, means, gen).to(torch.float32)
     fns = (multi_lnprob, multi_lnprob_plain, multi_step_block, multi_steps_plain)
-    return time_kernel(fns, tb, st, pos0, th, gen, kernel_blocks=16)
+    K, mc = spec.ncomp, st.mask_center
+    work = {"multi_steps": tuple(K_STEPS * x for x in k2_work(tb, K, pos0[:, -1], mc)),
+            "multi_lnprob": k2_work(tb, K, th[:, -1], mc)}
+    return time_kernel(fns, tb, st, pos0, th, gen, kernel_blocks=16), work
 
+
+def bound(n_sfu, n_flop, n_bytes):
+    """(bound_ms, bound_by): the least time the card could take for work
+    of n_sfu special-function results, n_flop other float operations and
+    n_bytes of device memory traffic, at the card's peaks."""
+    ops_s = max(n_sfu / SFU_RATE, n_flop / FLOP_RATE)
+    bytes_s = n_bytes / MEM_RATE
+    return 1e3 * max(ops_s, bytes_s), ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def in_window(vel, dv, mask_center):
+    """How many (theta, entry) terms of a velocity table fall inside the
+    ±10 dV window, summed over the thetas' dV (vel: any shape)."""
+    import torch
+
+    dist = (vel - mask_center).abs().flatten()
+    dist = dist[dist < 10.0 * float(dv.max())].sort().values
+    return int(torch.searchsorted(dist, 10.0 * dv.to(dist.dtype)).sum())
+
+
+def dense_cases(prob):
+    """(label, model_f32, model_f64, spec, bounds, means, stds, grid,
+    min_saving) for K3 on the dense problem: Chebyshev and state-sum Q on
+    the split tables, Chebyshev on the rectangular table (min_saving
+    1e9), and the analytic power-law Q(T) of 1-cyanonaphthalene in 5
+    dims (free source size)."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.catalogs import QModel, load_catalog
+    from cha1_mcmc_tpu_torch.catalogs.partition import (_state_sum_model,
+                                                        fit_device_cheb)
+    from cha1_mcmc_tpu_torch.inference import ParamSpec
+    from cha1_mcmc_tpu_torch.models import SpectralModel
+    from cha1_mcmc_tpu_torch.reduce import reduce_spectrum
+    from tests.port_problems import (DENSE_BOUNDS, DENSE_CENTER, DENSE_DISH,
+                                     DENSE_SOURCE_SIZE)
+
+    cat = load_catalog(prob["cat_path"])
+    grid = reduce_spectrum(cat, prob["data_path"], ll=prob["ll"], ul=prob["ul"],
+                           aligned_velocity=DENSE_CENTER, dish_size=DENSE_DISH,
+                           source_size=DENSE_SOURCE_SIZE, verbose=False)
+    states = _state_sum_model(cat)
+    cheb = fit_device_cheb(states, *DENSE_BOUNDS["Tex"])
+    power = QModel(kind="analytic", coeffs=(0.0,), power=(560.39, 1.4984))
+    ncol = prob["truth"][0]
+    means5 = np.array([DENSE_SOURCE_SIZE, 1.2 * ncol, 8.0, DENSE_CENTER, 0.7575])
+    stds5 = np.array([6.5, 0.5 * ncol, 3.0, 0.06, 0.22])
+    out = []
+    for label, q, ndim, min_saving in (("cheb-split-4d", cheb, 4, 1.3),
+                                       ("states-split-4d", states, 4, 1.3),
+                                       ("cheb-rect-4d", cheb, 4, 1e9),
+                                       ("analytic-split-5d", power, 5, 1.3)):
+        models = [SpectralModel.build(cat, grid.covered_trans, grid.freqs,
+                                      ll=prob["ll"], ul=prob["ul"], dish_size=DENSE_DISH,
+                                      vel_offset=DENSE_CENTER, mask_center=DENSE_CENTER,
+                                      q_model=q, device=DEVICE, dtype=dt)
+                  for dt in (torch.float32, torch.float64)]
+        spec = ParamSpec(ncomp=1,
+                         fixed_source_size=DENSE_SOURCE_SIZE if ndim == 4 else None)
+        cut = 5 - ndim
+        out.append((label, *models, spec, dict(DENSE_BOUNDS), means5[cut:], stds5[cut:],
+                    grid, min_saving))
+    return out
+
+
+def dense_thetas(n, ndim, ncol, gen):
+    """Random thetas inside the dense prior around the posterior's region:
+    source size uniform in [40, 70] (5 dims), log-uniform Ncol within 3x
+    of the injected one, Tex in [5, 11], vlsr within 0.2 km/s of 5.8, dV
+    in [0.5, 1.2]."""
+    import math
+
+    import torch
+
+    u = torch.rand((n, ndim), generator=gen, device=DEVICE, dtype=torch.float64)
+    cols = [40.0 + 30.0 * u[:, 0]] if ndim == 5 else []
+    off = ndim - 4
+    cols += [ncol * torch.exp(math.log(3.0) * (2.0 * u[:, off] - 1.0)),
+             5.0 + 6.0 * u[:, off + 1], 5.6 + 0.4 * u[:, off + 2],
+             0.5 + 0.7 * u[:, off + 3]]
+    return torch.stack(cols, dim=1)
+
+
+def dense_tables(case, cblock=128):
+    """(fns, (st32, tb32), (st64, tb64), geometry) of K3 for one dense
+    case; fns = (lnprob, lnprob_plain, step_block, steps_plain) with the
+    geometry bound, as check_kernel / time_kernel call them."""
+    import functools
+
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import (
+        gather_lnprob, gather_lnprob_plain, gather_statics_tables, gather_step_block,
+        gather_steps_plain, plan_fused_gather)
+
+    label, m32, m64, spec, bounds, means, stds, grid, min_saving = case
+    out = []
+    for m in (m32, m64):
+        plan = plan_fused_gather(m, spec, DENSE_DV_MAX, W, min_saving=min_saving,
+                                 cblock=cblock)
+        st, tb, geom = gather_statics_tables(m, spec, grid.ints, grid.yerrs, bounds,
+                                             means, stds, plan)
+        out.append((st, tb))
+    fns = tuple(functools.partial(f, geom=geom) for f in
+                (gather_lnprob, gather_lnprob_plain, gather_step_block,
+                 gather_steps_plain))
+    return fns, out[0], out[1], geom
+
+
+def dense_pos0(case, seed=0):
+    """The dense fit's walker ball at W walkers, f64 on the card: 1%
+    around the injected truth, and in 5 dims the source size spread by its
+    prior sigma (the data barely constrain it, so a 1% ball would keep the
+    ensemble expanding along it through the whole check)."""
+    import numpy as np
+    import torch
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    center = np.asarray(means, dtype=np.float64).copy()
+    center[spec.ndim - 4] = means[spec.ndim - 4] / 1.2      # the injected Ncol
+    scale = 0.01 * center
+    if spec.ndim == 5:
+        scale[0] = stds[0]
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(center + scale * rng.standard_normal((W, spec.ndim)),
+                           dtype=torch.float64, device=DEVICE)
+
+
+def check_dense_case(case, gen, errs):
+    """K3's checks on one dense case (check_kernel), and the T1 check: the
+    f32 lnprob entry against the port's plain batched gather lnprob."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.inference import (build_lnprob_batched,
+                                               single_component_lnprior)
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    fns, t32, t64, geom = dense_tables(case)
+    th = dense_thetas(512, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
+    fracs = check_kernel(label, fns, t32, t64, th, dense_pos0(case), grid.yerrs, gen,
+                         errs, 1024)
+    prior = single_component_lnprior(spec, bounds, means, stds, dtype=torch.float32)
+    general = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
+                                   use_pallas=True, dv_max=DENSE_DV_MAX)(th)
+    k = fns[0](th, t32[1], t32[0]).cpu().numpy()
+    g = general.cpu().numpy()
+    assert np.array_equal(np.isfinite(k), np.isfinite(g)), label
+    fin = np.isfinite(g)
+    scale = 2e-5 * abs(0.5 * float(np.log(1.0 / np.asarray(grid.yerrs) ** 2).sum()))
+    np.testing.assert_allclose(k[fin], g[fin], rtol=2e-5, atol=scale,
+                               err_msg=f"{label} K3 vs batched gather lnprob")
+    errs["general"] = max(errs.get("general", 0.0), float(np.max(np.abs(k[fin] - g[fin]))))
+    return fracs, geom
+
+
+def opacity_inputs(case, gen, dtype):
+    """(taus (W, L), vlsr, dV) of W in-box dense thetas, and the model, for
+    the opacity kernels."""
+    import torch
+    from cha1_mcmc_tpu_torch.ops.lte import tau_sticks
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    m = m32 if dtype == torch.float32 else m64
+    th = dense_thetas(W, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(dtype)
+    ss, Ncol, Tex, vlsr, dV = spec.unpack(th)
+    taus = tau_sticks(torch, m.line_freq, m.line_elower, m.line_aij, m.line_gup,
+                      m.line_glow, m.q(Tex)[:, None], Ncol, Tex[:, None], dV[:, None])
+    return taus.contiguous(), vlsr[:, 0].contiguous(), dV.contiguous(), m
+
+
+def opacity_calls(m, dtype):
+    """{name: (kernel call, plain call, masked)} over the dense model's
+    tables: K4a in the exp form and the exp2 form masked and unmasked,
+    K4b masked and unmasked; each call takes (taus, vlsr, dV)."""
+    import torch
+    from cha1_mcmc_tpu_torch.models import opacity_kernels as ok
+    from cha1_mcmc_tpu_torch.models.sparse_opacity import (block_activity_mask,
+                                                           build_opacity_csr)
+
+    vg = m.vel_grid.cpu().numpy()
+    mc = m.mask_center
+    mask = torch.as_tensor(block_activity_mask(vg, mc, DENSE_DV_MAX), device=DEVICE)
+    lt, vc, tc = build_opacity_csr(vg, mc, DENSE_DV_MAX)
+    lt, tc = (torch.as_tensor(x, device=DEVICE) for x in (lt, tc))
+    vc = torch.as_tensor(vc, dtype=dtype, device=DEVICE)
+    C = m.n_channels
+    out = {}
+    out["block-exp-masked"] = (
+        lambda t, v, d: ok.opacity_pallas(t, v, d, m.vel_grid, mask, mask_center=mc),
+        lambda t, v, d: ok.opacity_block_plain(t, v, d, m.vel_grid, mask,
+                                               mask_center=mc, form="exp"), True)
+    for masked in (True, False):
+        out[f"block-exp2-{'masked' if masked else 'unmasked'}"] = (
+            (lambda t, v, d, k=masked: ok.opacity_pallas_mxu(
+                t, v, d, m.vel_grid, mask, mask_center=mc, unmasked=not k)),
+            (lambda t, v, d, k=masked: ok.opacity_block_plain(
+                t, v, d, m.vel_grid, mask, mask_center=mc, form="exp2", masked=k)), masked)
+    for masked in (True, False):
+        out[f"csr-exp2-{'masked' if masked else 'unmasked'}"] = (
+            (lambda t, v, d, k=masked: ok.opacity_pallas_csr(
+                t, v, d, lt, vc, tc, mask_center=mc, n_channels=C, unmasked=not k)),
+            (lambda t, v, d, k=masked: ok.opacity_csr_plain(
+                t, v, d, lt, vc, tc, mask_center=mc, n_channels=C, masked=k)), masked)
+    return out
+
+
+def check_opacity(case, gen, errs):
+    """K4a / K4b against their plain versions on W = 128 in-box walkers:
+    f64 rtol 1e-12, f32 rtol 1e-5 (sums of positive terms in another
+    order), each with atol 1e-30 for terms deep in the Gaussians' tails,
+    where the kernels keep subnormals."""
+    import numpy as np
+    import torch
+
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        taus, vlsr, dV, m = opacity_inputs(case, gen, dtype)
+        for name, (kern, plain, _) in opacity_calls(m, dtype).items():
+            k = kern(taus, vlsr, dV).cpu().numpy()
+            p = plain(taus, vlsr, dV).cpu().numpy()
+            assert np.isfinite(k).all() and p.max() > 0, name
+            np.testing.assert_allclose(k, p, rtol=rtol, atol=1e-30,
+                                       err_msg=f"{name} {dtype}")
+            key = "block" if name.startswith("block") else "csr"
+            errs[key] = max(errs.get(key, 0.0), float(np.max(np.abs(k - p))))
+        phase(3, "check", f"K4a/K4b {dtype}: block exp, exp2 masked/unmasked and csr "
+              f"exp2 masked/unmasked match the plain versions (rtol {rtol:g})")
+
+
+def time_calls(calls, reps=20):
+    """Median [q1, q3] ms per call of each of `calls` {name: fn()}, CUDA
+    events after a warm-up, in turns (forward, backward) TIMING_PAIRS
+    times."""
+    import torch
+
+    def once(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / reps
+
+    times = {k: [] for k in calls}
+    names = list(calls)
+    for _ in range(TIMING_PAIRS):
+        for k in names + names[::-1]:
+            times[k].append(once(calls[k]))
+    return {k: quartiles(v) for k, v in times.items()}
+
+
+def time_dense(case, gen, device):
+    """Phase 4 for K3 and K4 (T2): K3 and its plain version per step and
+    per lnprob of W thetas (time_kernel), K3's lnprob with Q replaced by
+    ones and at channel blocks of 128, 256 and 512, K4a / K4b per opacity
+    evaluation of W walkers against their plain versions, and the batched
+    gather lnprob of W thetas. Returns ({name: ms}, bound inputs)."""
+    import dataclasses
+
+    import torch
+    from cha1_mcmc_tpu_torch.inference import (build_lnprob_batched,
+                                               single_component_lnprior)
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import gather_lnprob
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    fns, (st, tb), _, geom = dense_tables(case)
+    pos0 = dense_pos0(case, seed=1).to(torch.float32)
+    th = dense_thetas(W, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
+    k3 = report_times("K3", time_kernel(fns, tb, st, pos0, th, gen, kernel_blocks=16,
+                                        plain_blocks=2),
+                      f"{m32.n_lines} lines x {m32.n_channels} channels", "16 calls a run",
+                      device, plain_blocks=2)
+    ones = dataclasses.replace(st, q_kind="analytic", q_coeffs=(1.0,), q_power=None,
+                               q_scale=1.0)
+    calls = {"Q(T)": lambda: gather_lnprob(th, tb, st, geom),
+             "Q = 1": lambda: gather_lnprob(th, tb, ones, geom)}
+    for cb in (256, 512):
+        _, (st_c, tb_c), _, g_c = dense_tables(case, cblock=cb)
+        calls[f"cblock {cb}"] = (lambda s=st_c, t=tb_c, g=g_c: gather_lnprob(th, t, s, g))
+    prior = single_component_lnprior(spec, bounds, means, stds, dtype=torch.float32)
+    general = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
+                                   use_pallas=True, dv_max=DENSE_DV_MAX)
+    calls["batched gather lnprob"] = lambda: general(th)
+    taus, vlsr, dV, _ = opacity_inputs(case, gen, torch.float32)
+    k4 = opacity_calls(m32, torch.float32)
+    for name in ("block-exp2-masked", "csr-exp2-masked"):
+        kern, plain, _ = k4[name]
+        calls[f"{name} kernel"] = lambda f=kern: f(taus, vlsr, dV)
+        calls[f"{name} plain"] = lambda f=plain: f(taus, vlsr, dV)
+    t = time_calls(calls)
+    for name, (med, q1, q3) in t.items():
+        phase(4, "time", f"{name}, {W} thetas / walkers, f32, median [q1, q3] of "
+              f"{2 * TIMING_PAIRS} runs of 20 calls: {med * 1e3:.2f} [{q1 * 1e3:.2f}, "
+              f"{q3 * 1e3:.2f}] us; {device}")
+    phase(4, "time", "T2: Q(T) {:.2f} us vs Q = 1 {:.2f} us; channel blocks 128 / 256 / "
+          "512: {:.2f} / {:.2f} / {:.2f} us (K3 lnprob of {} thetas; {})".format(
+              t["Q(T)"][0] * 1e3, t["Q = 1"][0] * 1e3, t["Q(T)"][0] * 1e3,
+              t["cblock 256"][0] * 1e3, t["cblock 512"][0] * 1e3, W, device))
+    phase(4, "time", "no single PyTorch call computes K3's step or lnprob, or K4a / "
+          "K4b's opacity: library_ms is null")
+
+    # the work this run's inputs need, for the bounds: (special-function
+    # results, other float operations, bytes). Per in-window entry: tau's
+    # 2 exp + 4 divides and the Gaussian's exp2, ~20 flops; per (row,
+    # channel): J_T's exp + 2 divides, the dilution's divide and
+    # 1 - exp(-opac), ~15 flops; the tables read once.
+    C, M1, M2, cb0 = m32.n_channels, tb[1].shape[0], tb[3].shape[0], geom.cb0
+    table_bytes = 4 * (6 * M1 * C + 6 * M2 * max(cb0, 1) + 3 * C)
+
+    def k3_work(dv):
+        win = (in_window(tb[1], dv, st.mask_center)
+               + in_window(tb[3], dv, st.mask_center))
+        rows = dv.numel()
+        return 7 * win + 5 * rows * C, 20 * win + 15 * rows * C, table_bytes
+
+    work = {"gather_steps": tuple(K_STEPS * x for x in k3_work(pos0[:, -1])),
+            "gather_lnprob": k3_work(th[:, -1])}
+    # K4: per in-window term one exp2; every term of an active tile pays
+    # the window compare; taus, the velocities of the active tiles (K4a)
+    # or the compacted lines (K4b) and the output move once.
+    from cha1_mcmc_tpu_torch.models.sparse_opacity import (block_activity_mask,
+                                                           build_opacity_csr)
+    vg = m32.vel_grid
+    mask = block_activity_mask(vg.cpu().numpy(), st.mask_center, DENSE_DV_MAX)
+    _, _, counts = build_opacity_csr(vg.cpu().numpy(), st.mask_center, DENSE_DV_MAX)
+    L = m32.n_lines
+    active = torch.as_tensor(mask, device=DEVICE).bool()[
+        torch.arange(L, device=DEVICE) // 512][:, torch.arange(C, device=DEVICE) // 128]
+    win = in_window(torch.where(active, vg, torch.full_like(vg, 1e30)), dV, st.mask_center)
+    io = 4 * (W * L + 2 * W + W * C)
+    work["opacity_block"] = (win, 2 * W * int(active.sum()) + 4 * win,
+                             io + 4 * int(mask.sum()) * 512 * 128)
+    work["opacity_csr"] = (win, 2 * W * int(counts.sum()) * 128 + 4 * win,
+                           io + 4 * int(counts.sum()) * 129)
+    return k3, t, work
+
+
+def k1_work(m32, dv):
+    """(special-function results, flops, bytes) of K1's lnprob for thetas
+    with the given dV: per (row, line) tau's 2 exp + 4 divides, per
+    in-window (row, line, channel) one exp2, per (row, channel) 5; the
+    tables once."""
+    L, C = m32.n_lines, m32.n_channels
+    win = in_window(m32.vel_grid, dv, m32.mask_center)
+    rows = dv.numel()
+    return (6 * rows * L + win + 5 * rows * C, 20 * rows * L + 6 * win + 15 * rows * C,
+            4 * (5 * L + L * C + 3 * C))
+
+
+def k2_work(tables, ncomp, dv, mask_center):
+    """The same for K2: tau per (row, component, active line), one exp2
+    per (component, in-window entry), per (row, channel) the Planck term
+    and per component the dilution and 1 - exp(-opac)."""
+    lines, vel = tables[0], tables[1]
+    La, C = lines.shape[1], vel.shape[1]
+    win = in_window(vel, dv, mask_center)
+    rows = dv.numel()
+    return (6 * rows * ncomp * La + ncomp * win + rows * C * (3 + 2 * ncomp),
+            20 * rows * ncomp * La + 6 * ncomp * win + rows * C * (10 + 10 * ncomp),
+            4 * (5 * La + 3 * vel.numel() + 3 * C))
 
 def quartiles(xs):
     """(median, 25th, 75th percentile) of a list of timings."""
@@ -415,23 +809,26 @@ def quartiles(xs):
 
 
 def build_kernels():
-    """Build K1 and K2 at once (one nvcc process each) and load them:
-    {kernel: (seconds, nvcc log)}."""
+    """Build K1, K2, K3 and K4 at once (one nvcc process each) and load
+    them: {kernel: (seconds, nvcc log)}."""
     from concurrent.futures import ThreadPoolExecutor
-    from cha1_mcmc_tpu_torch.sampler import fused, fused_multi
+    from cha1_mcmc_tpu_torch.models import opacity_kernels
+    from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
 
     def timed(load):
         t0 = time.perf_counter()
         _, log = load()
         return time.perf_counter() - t0, log
 
-    with ThreadPoolExecutor(2) as ex:
-        futures = {"K1": ex.submit(timed, fused.load_kernel_library),
-                   "K2": ex.submit(timed, fused_multi.load_kernel_library)}
+    loads = {"K1": fused.load_kernel_library, "K2": fused_multi.load_kernel_library,
+             "K3": fused_gather.load_kernel_library,
+             "K4": opacity_kernels.load_kernel_library}
+    with ThreadPoolExecutor(len(loads)) as ex:
+        futures = {k: ex.submit(timed, f) for k, f in loads.items()}
         return {k: f.result() for k, f in futures.items()}
 
 
-def report_times(kname, times, shape, runs, device):
+def report_times(kname, times, shape, runs, device, plain_blocks=4):
     """Print the phase-4 lines of one kernel; returns the medians
     (kernel us/step, plain us/step, kernel ms/lnprob, plain ms/lnprob)."""
     kern, plain, lnp_kern, lnp_plain = times
@@ -441,25 +838,29 @@ def report_times(kname, times, shape, runs, device):
     phase(4, "time", f"{kname} whole step, {W} walkers, k={K_STEPS}, f32, {shape}, "
           f"median [q1, q3] of {n} runs: {kname} {k_us:.2f} [{k1:.2f}, {k3:.2f}] "
           f"us/step ({runs}), plain torch {p_us:.2f} [{p1:.2f}, {p3:.2f}] us/step "
-          f"(4 blocks a run); {device}")
+          f"({plain_blocks} blocks a run); {device}")
     phase(4, "time", f"{kname} lnprob of {W} thetas, median [q1, q3] of {n} runs of "
           f"50 calls: {kname} {lk_ms * 1e3:.2f} [{lk1 * 1e3:.2f}, {lk3 * 1e3:.2f}] us, "
           f"plain torch {lp_ms * 1e3:.2f} [{lp1 * 1e3:.2f}, {lp3 * 1e3:.2f}] us; {device}")
     return k_us, p_us, lk_ms, lp_ms
 
 
-def zero_launches():
-    from cha1_mcmc_tpu_torch.sampler import fused, fused_multi
+def _counters():
+    from cha1_mcmc_tpu_torch.models import opacity_kernels
+    from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
 
-    for counts in (fused.LAUNCHES, fused_multi.LAUNCHES):
+    return (fused.LAUNCHES, fused_multi.LAUNCHES, fused_gather.LAUNCHES,
+            opacity_kernels.LAUNCHES)
+
+
+def zero_launches():
+    for counts in _counters():
         for key in counts:
             counts[key] = 0
 
 
 def read_launches():
-    from cha1_mcmc_tpu_torch.sampler import fused, fused_multi
-
-    return {**fused.LAUNCHES, **fused_multi.LAUNCHES}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def slice_flagship(prob, tmp, device):
@@ -545,6 +946,91 @@ def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096):
     return launches
 
 
+def slice_dense(prob, tmp, device, fused_step=True, nruns=2048):
+    """SpectralFit.run() on the full-size dense problem with use_pallas
+    left to auto-select: through K3 (fused_step) or the general gather
+    path. Returns the launch counts of the run."""
+    import numpy as np
+    import cha1_mcmc_tpu_torch as port
+    from tests.port_problems import (DENSE_BOUNDS, DENSE_CENTER, DENSE_DISH,
+                                     DENSE_NAME, DENSE_SOURCE_SIZE)
+
+    ncol = prob["truth"][0]
+    zero_launches()
+    fit = port.SpectralFit(port.FitConfig(
+        mol_name=DENSE_NAME, cat_folder=prob["cat_folder"], data_path=prob["data_path"],
+        fit_folder=os.path.join(tmp, "dense" if fused_step else "dense_general"),
+        nwalkers=W, nruns=nruns, checkpoint_every=1024, seed=11, device="cuda",
+        lower_limit=prob["ll"], upper_limit=prob["ul"], dish_size=DENSE_DISH,
+        aligned_velocity=DENSE_CENTER, fixed_source_size=DENSE_SOURCE_SIZE,
+        bounds=dict(DENSE_BOUNDS),
+        template_means=(DENSE_SOURCE_SIZE, 1.2 * ncol, 8.0, DENSE_CENTER, 0.7575),
+        template_stds=(6.5, 0.5 * ncol, 3.0, 0.06, 0.22), use_fused_step=fused_step))
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):   # the reduction logs ~4,500 lines
+        chain = fit.run()
+    launches = read_launches()
+    for ln in log.getvalue().splitlines():
+        if any(w in ln for w in ("Dense catalog", "MLE", "Sampler", "Acceptance")):
+            print(f"    {ln.strip()}")
+    kind = port.FusedEnsembleSampler if fused_step else port.EnsembleSampler
+    assert type(fit.sampler) is kind, type(fit.sampler)
+    assert fit.config.use_pallas is None
+    if fused_step:
+        assert launches["gather_steps"] > 0 and launches["gather_lnprob"] > 0, launches
+    else:
+        assert not any(launches.values()), launches
+    assert chain.shape == (W, nruns, 4), chain.shape
+    assert np.isfinite(chain).all()
+    acc = fit.sampler.acceptance_fraction
+    assert 0.1 < acc < 0.9, acc
+    rate = fit.throughput.walker_steps_per_sec
+    phase(5, "slice", f"SpectralFit.run() dense, use_fused_step={fused_step}: "
+          f"{type(fit.sampler).__name__}, launches {launches}, chain {chain.shape}, "
+          f"acceptance {acc:.3f}, {rate:,.0f} walker-steps/s (sampling wall time "
+          f"incl. checkpoints; {device})")
+    if fused_step:
+        med = np.median(chain[:, chain.shape[1] // 5:, :].reshape(-1, 4), axis=0)
+        phase(5, "slice", "posterior medians vs injected truth: " + ", ".join(
+            f"{lbl} {m:.4g} ({t:.4g})" for lbl, m, t in
+            zip(("Ncol", "Tex", "vlsr", "dV"), med, prob["truth"])))
+    return launches
+
+
+def slice_opacity(case, gen):
+    """build_lnprob_batched(..., pallas_kernel="csr" / "block") on the
+    full-size dense problem, as a user calls it: each over W in-box
+    thetas through K4b / K4a, against the "gather" formulation (rtol
+    2e-5, as the lnprob checks). Returns the launch counts of the calls."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.inference import (build_lnprob_batched,
+                                               single_component_lnprior)
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    prior = single_component_lnprior(spec, bounds, means, stds, dtype=torch.float32)
+    th = dense_thetas(W, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
+    kw = dict(use_pallas=True, dv_max=DENSE_DV_MAX, dv_min=bounds["dV"][0],
+              vlsr_bounds=bounds["vlsr"])
+    ref = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior, **kw)(th)
+    ref = ref.cpu().numpy()
+    scale = 2e-5 * abs(0.5 * float(np.log(1.0 / np.asarray(grid.yerrs) ** 2).sum()))
+    zero_launches()
+    for kernel in ("csr", "block"):
+        got = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
+                                   pallas_kernel=kernel, **kw)(th).cpu().numpy()
+        assert np.array_equal(np.isfinite(got), np.isfinite(ref)), kernel
+        fin = np.isfinite(ref)
+        np.testing.assert_allclose(got[fin], ref[fin], rtol=2e-5, atol=scale,
+                                   err_msg=f"pallas_kernel={kernel!r}")
+    launches = read_launches()
+    assert launches["opacity_csr"] > 0 and launches["opacity_block"] > 0, launches
+    phase(5, "slice", f"build_lnprob_batched(pallas_kernel='csr' / 'block') on the "
+          f"dense problem, {W} thetas: match 'gather' (rtol 2e-5); launches "
+          f"{launches}")
+    return {k: launches[k] for k in ("opacity_csr", "opacity_block")}
+
+
 def main() -> int:
     import torch
 
@@ -553,7 +1039,9 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from tests.port_problems import write_hc5n_problem, write_hc9n_problem
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import ROWS
+    from tests.port_problems import (write_dense_problem, write_hc5n_problem,
+                                     write_hc9n_problem)
 
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -563,25 +1051,41 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build_kernels()
-    phase(2, "build", f"K1 and K2 built and loaded in {time.perf_counter() - t0:.1f} s "
-          "(one nvcc each, in parallel)")
+    phase(2, "build", f"K1, K2, K3 and K4 built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
     for kname, (secs, log) in built.items():
         print(f"    {kname}: {secs:.1f} s")
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"    {kname} ptxas: {ln.strip()}")
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
-    errs, errs2 = {}, {}
+    errs, errs2, errs3, errs4 = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         prob = write_hc5n_problem(os.path.join(tmp, "problem"))
         prob9 = write_hc9n_problem(os.path.join(tmp, "problem9"))
+        prob_d = write_dense_problem(os.path.join(tmp, "dense"), scale="full")
+        dense = dense_cases(prob_d)
+        m_d = dense[0][1]
+        _, (_, tb_d), _, geom = dense_tables(dense[0])
+        phase(2, "build", f"dense problem: {m_d.n_lines} lines x {m_d.n_channels} "
+              f"channels (n_lines x n_channels {m_d.n_lines * m_d.n_channels:,}), "
+              f"M1 {tb_d[1].shape[0]}, M2 {tb_d[3].shape[0]} on cb0 {geom.cb0} "
+              f"heavy-first channels, {dense[1][1].q_model.g.size} partition states, "
+              f"injected Ncol {prob_d['truth'][0]:.4e}")
+        groups = -(-W // 2 // ROWS)
+        phase(2, "build", f"K3 launch geometry at {W} walkers: evaluate grid "
+              f"({geom.n_blk} channel blocks x {groups} groups of {ROWS} proposals) = "
+              f"{geom.n_blk * groups} CTAs of {geom.cblock} threads "
+              f"({geom.cblock} channels per block), prepare {-(-W // 2 // 4)} CTAs, "
+              f"accept 1 CTA; 3 kernels per half-step")
+
         all_cases = cases(prob)
         for label, m32, m64, spec, cfg, grid in all_cases:
             fracs = check_case(label, m32, m64, spec, cfg, grid, gen, errs)
             phase(3, "check", f"K1 {label}: f32 lnprob ok, f64 64-step chain "
-                  f"bitwise, f32 2048-step acceptance kernel "
+                  f"bitwise, f32 1024-step acceptance kernel "
                   f"{fracs['kernel']:.4f} vs plain {fracs['plain']:.4f}")
         phase(3, "check", f"K1 max |kernel - plain|: f32 lnprob {errs['lnprob']:.3e}, "
               f"f64 step lnps {errs['steps']:.3e} ({device})")
@@ -589,31 +1093,53 @@ def main() -> int:
         for case in gotham:
             fracs = check_multi_case(*case, gen, errs2)
             phase(3, "check", f"K2 {case[0]}: f32 lnprob ok, f64 64-step chain "
-                  f"bitwise, f32 1024-step acceptance kernel "
+                  f"bitwise, f32 512-step acceptance kernel "
                   f"{fracs['kernel']:.4f} vs plain {fracs['plain']:.4f}")
         phase(3, "check", f"K2 max |kernel - plain|: f32 lnprob {errs2['lnprob']:.3e}, "
               f"f64 step lnps {errs2['steps']:.3e} ({device})")
+        for case in dense:
+            fracs, g = check_dense_case(case, gen, errs3)
+            phase(3, "check", f"K3 {case[0]} ({g.n_blk} blocks, cb0 {g.cb0}): f32 "
+                  f"lnprob ok (also vs the batched gather lnprob), f64 64-step chain "
+                  f"bitwise, f32 1024-step acceptance kernel {fracs['kernel']:.4f} vs "
+                  f"plain {fracs['plain']:.4f}")
+        phase(3, "check", f"K3 max |kernel - plain|: f32 lnprob {errs3['lnprob']:.3e} "
+              f"(vs batched gather {errs3['general']:.3e}), f64 step lnps "
+              f"{errs3['steps']:.3e} ({device})")
+        check_opacity(dense[0], gen, errs4)
+        phase(3, "check", f"K4 max |kernel - plain|: block {errs4['block']:.3e}, csr "
+              f"{errs4['csr']:.3e} ({device})")
 
         label, m32, m64, spec, cfg, grid = all_cases[0]
-        t1 = report_times("K1", time_steps(m32, spec, cfg, grid, gen),
-                          f"{m32.n_lines} lines x {m32.n_channels} channels",
+        t1, w1 = time_steps(m32, spec, cfg, grid, gen)
+        t1 = report_times("K1", t1, f"{m32.n_lines} lines x {m32.n_channels} channels",
                           "64 launches a run", device)
         m9 = gotham[0][1]
-        t2 = report_times("K2", time_multi(gotham[0], gen),
-                          f"K=4, {m9.n_lines} lines x {m9.n_channels} channels",
+        t2, w2 = time_multi(gotham[0], gen)
+        t2 = report_times("K2", t2, f"K=4, {m9.n_lines} lines x {m9.n_channels} channels",
                           "16 launches a run", device)
+        t3, t4, w3 = time_dense(dense[0], gen, device)
 
         launches = slice_flagship(prob, tmp, device)
         launches.update((k, v) for k, v in slice_gotham(prob9, tmp, device).items()
                         if k.startswith("multi"))
         slice_gotham(prob9, tmp, device, fused_step=False, nruns=512)
+        launches.update((k, v) for k, v in slice_dense(prob_d, tmp, device).items()
+                        if k.startswith("gather"))
+        slice_dense(prob_d, tmp, device, fused_step=False, nruns=256)
+        # the opacity kernels run on the "csr" / "block" formulations of the
+        # batched lnprob: drive each once through build_lnprob_batched
+        launches.update(slice_opacity(dense[0], gen))
 
+    work = {**w1, **w2, **w3}
     entries = []
     for (k_us, p_us, lk_ms, lp_ms), e, src, (steps_name, steps_tpu), (lnp_name, lnp_tpu) in (
             (t1, errs, CU_SOURCE, ("fused_steps", STEP_KERNEL_TPU),
              ("fused_lnprob", LNPROB_KERNEL_TPU)),
             (t2, errs2, CU_SOURCE_K2, ("multi_steps", STEP_KERNEL_TPU_K2),
-             ("multi_lnprob", LNPROB_KERNEL_TPU_K2))):
+             ("multi_lnprob", LNPROB_KERNEL_TPU_K2)),
+            (t3, errs3, CU_SOURCE_K3, ("gather_steps", STEP_KERNEL_TPU_K3),
+             ("gather_lnprob", LNPROB_KERNEL_TPU_K3))):
         entries += [
             {"name": steps_name, "route": "cuda", "source": src, "replaces": steps_tpu,
              "launches": launches[steps_name], "max_abs_err": e["steps"],
@@ -621,6 +1147,15 @@ def main() -> int:
             {"name": lnp_name, "route": "cuda", "source": src, "replaces": lnp_tpu,
              "launches": launches[lnp_name], "max_abs_err": e["lnprob"],
              "ms": lk_ms, "plain_ms": lp_ms}]
+    for kname, key, tpu in (("opacity_block", "block-exp2-masked", BLOCK_KERNEL_TPU),
+                            ("opacity_csr", "csr-exp2-masked", CSR_KERNEL_TPU)):
+        entries.append({"name": kname, "route": "cuda", "source": CU_SOURCE_K4,
+                        "replaces": tpu, "launches": launches[kname],
+                        "max_abs_err": errs4[kname.split("_")[1]],
+                        "ms": t4[f"{key} kernel"][0], "plain_ms": t4[f"{key} plain"][0]})
+    for entry in entries:
+        entry["bound_ms"], entry["bound_by"] = bound(*work[entry["name"]])
+        entry["library_ms"] = None
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,8 @@
 """The CUDA build's cache key (cha1_mcmc_tpu_torch/utils/cuda_build.py),
 on the CPU: no nvcc is needed to compute it. A library is reused only
 while its source, every shared header in csrc/ and the flags are
-unchanged, so an edit to the step loop both kernels include
-(csrc/step_loop.cuh) rebuilds both."""
+unchanged, so an edit to the step loop every kernel includes
+(csrc/step_loop.cuh) rebuilds them all."""
 
 import shutil
 
@@ -19,11 +19,21 @@ def csrc(tmp_path):
 
 
 def test_every_source_includes_the_shared_header():
-    for name in ("fused_step.cu", "multi_step.cu"):
-        assert '#include "step_loop.cuh"' in (cuda_build.CSRC_DIR / name).read_text()
+    """Every source reaches step_loop.cuh, directly or through the
+    single-component statics header (K1 and K3)."""
+    csrc = cuda_build.CSRC_DIR
+    via = '#include "step_loop.cuh"' in (csrc / "single_statics.cuh").read_text()
+    assert via
+    for name in ("fused_step.cu", "multi_step.cu", "gather_step.cu", "opacity.cu"):
+        text = (csrc / name).read_text()
+        assert ('#include "step_loop.cuh"' in text
+                or '#include "single_statics.cuh"' in text), name
+    for name in ("fused_step.cu", "gather_step.cu"):
+        assert '#include "single_statics.cuh"' in (csrc / name).read_text(), name
 
 
-@pytest.mark.parametrize("source", ["fused_step.cu", "multi_step.cu"])
+@pytest.mark.parametrize("source", ["fused_step.cu", "multi_step.cu", "gather_step.cu",
+                                    "opacity.cu"])
 def test_editing_a_header_changes_the_digest(csrc, source):
     before = cuda_build.source_digest(csrc / source, csrc)
     assert before == cuda_build.source_digest(csrc / source, csrc)   # stable

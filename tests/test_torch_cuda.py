@@ -1,15 +1,19 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions, on an
-NVIDIA GPU.
+"""The CUDA kernels K1, K2, K3 and K4a / K4b against their plain PyTorch
+versions, on an NVIDIA GPU.
 
 The same checks as phase 3 of chip_smoke.py, through its check functions:
 K1 on the synthetic flagship problem (128 walkers; analytic, Chebyshev
 and state-sum Q; 4- and 5-dim), K2 on the full-size synthetic GOTHAM
 problem (128 walkers; K=4 with the three Q kinds, and the K=1 ordered
-family): the f32 lnprob entry (rtol 2e-5), the f64 whole-step kernel
-over 64 steps (chain and acceptances bitwise, lnps rtol 1e-12) and the
-f32 whole-step kernel over 2048 (K1) / 1024 (K2) steps (acceptance
-fraction within 0.02). Every test here needs a CUDA device and nvcc, and
-skips without them; on the card run
+family), K3 on the full-size synthetic dense problem (128 walkers;
+Chebyshev and state-sum Q on the split tables, Chebyshev on the
+rectangular table, analytic Q in 5 dims): the f32 lnprob entry (rtol
+2e-5), the f64 whole-step kernel over 64 steps (chain and acceptances
+bitwise, lnps rtol 1e-12) and the f32 whole-step kernel over 1024 (K1) /
+512 (K2) / 1024 (K3) steps (acceptance fraction within 0.02); K4a / K4b's
+opacity on the dense problem in both formulas, masked and unmasked.
+Every test here needs a CUDA device and nvcc, and skips without them; on
+the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
 
@@ -82,3 +86,40 @@ def test_k2_kernel_matches_plain(gotham_cases, label):
     fracs = chip_smoke.check_multi_case(*gotham_cases[label], gen, {})
     assert fused_multi.LAUNCHES["multi_steps"] > before
     assert 0.1 < fracs["kernel"] < 0.9
+
+
+@pytest.fixture(scope="module")
+def dense_cases(tmp_path_factory):
+    _require_card()
+    import chip_smoke
+    from tests.port_problems import write_dense_problem
+
+    prob = write_dense_problem(str(tmp_path_factory.mktemp("dense")), scale="full")
+    return {c[0]: c for c in chip_smoke.dense_cases(prob)}
+
+
+@pytest.mark.parametrize("label", ["cheb-split-4d", "states-split-4d", "cheb-rect-4d",
+                                   "analytic-split-5d"])
+def test_k3_kernel_matches_plain(dense_cases, label):
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.sampler import fused_gather
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    before = fused_gather.LAUNCHES["gather_steps"]
+    fracs, geom = chip_smoke.check_dense_case(dense_cases[label], gen, {})
+    assert fused_gather.LAUNCHES["gather_steps"] > before
+    assert geom.n_blk > 1 and 0.1 < fracs["kernel"] < 0.9
+
+
+def test_k4_kernels_match_plain(dense_cases):
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.models import opacity_kernels
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    before = dict(opacity_kernels.LAUNCHES)
+    errs = {}
+    chip_smoke.check_opacity(dense_cases["cheb-split-4d"], gen, errs)
+    assert all(opacity_kernels.LAUNCHES[k] > before[k] for k in before)
+    assert set(errs) == {"block", "csr"}

@@ -538,7 +538,6 @@ def test_multifit_cuda_without_cuda_raises(gotham_problem):
 
 
 @pytest.mark.parametrize("what,match", [("n_devices", "P14"), ("n_chains", "P15"),
-                                        ("csr", "P11"), ("block", "P11"),
                                         ("workbench", "P12")])
 def test_out_of_slice_branches_raise(reduced, what, match):
     from cha1_mcmc_tpu_torch import MultiFitConfig, MultiComponentFit
@@ -548,12 +547,25 @@ def test_out_of_slice_branches_raise(reduced, what, match):
         if what in ("n_devices", "n_chains"):
             MultiComponentFit(MultiFitConfig(mol_name="hc9n_hfs", device="cpu",
                                              **{what: 2}))
-        elif what == "workbench":
-            load_workbench_preset("tmc1")
         else:
-            jm = jax_gotham_model(*reduced, "float32")
-            _port_gather_lnprob(jm, torch.float32, 4, reduced[1], use_pallas=True,
-                                dv_max=DV_BOUND, pallas_kernel=what)
+            load_workbench_preset("tmc1")
+
+
+@pytest.mark.parametrize("kernel", ["csr", "block"])
+def test_multifit_lnprob_through_opacity_kernels(reduced, kernel):
+    """The "csr" and "block" formulations (K4b / K4a's plain versions on
+    the CPU) give the 4-component gather lnprob (f64)."""
+    cat, grid = reduced
+    with jax.enable_x64():
+        jm = jax_gotham_model(cat, grid, "float64")
+    th = torch.from_numpy(_with_outliers(_thetas(4, 24, seed=8)))
+    gather = _port_gather_lnprob(jm, torch.float64, 4, grid)(th).numpy()
+    got = _port_gather_lnprob(jm, torch.float64, 4, grid, use_pallas=True,
+                              dv_max=DV_BOUND, pallas_kernel=kernel)(th).numpy()
+    fin = np.isfinite(gather)
+    assert fin.any()
+    np.testing.assert_array_equal(np.isfinite(got), fin)
+    np.testing.assert_allclose(got[fin], gather[fin], rtol=1e-12)
 
 
 def test_presets_match_jax(tmp_path):

@@ -159,7 +159,7 @@ def test_cuda_device_without_cuda_raises(problem, tmp_path):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(n_devices=2), "P14"), (dict(n_chains=2), "P15"),
-    (dict(use_pallas=True), "P11"), (dict(profile_dir="trace"), "P13")])
+    (dict(profile_dir="trace"), "P13")])
 def test_branches_outside_the_slice_raise(problem, tmp_path, kw, item):
     from cha1_mcmc_tpu_torch import SpectralFit
 

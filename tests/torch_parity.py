@@ -1,5 +1,5 @@
 """Shared helpers for the parity tests of the torch port against the JAX
-package (tests/test_torch_*.py): the synthetic flagship and GOTHAM
+package (tests/test_torch_*.py): the synthetic flagship, GOTHAM and dense
 problems as seen by both packages, the JAX model's constants as NumPy
 arrays, and the JAX sampler's randomness rebuilt exactly as
 cha1_mcmc_tpu/sampler/stretch.py draws it."""
@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from tests.port_problems import (ALIGNED_VELOCITY, DISH_SIZE, GOTHAM_CENTER,
+from tests.port_problems import (ALIGNED_VELOCITY, DENSE_CENTER, DENSE_DISH,
+                                 DENSE_SOURCE_SIZE, DISH_SIZE, GOTHAM_CENTER,
                                  GOTHAM_DISH, GOTHAM_LL, GOTHAM_UL, LL, UL,
-                                 SOURCE_SIZE, write_hc5n_problem,
-                                 write_hc9n_problem)
+                                 SOURCE_SIZE, write_dense_problem,
+                                 write_hc5n_problem, write_hc9n_problem)
 
 BOUNDS = {"source_size": (30.0, 90.0), "Ncol": (1e8, 1e14),
           "Tex": (3.5, 12.0), "vlsr": (3.0, 5.5), "dV": (0.4, 1.5)}
@@ -103,6 +104,51 @@ def jax_gotham_model(cat, grid, dtype, q_model=None):
                                ll=GOTHAM_LL, ul=GOTHAM_UL, dish_size=GOTHAM_DISH,
                                vel_offset=0.0, mask_center=GOTHAM_CENTER,
                                q_model=q_model, dtype=jnp.dtype(dtype))
+
+
+@pytest.fixture(scope="module")
+def dense_problem(tmp_path_factory):
+    """The synthetic dense asymmetric-top problem at the CPU tests' size
+    (scale="small": 228 lines x 858 channels, a split gather table)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return write_dense_problem(str(tmp_path_factory.mktemp("dense")),
+                                   scale="small")
+
+
+def jax_dense_reduce(problem):
+    """(catalog, datagrid) of the dense problem from the JAX package."""
+    from cha1_mcmc_tpu.catalogs import load_catalog
+    from cha1_mcmc_tpu.reduce.datagrid import reduce_spectrum
+
+    cat = load_catalog(problem["cat_path"])
+    grid = reduce_spectrum(cat, problem["data_path"], ll=problem["ll"],
+                           ul=problem["ul"], aligned_velocity=DENSE_CENTER,
+                           dish_size=DENSE_DISH, source_size=DENSE_SOURCE_SIZE,
+                           verbose=False)
+    return cat, grid
+
+
+def jax_dense_model(problem, cat, grid, dtype, q_model=None):
+    """The JAX SpectralModel of the dense geometry (aligned velocity and
+    mask center 5.8, 100 m dish); build it inside jax.enable_x64() for
+    float64."""
+    import jax.numpy as jnp
+    from cha1_mcmc_tpu.models.forward import SpectralModel
+
+    return SpectralModel.build(cat, grid.covered_trans, grid.freqs,
+                               ll=problem["ll"], ul=problem["ul"],
+                               dish_size=DENSE_DISH, vel_offset=DENSE_CENTER,
+                               mask_center=DENSE_CENTER, q_model=q_model,
+                               dtype=jnp.dtype(dtype))
+
+
+def jax_gather_plan(jmodel, spec, nwalkers, min_saving=1.3, dv_max=1.5):
+    """The JAX package's K3 plan (plan_fused_gather) with the deviceless
+    Mosaic probe off, as its CPU runs plan."""
+    from cha1_mcmc_tpu.sampler.fused_gather import plan_fused_gather
+
+    return plan_fused_gather(jmodel, spec, dv_max, nwalkers=nwalkers,
+                             min_saving=min_saving, probe=False)
 
 
 def model_arrays(jmodel) -> dict:
