@@ -52,9 +52,22 @@
 //    statics struct, the theta unpack and the prior are shared with K3
 //    (single_statics.cuh).
 //
+// K5a — the sharded half-step, in this source because it is K1's lnprob
+// and K1's half-update. Replaces the Pallas TPU kernel
+// cha1_mcmc_tpu/parallel/sharded_fused.py:_half_step_kernel (:137, with
+// _half_update :91; call :631): one half-update of a rank's W_l local
+// walkers against the complement all-gathered over the walker shards
+// (the gather and the all_gather run before the launch, on the caller's
+// stream). One CTA: the (W_l, D+1) state is loaded from device memory into
+// shared memory, half_update runs with partners read from the gathered
+// (h n_w, D) buffer, and the state is stored back; the accepted count goes
+// to out_acc. Bound as K1 (latency of one SM), plus a launch per
+// half-step: a step is two launches where K1 runs k steps in one.
+//
 // C entries (all return cudaGetLastError() after the launch):
 //   k1_fused_steps_{f32,f64}: k whole steps of one ensemble;
 //   k1_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch;
+//   k5a_half_{f32,f64}:       one sharded half-step (K5a), state in place;
 //   k1_statics_size_{f32,f64}: sizeof(Statics<T>), checked by the binding;
 //   k1_error_string: the CUDA error message of a returned code.
 
@@ -151,6 +164,29 @@ fused_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
                    lnprob);
 }
 
+// K5a: one sharded half-step of a rank's W local walkers against the
+// complement gathered over the walker shards (run_sharded_half in
+// step_loop.cuh around the same DenseLnProb); one CTA, K1's layout.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sharded_half_kernel(T* __restrict__ state_g, const int32_t* __restrict__ act,
+                    const T* __restrict__ comp, const T* __restrict__ zu,
+                    const int32_t* __restrict__ pair, const T* __restrict__ au,
+                    Tables<T> tb, float* __restrict__ out_acc, int W, int D,
+                    __grid_constant__ const Statics<T> st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = W / 2;
+  T* state = reinterpret_cast<T*>(smem);
+  T* prop = state + (size_t)W * (D + 1);
+  T* zz = prop + (size_t)h * (D + 1);
+  T* tau = zz + h;
+  int* flag = reinterpret_cast<int*>(tau + (size_t)kWarps * tb.L);
+  int* acc_count = flag + h;
+  DenseLnProb<T> lnprob{st, tb, tau};
+  run_sharded_half<T>(state_g, act, comp, zu, pair, au, out_acc, W, D, st.a, state,
+                      prop, zz, flag, acc_count, lnprob);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 lnprob_kernel(const T* __restrict__ theta, T* __restrict__ out, Tables<T> tb,
@@ -185,6 +221,27 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm,
       static_cast<const int32_t*>(pair), static_cast<const T*>(au), tb,
       static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
       static_cast<float*>(out_acc), W, D, k, st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_half(void* state, const void* act, const void* comp, const void* zu,
+                const void* pair, const void* au, const void* lines, const void* vel,
+                const void* chans, const void* qst, void* out_acc,
+                const void* statics, int W, int D, int L, int C, int S, void* stream) {
+  const Statics<T> st = *static_cast<const Statics<T>*>(statics);
+  const Tables<T> tb{static_cast<const T*>(lines), static_cast<const T*>(vel),
+                     static_cast<const T*>(chans), static_cast<const T*>(qst),
+                     L, C, S};
+  const size_t smem = step_smem_bytes<T>(W, D, (size_t)kWarps * L);
+  cudaError_t err = cudaFuncSetAttribute(
+      sharded_half_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sharded_half_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(state), static_cast<const int32_t*>(act),
+      static_cast<const T*>(comp), static_cast<const T*>(zu),
+      static_cast<const int32_t*>(pair), static_cast<const T*>(au), tb,
+      static_cast<float*>(out_acc), W, D, st);
   return (int)cudaGetLastError();
 }
 
@@ -252,5 +309,17 @@ int k1_lnprob_f64(const void* theta, void* out, const void* lines,
   return launch_lnprob<double>(theta, out, lines, vel, chans, qst, statics, N,
                                D, L, C, S, stream);
 }
+
+#define K5A_HALF(SFX, T)                                                            \
+  int k5a_half_##SFX(void* state, const void* act, const void* comp, const void* zu, \
+                     const void* pair, const void* au, const void* lines,            \
+                     const void* vel, const void* chans, const void* qst,            \
+                     void* out_acc, const void* statics, int W, int D, int L, int C, \
+                     int S, void* stream) {                                          \
+    return launch_half<T>(state, act, comp, zu, pair, au, lines, vel, chans, qst,    \
+                          out_acc, statics, W, D, L, C, S, stream);                  \
+  }
+K5A_HALF(f32, float)
+K5A_HALF(f64, double)
 
 }  // extern "C"

@@ -60,9 +60,20 @@
 // Q, float32 and float64, h = W / 2 <= 1024, a channel block of 32..512
 // channels (a multiple of 32).
 //
+// K5b — the sharded half-step over the same tables, in this source
+// because it is K3's three kernels. Replaces the Pallas TPU kernel
+// cha1_mcmc_tpu/parallel/sharded_fused.py:_half_step_kernel_gather (:147,
+// call :272): one half-update of a rank's W_l local walkers against the
+// complement all-gathered over the walker shards. K3's prepare / evaluate
+// / accept split at the local walker count, the prepare kernel taking
+// each partner from the gathered (h n_w, D) buffer instead of the state;
+// the accept kernel writes the half's accepted count. Bound as K3, at
+// three launches per half-step.
+//
 // C entries (all return the first CUDA error of their launches, or 0):
 //   k3_fused_steps_{f32,f64}: k whole steps of one ensemble;
 //   k3_lnprob_{f32,f64}:      the same lnprob over an (N, D) batch;
+//   k5b_half_{f32,f64}:       one sharded half-step (K5b), state in place;
 //   k3_statics_size_{f32,f64}: sizeof(Statics<T>), checked by the binding;
 //   k3_error_string: the CUDA error message of a returned code.
 
@@ -88,15 +99,17 @@ struct GatherTables {
 };
 
 // Phase 1: one warp per row. For a step, the row is proposal j of the
-// half-step (written to prop, its stretch factor to zz); for the lnprob
+// half-step (written to prop, its stretch factor to zz), its partner row
+// pair[j] of the other half of the state (`cmp`) or, for the sharded
+// half-step K5b, of the gathered complement `comp` (n, D); for the lnprob
 // entry it is theta[j]. Writes the row's scalars (Scal order).
 template <typename T>
 __global__ void __launch_bounds__(32 * kPrepWarps)
 prepare_kernel(const T* __restrict__ theta, const T* __restrict__ state,
                const int32_t* __restrict__ act, const int32_t* __restrict__ cmp,
-               const int32_t* __restrict__ pair, const T* __restrict__ zu,
-               T* __restrict__ prop, T* __restrict__ zz, T* __restrict__ scal,
-               GatherTables<T> tb, int n, int D,
+               const T* __restrict__ comp, const int32_t* __restrict__ pair,
+               const T* __restrict__ zu, T* __restrict__ prop, T* __restrict__ zz,
+               T* __restrict__ scal, GatherTables<T> tb, int n, int D,
                __grid_constant__ const Statics<T> st) {
   const int lane = threadIdx.x & 31;
   const int j = blockIdx.x * kPrepWarps + (threadIdx.x >> 5);
@@ -108,7 +121,8 @@ prepare_kernel(const T* __restrict__ theta, const T* __restrict__ state,
     if (lane == 0) {
       const int D1 = D + 1;
       const T* s = state + (size_t)act[j] * D1;
-      const T* c = state + (size_t)cmp[pair[j]] * D1;
+      const T* c = comp != nullptr ? comp + (size_t)pair[j] * D
+                                   : state + (size_t)cmp[pair[j]] * D1;
       const T z = stretch_z(zu[j], st.a);
       zz[j] = z;
       for (int d = 0; d < D; ++d) prop[j * D + d] = fma_rn(z, sub_rn(s[d], c[d]), c[d]);
@@ -317,7 +331,8 @@ int launch_steps(void* state, const void* perm, const void* zu, const void* pair
       const int32_t* act = perm_t + (size_t)step * W + half * h;
       const int32_t* cmp = perm_t + (size_t)step * W + (1 - half) * h;
       prepare_kernel<T><<<prep_blocks, 32 * kPrepWarps, 0, s>>>(
-          nullptr, state_t, act, cmp, static_cast<const int32_t*>(pair) + (size_t)r * h,
+          nullptr, state_t, act, cmp, nullptr,
+          static_cast<const int32_t*>(pair) + (size_t)r * h,
           static_cast<const T*>(zu) + (size_t)r * h, prop_t, zz_t, scal_t, tb, h, D, st);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
@@ -337,6 +352,42 @@ int launch_steps(void* state, const void* perm, const void* zu, const void* pair
   return (int)cudaSuccess;
 }
 
+// K5b: one sharded half-step of a rank's W local walkers, state (W, D+1)
+// in device memory, updated in place: prepare (partners from the gathered
+// complement), evaluate and accept, the accepted count to acc_out[0].
+template <typename T>
+int launch_half(void* state, const void* act, const void* comp, const void* zu,
+                const void* pair, const void* au, const void* lines1, const void* vel1,
+                const void* lines2, const void* vel2, const void* chans, const void* qst,
+                void* prop, void* zz, void* scal, void* partial, void* acc_out,
+                const void* statics, int W, int D, int M1, int M2, int C, int cb0, int S,
+                int cblock, int n_blk, void* stream) {
+  const int h = W / 2;
+  if (W % 2 || h > 1024 || !geometry_ok(h, cblock, n_blk, C)) return (int)cudaErrorInvalidValue;
+  const Statics<T> st = *static_cast<const Statics<T>*>(statics);
+  const GatherTables<T> tb = tables<T>(lines1, vel1, lines2, vel2, chans, qst, M1, M2, C, cb0, S);
+  const auto s = static_cast<cudaStream_t>(stream);
+  T* state_t = static_cast<T*>(state);
+  T* scal_t = static_cast<T*>(scal);
+  T* part_t = static_cast<T*>(partial);
+  const int32_t* act_t = static_cast<const int32_t*>(act);
+  prepare_kernel<T><<<(h + kPrepWarps - 1) / kPrepWarps, 32 * kPrepWarps, 0, s>>>(
+      nullptr, state_t, act_t, nullptr, static_cast<const T*>(comp),
+      static_cast<const int32_t*>(pair), static_cast<const T*>(zu), static_cast<T*>(prop),
+      static_cast<T*>(zz), scal_t, tb, h, D, st);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  evaluate_kernel<T><<<dim3(n_blk, (h + kRows - 1) / kRows), cblock, 0, s>>>(
+      scal_t, part_t, tb, h, n_blk, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  accept_kernel<T><<<1, (h + 31) / 32 * 32, 0, s>>>(
+      state_t, act_t, static_cast<const T*>(au), static_cast<const T*>(prop),
+      static_cast<const T*>(zz), scal_t, part_t, static_cast<int*>(acc_out), nullptr,
+      nullptr, nullptr, W, D, n_blk, 0);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_lnprob(const void* theta, void* out, const void* lines1, const void* vel1,
                   const void* lines2, const void* vel2, const void* chans,
@@ -351,7 +402,7 @@ int launch_lnprob(const void* theta, void* out, const void* lines1, const void* 
   T* part_t = static_cast<T*>(partial);
   prepare_kernel<T><<<(N + kPrepWarps - 1) / kPrepWarps, 32 * kPrepWarps, 0, s>>>(
       static_cast<const T*>(theta), nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-      nullptr, scal_t, tb, N, D, st);
+      nullptr, nullptr, scal_t, tb, N, D, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   evaluate_kernel<T><<<dim3(n_blk, (N + kRows - 1) / kRows), cblock, 0, s>>>(
@@ -401,5 +452,20 @@ K3_STEPS(f64, double)
   }
 K3_LNPROB(f32, float)
 K3_LNPROB(f64, double)
+
+#define K5B_HALF(SFX, T)                                                              \
+  int k5b_half_##SFX(void* state, const void* act, const void* comp, const void* zu,   \
+                     const void* pair, const void* au, const void* lines1,             \
+                     const void* vel1, const void* lines2, const void* vel2,           \
+                     const void* chans, const void* qst, void* prop, void* zz,         \
+                     void* scal, void* partial, void* acc_out, const void* statics,    \
+                     int W, int D, int M1, int M2, int C, int cb0, int S, int cblock,  \
+                     int n_blk, void* stream) {                                        \
+    return launch_half<T>(state, act, comp, zu, pair, au, lines1, vel1, lines2, vel2,  \
+                          chans, qst, prop, zz, scal, partial, acc_out, statics, W, D, \
+                          M1, M2, C, cb0, S, cblock, n_blk, stream);                   \
+  }
+K5B_HALF(f32, float)
+K5B_HALF(f64, double)
 
 }  // extern "C"

@@ -49,9 +49,21 @@
 //    struct passed by value (__grid_constant__), rounded to the kernel's
 //    scalar type once on the host; at most kMaxComp components.
 //
+// K5c — the sharded multi-component half-step, in this source because it
+// is K2's lnprob and half-update. Replaces the Pallas TPU kernel
+// cha1_mcmc_tpu/parallel/sharded_fused.py:_half_step_kernel_multi (:320,
+// call :494): one half-update of a rank's W_l local walkers against the
+// complement all-gathered over the walker shards. It keeps K2's (W, D+1)
+// state layout, not the TPU kernel's transposed (D+1, W) one: one CTA
+// loads the state from device memory into shared memory, runs half_update
+// (step_loop.cuh) with partners from the gathered (h n_w, D) buffer and
+// stores it back; the accepted count goes to out_acc. Bound as K2, plus a
+// launch per half-step.
+//
 // C entries (all return cudaGetLastError() after the launch):
 //   k2_fused_steps_{f32,f64}: k whole steps of one ensemble;
 //   k2_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch;
+//   k5c_half_{f32,f64}:       one sharded half-step (K5c), state in place;
 //   k2_statics_size_{f32,f64}: sizeof(MultiStatics<T>), checked by the binding;
 //   k2_error_string: the CUDA error message of a returned code.
 
@@ -221,6 +233,29 @@ multi_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
                    lnprob);
 }
 
+// K5c: one sharded half-step of a rank's W local walkers against the
+// complement gathered over the walker shards (run_sharded_half in
+// step_loop.cuh around the same MultiLnProb); one CTA, K2's layout.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+multi_sharded_half_kernel(T* __restrict__ state_g, const int32_t* __restrict__ act,
+                          const T* __restrict__ comp, const T* __restrict__ zu,
+                          const int32_t* __restrict__ pair, const T* __restrict__ au,
+                          MultiTables<T> tb, float* __restrict__ out_acc, int W, int D,
+                          __grid_constant__ const MultiStatics<T> st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int h = W / 2;
+  T* state = reinterpret_cast<T*>(smem);
+  T* prop = state + (size_t)W * (D + 1);
+  T* zz = prop + (size_t)h * (D + 1);
+  T* tau = zz + h;
+  int* flag = reinterpret_cast<int*>(tau + (size_t)kWarps * st.ncomp * tb.La);
+  int* acc_count = flag + h;
+  MultiLnProb<T> lnprob{st, tb, tau};
+  run_sharded_half<T>(state_g, act, comp, zu, pair, au, out_acc, W, D, st.a, state,
+                      prop, zz, flag, acc_count, lnprob);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 multi_lnprob_kernel(const T* __restrict__ theta, T* __restrict__ out,
@@ -268,6 +303,28 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm,
       static_cast<const int32_t*>(pair), static_cast<const T*>(au), tb,
       static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
       static_cast<float*>(out_acc), W, D, k, st);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_half(void* state, const void* act, const void* comp, const void* zu,
+                const void* pair, const void* au, const void* lines, const void* vel,
+                const void* line_idx, const void* group, const void* chans,
+                const void* qst, void* out_acc, const void* statics, int W, int D,
+                int La, int M, int C, int S, void* stream) {
+  const MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
+  const MultiTables<T> tb = make_tables<T>(lines, vel, line_idx, group, chans,
+                                           qst, La, M, C, S);
+  const size_t smem = step_smem_bytes<T>(W, D, (size_t)kWarps * st.ncomp * La);
+  cudaError_t err = cudaFuncSetAttribute(
+      multi_sharded_half_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  multi_sharded_half_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(state), static_cast<const int32_t*>(act),
+      static_cast<const T*>(comp), static_cast<const T*>(zu),
+      static_cast<const int32_t*>(pair), static_cast<const T*>(au), tb,
+      static_cast<float*>(out_acc), W, D, st);
   return (int)cudaGetLastError();
 }
 
@@ -336,5 +393,19 @@ int k2_lnprob_f64(const void* theta, void* out, const void* lines,
   return launch_lnprob<double>(theta, out, lines, vel, line_idx, group, chans,
                                qst, statics, N, D, La, M, C, S, stream);
 }
+
+#define K5C_HALF(SFX, T)                                                             \
+  int k5c_half_##SFX(void* state, const void* act, const void* comp, const void* zu,  \
+                     const void* pair, const void* au, const void* lines,             \
+                     const void* vel, const void* line_idx, const void* group,        \
+                     const void* chans, const void* qst, void* out_acc,               \
+                     const void* statics, int W, int D, int La, int M, int C, int S,  \
+                     void* stream) {                                                  \
+    return launch_half<T>(state, act, comp, zu, pair, au, lines, vel, line_idx,       \
+                          group, chans, qst, out_acc, statics, W, D, La, M, C, S,     \
+                          stream);                                                    \
+  }
+K5C_HALF(f32, float)
+K5C_HALF(f64, double)
 
 }  // extern "C"

@@ -19,6 +19,7 @@ to -inf so the sampler rejects the proposal (reference inference.py:145-147,
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from cha1_mcmc_tpu_torch.models.forward import SpectralModel
 from cha1_mcmc_tpu_torch.models.opacity_kernels import (
@@ -46,12 +47,15 @@ def _rt_tail(opac, ss, Tex, grid_freq, dish_size, Tbg):
 
 def _batched_opacity_model(opacity_fn, line_freq, line_elower, line_aij,
                            line_gup, line_glow, q_fn, grid_freq, dish_size,
-                           Tbg, spec, thetas):
+                           Tbg, spec, thetas, group=None):
     """Walker-batched body shared by the opacity formulations: unpack
     theta, per-line stick opacities, the formulation's opacity
-    (`opacity_fn` over the (N*K)-flattened taus/vlsr/dV), then the
-    radiative-transfer tail. The line arrays are whatever subset
-    `opacity_fn` was built against; `q_fn` maps Tex (N,) to Q (N,)."""
+    (`opacity_fn` over the (N*K)-flattened taus/vlsr/dV), an optional sum
+    of the partial opacities over the line shards of `group`
+    (all_reduce), then the radiative-transfer tail. The line arrays are
+    whatever subset `opacity_fn` was built against — a rank's line shard,
+    or the active subset of a gather table; `q_fn` maps Tex (N,) to Q
+    (N,)."""
     N = thetas.shape[0]
     K = spec.ncomp
     ss, Ncol, Tex, vlsr, dV = spec.unpack(thetas)
@@ -61,23 +65,30 @@ def _batched_opacity_model(opacity_fn, line_freq, line_elower, line_aij,
                       Tex[:, None, None], dV[:, None, None])      # (N, K, L)
     opac = opacity_fn(taus.reshape(N * K, -1), vlsr.reshape(N * K),
                       dV[:, None].expand(N, K).reshape(N * K)).reshape(N, K, -1)
+    if group is not None:
+        opac = opac.contiguous()
+        dist.all_reduce(opac, group=group)
     return _rt_tail(opac, ss, Tex, grid_freq, dish_size, Tbg)
 
 
 def batched_model_pallas(line_freq, line_elower, line_aij, line_gup, line_glow,
                          vel_grid, q_fn, grid_freq, mask_center, dish_size, Tbg,
-                         spec, thetas, block_mask, *, unmasked: bool = False):
+                         spec, thetas, block_mask, *, unmasked: bool = False,
+                         group=None):
     """(N, C) walker-batched forward model with the block-sparse opacity
     kernel K4a in the exp2 form (models/opacity_kernels.py:
-    opacity_pallas_mxu) over the full (L, C) velocity grid. unmasked must
-    only be set when unmasked_is_exact() holds for the parameter box."""
+    opacity_pallas_mxu) over the (L, C) velocity grid. unmasked must only
+    be set when unmasked_is_exact() holds for the parameter box. The line
+    arrays may be a rank's line shard (with the block mask of its
+    velocity rows): `group` then sums the partial opacities over the
+    line shards."""
     return _batched_opacity_model(
         lambda t, v, d: opacity_pallas_mxu(t, v.contiguous(), d.contiguous(),
                                            vel_grid, block_mask,
                                            mask_center=mask_center,
                                            unmasked=unmasked),
         line_freq, line_elower, line_aij, line_gup, line_glow, q_fn,
-        grid_freq, dish_size, Tbg, spec, thetas)
+        grid_freq, dish_size, Tbg, spec, thetas, group=group)
 
 
 def batched_model_pallas_csr(line_freq, line_elower, line_aij, line_gup,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from cha1_mcmc_tpu_torch.inference.params import ParamSpec
+from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["estimate_ncol_mle", "mle_rounds"]
 
@@ -42,7 +43,7 @@ def mle_rounds(ncol_bounds, dtype, xatol: float = 1e-6) -> int:
 
 def estimate_ncol_mle(lnlike_fn, spec: ParamSpec, fixed_theta, ncol_bounds,
                       xatol: float = 1e-6, method: str = "device", *,
-                      device=None, dtype=torch.float32) -> float:
+                      device=DEFAULT_DEVICE, dtype=torch.float32) -> float:
     """Return the Ncol maximizing the batched `lnlike_fn` ((N, D) -> (N,))
     with the other parameters fixed at `fixed_theta` (layout per `spec`).
 
@@ -54,6 +55,7 @@ def estimate_ncol_mle(lnlike_fn, spec: ParamSpec, fixed_theta, ncol_bounds,
     if spec.ncomp != 1:
         raise ValueError("MLE init is defined for single-component fits")
     ncol_index = spec.ncomp if spec.free_source_size else 0
+    device = resolve_device(device, "estimate_ncol_mle")
 
     if method == "device":
         return _device_search(lnlike_fn, theta0, ncol_index, ncol_bounds,

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cha1_mcmc_tpu_torch.constants import (
@@ -29,6 +30,7 @@ from cha1_mcmc_tpu_torch.constants import (
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks, stick_spectrum
 from cha1_mcmc_tpu_torch.catalogs.spcat import Catalog
 from cha1_mcmc_tpu_torch.catalogs.partition import QModel, q_model_for_catalog
+from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["simulate_sticks_host", "forward_from_lines", "SpectralModel",
            "model_from_arrays"]
@@ -90,7 +92,7 @@ def simulate_sticks_host(
 
 def forward_from_lines(line_freq, line_elower, line_aij, line_gup, line_glow,
                        vel_grid, Q, grid_freq, mask_center, dish_size, Tbg,
-                       source_size, Ncol, Tex, vlsr, dV):
+                       source_size, Ncol, Tex, vlsr, dV, group=None):
     """Walker-batched composite emission model, (N, C).
 
     source_size, Ncol, vlsr: (N, ncomp); Tex, dV: (N,); Q: (N,) partition
@@ -99,6 +101,11 @@ def forward_from_lines(line_freq, line_elower, line_aij, line_gup, line_glow,
     TMC1_four_component.py:173-179; a single component reduces to reference
     inference.py:44-61). The physics is that of the JAX package's
     forward_from_lines, with its vmapped walker axis written out.
+
+    The line arrays may be one shard of the catalog's lines: `group` then
+    names the torch.distributed group of the ranks holding the other
+    shards, and the partial opacities are summed over it (all_reduce, the
+    JAX version's psum over its mesh axis) before the radiative transfer.
     """
     taus = tau_sticks(torch, line_freq, line_elower, line_aij, line_gup,
                       line_glow, Q[:, None, None], Ncol[..., None],
@@ -112,6 +119,9 @@ def forward_from_lines(line_freq, line_elower, line_aij, line_gup, line_glow,
                         torch.zeros((), dtype=z.dtype, device=z.device))
     # Contraction over lines: one batched mat-vec per walker and component.
     opac = torch.einsum("nkl,nklc->nkc", taus, gauss)          # (N, K, C)
+    if group is not None:
+        opac = opac.contiguous()
+        dist.all_reduce(opac, group=group)
 
     # Hot-loop J uses the +1e-10 overflow guard (reference inference.py:56-57).
     J_T = planck_J(torch, grid_freq, Tex[:, None, None], guard=1e-10)
@@ -141,8 +151,9 @@ class SpectralModel(nn.Module):
 
     def __init__(self, arrays: dict, q_model: QModel, *, mask_center: float,
                  dish_size: float, Tbg: float = T_CMB, vel_offset: float = 0.0,
-                 device=None, dtype=torch.float32):
+                 device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device, "SpectralModel")
         for name in _LINE_FIELDS + ("grid_freq", "vel_grid"):
             self.register_buffer(name, torch.as_tensor(
                 arrays[name], dtype=dtype, device=device))
@@ -170,7 +181,7 @@ class SpectralModel(nn.Module):
         mask_center: float,
         Tbg: float = T_CMB,
         q_model: QModel | None = None,
-        device=None,
+        device=DEFAULT_DEVICE,
         dtype=torch.float32,
     ) -> "SpectralModel":
         """Assemble a model from a catalog and a reduced datagrid.
@@ -245,7 +256,7 @@ class SpectralModel(nn.Module):
 
 def model_from_arrays(arrays: dict, q: dict, *, mask_center: float,
                       dish_size: float, Tbg: float = T_CMB,
-                      vel_offset: float = 0.0, device=None,
+                      vel_offset: float = 0.0, device=DEFAULT_DEVICE,
                       dtype=torch.float32) -> SpectralModel:
     """Build the port's SpectralModel from another model's fields given as
     NumPy arrays (`line_freq`, `line_elower`, `line_aij`, `line_gup`,

@@ -7,9 +7,12 @@ and `build_opacity_csr` (:312-341), the tables of the block-sparse and
 CSR opacity kernels K4a / K4b (models/opacity_kernels.py), with their
 tile sizes; `window_is_exact` (:115-133); and `build_opacity_gather`,
 `opacity_gather`, `build_opacity_gather_split`, `opacity_gather_split`
-(:459-608). The traced mask function and the DMA redirect table
-(`block_activity_mask_traced`, `_dma_redirect_table`) are TPU plumbing
-of the sharded and Pallas paths and are not ported. The gather tables
+(:459-608); and `block_activity_mask_traced` (:63), the same mask
+computed by torch ops on a (line-sharded) velocity grid tensor, for the
+line-sharded path of parallel/sharded.py. The DMA redirect table
+(`_dma_redirect_table`, :77) is not ported: it only lets the TPU
+pipeline skip the copy of an inactive tile, and K4a already skips such
+tiles by the mask. The gather tables
 are per *channel*: line_table[m, c] lists the lines whose widest-possible
 window (±10·dv_max around the mask center) covers channel c. The opacity
 becomes a gather + an (N, M, C) elementwise Gaussian + a length-M
@@ -30,7 +33,8 @@ import torch
 
 from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
 
-__all__ = ["TC", "TL", "block_activity_mask", "window_is_exact",
+__all__ = ["TC", "TL", "block_activity_mask", "block_activity_mask_traced",
+           "window_is_exact",
            "build_opacity_csr", "build_opacity_gather", "opacity_gather",
            "build_opacity_gather_split", "opacity_gather_split"]
 
@@ -55,6 +59,21 @@ def block_activity_mask(vel_grid: np.ndarray, mask_center: float,
     padded[:L, :C] = inside
     blocks = padded.reshape(nL, tl, nC, tc).any(axis=(1, 3))
     return blocks.astype(np.int32)
+
+
+def block_activity_mask_traced(vel_grid: torch.Tensor, mask_center: float,
+                               dv_max: float, *, tl: int = TL,
+                               tc: int = TC) -> torch.Tensor:
+    """block_activity_mask by torch ops on the (L, C) velocity grid
+    tensor — a rank's line shard of it on the line-sharded path — on its
+    device: (nL, nC) int32."""
+    L, C = vel_grid.shape
+    Lp, Cp = _ceil_to(L, tl), _ceil_to(C, tc)
+    inside = torch.abs(vel_grid - mask_center) < VELOCITY_WINDOW_DV * dv_max
+    padded = torch.zeros((Lp, Cp), dtype=torch.bool, device=vel_grid.device)
+    padded[:L, :C] = inside
+    blocks = padded.reshape(Lp // tl, tl, Cp // tc, tc).any(dim=3).any(dim=1)
+    return blocks.to(torch.int32)
 
 
 def window_is_exact(dv_min: float, max_vlsr_offset: float,

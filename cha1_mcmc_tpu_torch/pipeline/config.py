@@ -63,7 +63,10 @@ class FitConfig:
     dtype: str = "float32"
     device: str = "cuda"             # torch device the fit runs on; "cuda"
                                      # with no CUDA device raises
-    n_devices: int | None = None     # shard the fit over this many devices
+    n_devices: int | None = None     # shard the fit over this many devices:
+                                     # a torch.distributed world of that
+                                     # size, one rank per device, each
+                                     # running the fit (rank 0 writes)
     n_line_shards: int = 1           # of which, this many shard the line axis
     n_chains: int = 1                # independent ensembles (nwalkers is the
                                      # total; enables cross-chain R-hat)

@@ -15,7 +15,12 @@ single-component fit, the dense whole-step kernel K3
 (FusedEnsembleSampler over sampler/fused_gather.py). Otherwise on a CUDA
 device a single-component float32 fit runs through the fused whole-step
 kernel K1. Elsewhere, or with use_fused_step=False, the general
-EnsembleSampler over the batched lnprob.
+EnsembleSampler over the batched lnprob. With n_devices > 1 the fit runs
+on a mesh of torch.distributed ranks (parallel/sharded.py:
+make_sharded_sampler, through the half-step kernels K5a / K5b where they
+apply): every rank runs SpectralFit.run() on the same config, the
+reduction, MLE and walker initialisation come out identical on each, and
+only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from cha1_mcmc_tpu_torch.sampler import (
     load_chain,
     make_fused_ensemble,
 )
+from cha1_mcmc_tpu_torch.parallel.sharded import (make_sharded_sampler, sharded_device,
+                                                  writes_files)
 from cha1_mcmc_tpu_torch.sampler.fused import fused_fits
 from cha1_mcmc_tpu_torch.sampler.fused_gather import (make_fused_ensemble_gather,
                                                       plan_fused_gather)
@@ -78,9 +85,9 @@ class SpectralFit:
                                "CUDA device is available")
         if config.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
-        if config.n_devices is not None and config.n_devices > 1:
-            raise NotImplementedError("multi-device fits (n_devices > 1) are "
-                                      "ROADMAP P14, not ported yet")
+        self.sharded = config.n_devices is not None and config.n_devices > 1
+        if self.sharded:
+            self.device = sharded_device(self.device)
         if config.n_chains > 1:
             raise NotImplementedError("multi-chain fits (n_chains > 1) are "
                                       "ROADMAP P15, not ported yet")
@@ -111,8 +118,9 @@ class SpectralFit:
             dish_size=cfg.dish_size, source_size=source_size,
             block_interlopers=cfg.block_interlopers,
         )
-        save_datagrid(cfg.datagrid_path, grid)
-        print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}\n")
+        if writes_files(self.sharded):
+            save_datagrid(cfg.datagrid_path, grid)
+            print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}\n")
         return grid
 
     # -- model assembly ----------------------------------------------------
@@ -224,7 +232,22 @@ class SpectralFit:
                 print(f"{RED}Failed to initialize Ncol via MLE: {e}{RESET}")
                 raise
 
-        if use_pallas and self._use_fused_gather(model):
+        if self.sharded:
+            # Walkers (and optionally catalog lines) sharded over a mesh of
+            # torch.distributed ranks, every rank running this same call
+            # (SPMD), with the single-device chain-file contract; the fused
+            # half-step kernels K5a / K5b on a CUDA float32 fit where they
+            # take the problem. Replaces the reference's multiprocessing
+            # pool (inference.py:456-463).
+            self.sampler = make_sharded_sampler(
+                n_devices=cfg.n_devices, n_line_shards=cfg.n_line_shards,
+                nwalkers=cfg.nwalkers, ndim=self.spec.ndim, a=cfg.stretch_a,
+                dtype=self.dtype, model=model, spec=self.spec, grid_ints=grid.ints,
+                grid_yerrs=grid.yerrs, lnprior_fn=lnprior, use_pallas=use_pallas,
+                dv_max=cfg.bounds["dV"][1], use_fused=cfg.use_fused_step,
+                bounds=cfg.bounds, prior_means=prior_means, prior_stds=prior_stds,
+                device=self.device)
+        elif use_pallas and self._use_fused_gather(model):
             # K3: the dense whole-step kernel over the channel-major tables,
             # one call per k ensemble steps spread over the card
             # (sampler/fused_gather.py, csrc/gather_step.cu).
@@ -287,8 +310,9 @@ class SpectralFit:
         throughput.add(cfg.nruns, cfg.nwalkers)
         device_name = (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu")
-        throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
-                        device=device_name, sampler=type(self.sampler).__name__)
+        if writes_files(self.sharded):
+            throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
+                            device=device_name, sampler=type(self.sampler).__name__)
         self.throughput = throughput
         print(f"{GRAY}Acceptance fraction: "
               f"{self.sampler.acceptance_fraction:.3f}  |  "
@@ -301,6 +325,7 @@ class SpectralFit:
         cfg = self.config
         grid = self.init_setup()
         chain = self.fit(grid)
-        cfg.to_json(os.path.join(cfg.mol_folder, "config.json"))
-        plot_results(cfg.chain_path, self.spec.labels, self.spec.labels_latex)
+        if writes_files(self.sharded):
+            cfg.to_json(os.path.join(cfg.mol_folder, "config.json"))
+            plot_results(cfg.chain_path, self.spec.labels, self.spec.labels_latex)
         return chain

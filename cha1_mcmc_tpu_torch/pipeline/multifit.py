@@ -12,6 +12,9 @@ whose problem K2 supports (sampler/fused_multi.py:fused_multi_supported)
 runs through the fused whole-step kernel K2 (FusedEnsembleSampler);
 elsewhere, or with use_fused_step=False, the general EnsembleSampler over
 the batched gather lnprob (use_sparse_opacity=True) or the dense lnprob.
+With n_devices > 1 the fit runs on a mesh of torch.distributed ranks
+(parallel/sharded.py: make_sharded_sampler, through the half-step kernel
+K5c where it applies); every rank runs the fit, only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from cha1_mcmc_tpu_torch.sampler import (EnsembleSampler, FusedEnsembleSampler,
                                          chain_to_priors, load_chain)
 from cha1_mcmc_tpu_torch.sampler.fused_multi import (fused_multi_supported,
                                                      make_fused_ensemble_multi)
+from cha1_mcmc_tpu_torch.parallel.sharded import (make_sharded_sampler, sharded_device,
+                                                  writes_files)
 from cha1_mcmc_tpu_torch.reduce.datagrid import (Datagrid, read_spectrum_gotham,
                                                  save_datagrid)
 from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results
@@ -96,8 +101,10 @@ class MultiFitConfig:
                                      # prior box (ordered_velocity_lnprior)
                                      # and the static window tables
                                      # (reference TMC1_four_component.py:224)
-    n_devices: int | None = None     # shard the fit (ROADMAP P14; not in
-                                     # the port yet)
+    n_devices: int | None = None     # shard the fit over this many devices:
+                                     # a torch.distributed world of that
+                                     # size, one rank per device, each
+                                     # running the fit (rank 0 writes)
     n_line_shards: int = 1           # of which, this many shard the line axis
     n_chains: int = 1                # independent ensembles (ROADMAP P15;
                                      # not in the port yet)
@@ -135,9 +142,9 @@ class MultiComponentFit:
                                "CUDA device is available")
         if config.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}")
-        if config.n_devices is not None and config.n_devices > 1:
-            raise NotImplementedError("multi-device fits (n_devices > 1) are "
-                                      "ROADMAP P14, not ported yet")
+        self.sharded = config.n_devices is not None and config.n_devices > 1
+        if self.sharded:
+            self.device = sharded_device(self.device)
         if config.n_chains > 1:
             raise NotImplementedError("multi-chain fits (n_chains > 1) are "
                                       "ROADMAP P15, not ported yet")
@@ -164,8 +171,9 @@ class MultiComponentFit:
         data = np.load(cfg.data_path, allow_pickle=True)
         grid = read_spectrum_gotham(
             data, freq_sim, int_sim, block_interlopers=cfg.block_interlopers)
-        save_datagrid(cfg.datagrid_path, grid)
-        print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}")
+        if writes_files(self.sharded):
+            save_datagrid(cfg.datagrid_path, grid)
+            print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}")
         return grid
 
     def _fused_eligible(self, model: SpectralModel) -> bool:
@@ -242,7 +250,21 @@ class MultiComponentFit:
 
         common = dict(nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
                       dtype=self.dtype, device=self.device)
-        if self._fused_eligible(model):
+        if self.sharded:
+            # Walkers (and optionally lines) sharded over a mesh of ranks,
+            # every rank running this same call, through the
+            # multi-component half-step kernel K5c on a CUDA float32 fit
+            # that K2 takes at the local walker count; else the general
+            # sharded runner over the dense model (the JAX multifit's
+            # sharded formulation).
+            self.sampler = make_sharded_sampler(
+                n_devices=cfg.n_devices, n_line_shards=cfg.n_line_shards,
+                nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
+                dtype=self.dtype, model=model, spec=self.spec, grid_ints=grid.ints,
+                grid_yerrs=grid.yerrs, lnprior_fn=lnprior,
+                use_fused=cfg.use_fused_step, dv_max=cfg.dv_bound,
+                prior_means=prior_means, prior_stds=prior_stds, device=self.device)
+        elif self._fused_eligible(model):
             # K2: one CUDA kernel launch per k ensemble steps
             # (sampler/fused_multi.py, csrc/multi_step.cu).
             lnprob = build_lnprob_batched(
@@ -279,8 +301,9 @@ class MultiComponentFit:
         throughput.add(cfg.nruns, cfg.nwalkers)
         device_name = (torch.cuda.get_device_name(self.device)
                        if self.device.type == "cuda" else "cpu")
-        throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
-                        device=device_name, sampler=type(self.sampler).__name__)
+        if writes_files(self.sharded):
+            throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
+                            device=device_name, sampler=type(self.sampler).__name__)
         self.throughput = throughput
         print(f"{GRAY}Acceptance fraction: "
               f"{self.sampler.acceptance_fraction:.3f}  |  "
@@ -291,5 +314,6 @@ class MultiComponentFit:
     def run(self) -> np.ndarray:
         grid = self.init_setup()
         chain = self.fit(grid)
-        plot_results(self.config.chain_path, self.spec.labels, self.spec.labels_latex)
+        if writes_files(self.sharded):
+            plot_results(self.config.chain_path, self.spec.labels, self.spec.labels_latex)
         return chain

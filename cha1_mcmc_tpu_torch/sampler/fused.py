@@ -31,8 +31,8 @@ import torch
 from cha1_mcmc_tpu_torch.catalogs.partition import QModel
 from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
-from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, _half_step,
-                                                 draw_randomness)
+from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_randomness,
+                                                 half_step)
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
@@ -234,8 +234,8 @@ def steps_plain(lnprob, a: float, coords, lnp, perm, z_u, pair, acc_u):
             for half in range(2):
                 r = 2 * step + half
                 active, comp = (pm[:h], pm[h:]) if half == 0 else (pm[h:], pm[:h])
-                acc[step] += _half_step(lnprob, D, a, coords, lnp, active,
-                                        comp, z_u[r], pair[r].long(), acc_u[r])
+                acc[step] += half_step(lnprob, D, a, coords, lnp, active,
+                                       coords[comp], z_u[r], pair[r].long(), acc_u[r])
             chain[step] = coords
             lnps[step] = lnp
     return chain.reshape(k * W, D), lnps.reshape(k * W), acc
@@ -274,21 +274,23 @@ _library = None
 
 
 def bind_kernel_library(source_name: str, prefix: str, steps_args, lnprob_args,
-                        statics_types):
+                        statics_types, half_entry: str, half_args):
     """Build `csrc/<source_name>` (at first use) and bind its C entries:
-    <prefix>_fused_steps_{f32,f64} and <prefix>_lnprob_{f32,f64}, each
-    taking (pointers, ints) = steps_args / lnprob_args counts then the
-    stream and returning a CUDA error code; <prefix>_statics_size_*,
-    checked against the ctypes statics struct per dtype; and
+    <prefix>_fused_steps_{f32,f64}, <prefix>_lnprob_{f32,f64} and the
+    sharded half-step <half_entry>_{f32,f64} (K5), each taking (pointers,
+    ints) = steps_args / lnprob_args / half_args counts then the stream
+    and returning a CUDA error code; <prefix>_statics_size_*, checked
+    against the ctypes statics struct per dtype; and
     <prefix>_error_string. Returns (library, nvcc build log, empty when a
     cached build was loaded)."""
     path, log = build_library(source_name)
     lib = ctypes.CDLL(str(path))
     P, I = ctypes.c_void_p, ctypes.c_int
     for dtype, sfx in _SUFFIX.items():
-        for entry, (n_ptr, n_int) in (("fused_steps", steps_args),
-                                      ("lnprob", lnprob_args)):
-            fn = getattr(lib, f"{prefix}_{entry}_{sfx}")
+        for entry, (n_ptr, n_int) in ((f"{prefix}_fused_steps", steps_args),
+                                      (f"{prefix}_lnprob", lnprob_args),
+                                      (half_entry, half_args)):
+            fn = getattr(lib, f"{entry}_{sfx}")
             fn.argtypes, fn.restype = [P] * n_ptr + [I] * n_int + [P], I
         size = getattr(lib, f"{prefix}_statics_size_{sfx}")
         size.argtypes, size.restype = [], I
@@ -302,12 +304,12 @@ def bind_kernel_library(source_name: str, prefix: str, steps_args, lnprob_args,
 
 
 def load_kernel_library():
-    """Build K1 (at first use) and load it: returns (ctypes library, nvcc
-    build log, empty when a cached build was loaded)."""
+    """Build K1 and K5a (at first use) and load them: returns (ctypes
+    library, nvcc build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
         _library = bind_kernel_library("fused_step.cu", "k1", (14, 6), (7, 5),
-                                       _STATICS)
+                                       _STATICS, "k5a_half", (12, 5))
     return _library
 
 

@@ -283,12 +283,12 @@ _library = None
 
 
 def load_kernel_library():
-    """Build K3 (at first use) and load it: returns (ctypes library, nvcc
-    build log, empty when a cached build was loaded)."""
+    """Build K3 and K5b (at first use) and load them: returns (ctypes
+    library, nvcc build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
         _library = bind_kernel_library("gather_step.cu", "k3", (20, 10), (11, 9),
-                                       _STATICS)
+                                       _STATICS, "k5b_half", (18, 9))
     return _library
 
 

@@ -306,12 +306,12 @@ _library = None
 
 
 def load_kernel_library():
-    """Build K2 (at first use) and load it: returns (ctypes library, nvcc
-    build log, empty when a cached build was loaded)."""
+    """Build K2 and K5c (at first use) and load them: returns (ctypes
+    library, nvcc build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
         _library = bind_kernel_library("multi_step.cu", "k2", (16, 7), (9, 6),
-                                       _STATICS)
+                                       _STATICS, "k5c_half", (14, 6))
     return _library
 
 

@@ -28,8 +28,9 @@ import numpy as np
 import torch
 
 from cha1_mcmc_tpu_torch.sampler.chain import last_position
+from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["draw_randomness", "run_ensemble", "EnsembleSampler",
+__all__ = ["draw_randomness", "run_ensemble", "half_step", "EnsembleSampler",
            "PACKAGE_TAG"]
 
 #: Written into every `.state.npz` sidecar; a sidecar without it (e.g. one
@@ -43,17 +44,20 @@ def _state_path(chain_file: str) -> str:
 
 
 def draw_randomness(n_raw: int, nwalkers: int, generator: torch.Generator, *,
-                    device=None, dtype=torch.float32):
+                    device=None, dtype=torch.float32, n_pair: int | None = None):
     """The four bulk random arrays of `n_raw` raw ensemble steps, in the
     JAX package's layout: perms (n_raw, W) int64 (argsort of uniforms: a
     uniformly random half-split per step), z_u (n_raw, 2, h) and acc_u
     (n_raw, 2, h) uniforms in `dtype`, pair (n_raw, 2, h) int64 partner
-    indices into the complementary half."""
+    indices into the complementary half — or, with `n_pair`, into the
+    n_pair walkers of a complement gathered over a walker-sharded mesh
+    (parallel/sharded.py)."""
     h = nwalkers // 2
     perms = torch.argsort(torch.rand((n_raw, nwalkers), generator=generator,
                                      device=device), dim=1)
     z_u = torch.rand((n_raw, 2, h), generator=generator, device=device, dtype=dtype)
-    pair = torch.randint(0, h, (n_raw, 2, h), generator=generator, device=device)
+    pair = torch.randint(0, h if n_pair is None else n_pair, (n_raw, 2, h),
+                         generator=generator, device=device)
     acc_u = torch.rand((n_raw, 2, h), generator=generator, device=device, dtype=dtype)
     return perms, z_u, pair, acc_u
 
@@ -69,12 +73,15 @@ def propose(c, z, s):
     return torch.addcmul(c, z, s - c)
 
 
-def _half_step(lnprob_batch, ndim, a, coords, lnp, active_idx, comp_idx,
-               z_u, pair, acc_u):
-    """Update walkers `active_idx` (in place) using complement `comp_idx`
-    with pre-drawn uniforms. Returns the number accepted."""
+def half_step(lnprob_batch, ndim, a, coords, lnp, active_idx, comp,
+              z_u, pair, acc_u):
+    """Update walkers `active_idx` (in place) against the complement
+    walkers `comp` (n, D) — the other half of this ensemble, or the
+    complement gathered over a walker-sharded mesh (parallel/sharded.py)
+    — each with partner comp[pair], from pre-drawn uniforms. Returns the
+    number accepted."""
     s = coords[active_idx]
-    c = coords[comp_idx][pair]
+    c = comp[pair]
     z = stretch_z(z_u, a)
     proposal = propose(c, z[:, None], s)
 
@@ -124,10 +131,10 @@ def run_ensemble(lnprob_fn, pos0, lnp0, nsteps: int, a: float = 2.0,
     for i in range(nsteps):
         for r in range(i * thin, (i + 1) * thin):
             first, second = perms[r, :h], perms[r, h:]
-            accepted[i] += _half_step(lnprob_fn, D, a, coords, lnp, first,
-                                      second, z_u[r, 0], pair[r, 0], acc_u[r, 0])
-            accepted[i] += _half_step(lnprob_fn, D, a, coords, lnp, second,
-                                      first, z_u[r, 1], pair[r, 1], acc_u[r, 1])
+            accepted[i] += half_step(lnprob_fn, D, a, coords, lnp, first,
+                                     coords[second], z_u[r, 0], pair[r, 0], acc_u[r, 0])
+            accepted[i] += half_step(lnprob_fn, D, a, coords, lnp, second,
+                                     coords[first], z_u[r, 1], pair[r, 1], acc_u[r, 1])
         chain[i] = coords
         lnps[i] = lnp
     return chain, lnps, accepted, (coords, lnp)
@@ -151,10 +158,10 @@ class EnsembleSampler:
     ndim: int
     a: float = 2.0
     dtype: torch.dtype = torch.float32
-    device: torch.device | str = "cpu"
+    device: torch.device | str = DEFAULT_DEVICE
 
     def __post_init__(self):
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device, type(self).__name__)
         self._chain_blocks: list[np.ndarray] = []   # each (W, K, D)
         self._lnp_blocks: list[np.ndarray] = []
         self.accepted = 0
@@ -239,13 +246,14 @@ class EnsembleSampler:
             self.total_proposals += block * thin * self.nwalkers
             done += block
             if chain_file is not None:
-                np.save(chain_file, self.chain)
-                np.savez(_state_path(chain_file),
-                         pos=pos.cpu().numpy(), lnp=lnp.cpu().numpy(),
-                         rng_state=generator.get_state().numpy(),
-                         accepted=self.accepted,
-                         total_proposals=self.total_proposals,
-                         package=PACKAGE_TAG)
+                rng = self._rng_sidecar(generator)
+                if self.writes_files:
+                    np.save(chain_file, self.chain)
+                    np.savez(_state_path(chain_file),
+                             pos=pos.cpu().numpy(), lnp=lnp.cpu().numpy(),
+                             accepted=self.accepted,
+                             total_proposals=self.total_proposals,
+                             package=PACKAGE_TAG, **rng)
             if progress:
                 print(f"MCMC sampling: {done}/{nsteps} steps "
                       f"(acceptance {self.acceptance_fraction:.3f})", flush=True)
@@ -269,5 +277,19 @@ class EnsembleSampler:
                 "positions with a fresh stream")
         self.accepted = int(state["accepted"])
         self.total_proposals = int(state["total_proposals"])
-        return (state["pos"], state["lnp"],
-                torch.from_numpy(state["rng_state"].copy()))
+        return state["pos"], state["lnp"], self._rng_restore(state, state_path)
+
+    # Hooks of the chain-file contract; the sharded sampler
+    # (parallel/sharded.py) overrides them.
+    @property
+    def writes_files(self) -> bool:
+        """Whether this process writes the chain and the sidecar."""
+        return True
+
+    def _rng_sidecar(self, generator) -> dict:
+        """The sidecar's random-state fields."""
+        return dict(rng_state=generator.get_state().numpy())
+
+    def _rng_restore(self, state, state_path: str):
+        """The generator state to continue with, from a loaded sidecar."""
+        return torch.from_numpy(state["rng_state"].copy())

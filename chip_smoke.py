@@ -9,10 +9,13 @@ Phases (each prints its own lines; any failure exits non-zero before the
 last line):
   1. device  — a CUDA device must be present; prints its name and the
      `nvidia-smi` name / power limit;
-  2. build   — builds K1 (csrc/fused_step.cu), K2 (csrc/multi_step.cu),
-     K3 (csrc/gather_step.cu) and K4a/K4b (csrc/opacity.cu) with nvcc, one
-     process each, started together; prints each build's registers and
-     spills, and K3's launch geometry at the dense size;
+  2. build   — builds K1 and K5a (csrc/fused_step.cu), K2 and K5c
+     (csrc/multi_step.cu), K3 and K5b (csrc/gather_step.cu), K4a/K4b
+     (csrc/opacity.cu) and T3 (csrc/construct_probe.cu) with nvcc, one
+     process per source, started together; prints each build's registers
+     and spills, and K3's launch geometry at the dense size; starts the
+     world-1 mesh (make_mesh(1, 1): an NCCL group of one rank), destroyed
+     at the end;
   3. check   — each kernel against its plain PyTorch version on the card.
      K1 on the synthetic flagship problem (tests/port_problems.py), for
      analytic, Chebyshev and state-sum Q(T), 4- and 5-dim: the f32 lnprob
@@ -28,20 +31,31 @@ last line):
      in 5 dims: the same three checks (the f32 run over 1024 steps), the
      lnprob entry also against the port's plain batched gather lnprob.
      K4a / K4b on the same problem: the opacity of 128 walkers in both
-     formulas, masked and unmasked, against the plain versions;
+     formulas, masked and unmasked, against the plain versions. K5a, K5c
+     and K5b (the sharded half-steps) on the flagship, GOTHAM and dense
+     cases at world size 1: the f64 64-step chain of the sharded runner
+     bitwise against its plain version and against K1 / K2 / K3 on the
+     same randomness, the f32 lnprob of a half-step (rtol 2e-5), the f32
+     acceptance over 1024 (K5c: 512) steps within 0.02. T3's probes
+     against their plain version (A-F bitwise, G rtol 1e-6);
   4. time    — K1, K2 and K3 and their plain versions in us per ensemble
      step (128 walkers, k=16) and per lnprob call of 128 thetas; K3's
      lnprob with Q replaced by ones and at channel blocks of 128, 256 and
      512; K4a / K4b per opacity evaluation of 128 walkers; the batched
-     gather lnprob of 128 thetas. CUDA events after warm-up, in turns
+     gather lnprob of 128 thetas; each K5 per half-step call against its
+     plain version, and the world-1 sharded runner per ensemble step beside
+     K1 / K2 / K3; T3 per launch. CUDA events after warm-up, in turns
      (plain, kernel, kernel, plain), median and quartiles;
   5. slice   — SpectralFit(...).run() at 128 walkers x 4096 steps through
      FusedEnsembleSampler (K1), MultiComponentFit(...).run() at 128
      walkers x 4096 steps through K2 and with use_fused_step=False (the
      general gather path), and SpectralFit(...).run() on the full-size
      dense problem (the sparse path auto-selected) at 128 walkers x 2048
-     steps through K3 and, for 256 steps, with use_fused_step=False —
-     each with the launch counts of that run;
+     steps through K3 and, for 256 steps, with use_fused_step=False;
+     make_sharded_sampler(n_devices=1, use_fused=True) with
+     ShardedEnsembleSampler.run_mcmc and a chain file at 128 walkers x 2048
+     steps through K5a (flagship), K5c (GOTHAM) and K5b (dense); and T3's
+     run_probes — each with the launch counts of that run;
 then one JSON line of per-kernel results, the card's name and power
 limit, and, last, the device JSON line.
 """
@@ -70,6 +84,13 @@ LNPROB_KERNEL_TPU_K3 = "cha1_mcmc_tpu/sampler/fused_gather.py:539"
 CU_SOURCE_K4 = "cha1_mcmc_tpu_torch/csrc/opacity.cu"
 BLOCK_KERNEL_TPU = "cha1_mcmc_tpu/models/pallas_kernels.py:136"
 CSR_KERNEL_TPU = "cha1_mcmc_tpu/models/pallas_kernels.py:344"
+CU_SOURCE_T3 = "cha1_mcmc_tpu_torch/csrc/construct_probe.cu"
+PROBE_TPU = "tools/mosaic_construct_probe.py:52"
+K5_SOURCE = {"sharded_half": CU_SOURCE, "sharded_multi_half": CU_SOURCE_K2,
+             "sharded_gather_half": CU_SOURCE_K3}
+K5_TPU = {"sharded_half": "cha1_mcmc_tpu/parallel/sharded_fused.py:137",
+          "sharded_gather_half": "cha1_mcmc_tpu/parallel/sharded_fused.py:147",
+          "sharded_multi_half": "cha1_mcmc_tpu/parallel/sharded_fused.py:320"}
 W, K_STEPS = 128, 16
 TIMING_PAIRS = 5
 DEVICE = "cuda"
@@ -809,11 +830,13 @@ def quartiles(xs):
 
 
 def build_kernels():
-    """Build K1, K2, K3 and K4 at once (one nvcc process each) and load
-    them: {kernel: (seconds, nvcc log)}."""
+    """Build K1 (+ K5a), K2 (+ K5c), K3 (+ K5b), K4 and T3 at once (one
+    nvcc process per source) and load them: {source's kernel: (seconds,
+    nvcc log)}."""
     from concurrent.futures import ThreadPoolExecutor
     from cha1_mcmc_tpu_torch.models import opacity_kernels
     from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
+    from cha1_mcmc_tpu_torch.utils import construct_probe
 
     def timed(load):
         t0 = time.perf_counter()
@@ -822,7 +845,8 @@ def build_kernels():
 
     loads = {"K1": fused.load_kernel_library, "K2": fused_multi.load_kernel_library,
              "K3": fused_gather.load_kernel_library,
-             "K4": opacity_kernels.load_kernel_library}
+             "K4": opacity_kernels.load_kernel_library,
+             "T3": construct_probe.load_kernel_library}
     with ThreadPoolExecutor(len(loads)) as ex:
         futures = {k: ex.submit(timed, f) for k, f in loads.items()}
         return {k: f.result() for k, f in futures.items()}
@@ -847,10 +871,12 @@ def report_times(kname, times, shape, runs, device, plain_blocks=4):
 
 def _counters():
     from cha1_mcmc_tpu_torch.models import opacity_kernels
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused
     from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
+    from cha1_mcmc_tpu_torch.utils import construct_probe
 
     return (fused.LAUNCHES, fused_multi.LAUNCHES, fused_gather.LAUNCHES,
-            opacity_kernels.LAUNCHES)
+            opacity_kernels.LAUNCHES, sharded_fused.LAUNCHES, construct_probe.LAUNCHES)
 
 
 def zero_launches():
@@ -1031,6 +1057,277 @@ def slice_opacity(case, gen):
     return {k: launches[k] for k in ("opacity_csr", "opacity_block")}
 
 
+# -- K5: the sharded half-step kernels at world size 1 -------------------------
+
+#: The world-1 mesh (make_mesh(1, 1): an NCCL group of one rank), set in main.
+MESH = None
+
+
+def k5_cases(flagship, gotham, dense_case):
+    """The three K5 cases, each {name, label, kernel, plain, args32, args64,
+    step, lnprob, pos0, work}: K5a on the flagship's analytic 4-dim case
+    beside K1, K5c on the GOTHAM K=4 analytic case beside K2, K5b on the
+    dense Chebyshev split-table case beside K3. `args*` are the wrappers'
+    trailing (tables, statics) per dtype, `step` the whole-step kernel
+    over the same args, `lnprob` the plain lnprob for the entry lnp, and
+    `work` K1/K2/K3's (special-function results, flops, bytes) per step."""
+    import functools
+
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
+    from cha1_mcmc_tpu_torch.sampler.fused import (fused_lnprob_plain, fused_step_block,
+                                                   single_statics_tables)
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (multi_lnprob_plain,
+                                                         multi_step_block)
+
+    label, m32, m64, spec, cfg, grid = flagship
+    t1 = [single_statics_tables(m, spec, grid.ints, grid.yerrs, cfg.bounds,
+                                cfg.template_means, cfg.template_stds)[::-1]
+          for m in (m32, m64)]
+    rng = np.random.default_rng(0)
+    pos1 = torch.as_tensor(np.array([3.24e12, 7.5, 4.11, 0.78])
+                           * (1 + 0.01 * rng.standard_normal((W, 4))),
+                           dtype=torch.float64, device=DEVICE)
+    k1w = k1_work(m32, pos1[:, -1].to(torch.float32))
+
+    glabel, g32, g64, gspec, means, stds, pert, ggrid = gotham
+    t2 = [tuple(x)[::-1] for x in multi_tables(g32, g64, gspec, means, stds, ggrid)]
+    pos2 = multi_pos0(means, pert)
+    k2w = k2_work(t2[0][0], gspec.ncomp, pos2[:, -1].to(torch.float32), t2[0][1].mask_center)
+
+    fns, (st3, tb3), (st3d, tb3d), geom = dense_tables(dense_case)
+    pos3 = dense_pos0(dense_case)
+    C, M1, M2 = dense_case[1].n_channels, tb3[1].shape[0], tb3[3].shape[0]
+    win = (in_window(tb3[1], pos3[:, -1].to(torch.float32), st3.mask_center)
+           + in_window(tb3[3], pos3[:, -1].to(torch.float32), st3.mask_center))
+    k3w = (7 * win + 5 * W * C, 20 * win + 15 * W * C,
+           4 * (6 * M1 * C + 6 * M2 * max(geom.cb0, 1) + 3 * C))
+    g = functools.partial
+    return [
+        dict(name="sharded_half", label=f"K5a flagship {label}", kernel=sf.sharded_half,
+             plain=sf.sharded_half_plain, args32=t1[0], args64=t1[1],
+             step=fused_step_block, lnprob=fused_lnprob_plain, pos0=pos1, work=k1w,
+             n_f32=1024, whole="K1"),
+        dict(name="sharded_multi_half", label=f"K5c GOTHAM {glabel}",
+             kernel=sf.sharded_multi_half, plain=sf.sharded_multi_half_plain,
+             args32=t2[0], args64=t2[1], step=multi_step_block, lnprob=multi_lnprob_plain,
+             pos0=pos2, work=k2w, n_f32=512, whole="K2"),
+        dict(name="sharded_gather_half", label=f"K5b dense {dense_case[0]}",
+             kernel=g(sf.sharded_gather_half, geom=geom),
+             plain=g(sf.sharded_gather_half_plain, geom=geom), args32=(tb3, st3),
+             args64=(tb3d, st3d), step=fns[2], lnprob=fns[1], pos0=pos3, work=k3w,
+             n_f32=1024, whole="K3")]
+
+
+def run_k5(half, args, pos0, lnp0, rnd):
+    """The world-1 sharded runner over len(rnd[0]) steps with `half` (a K5
+    wrapper or its plain version) as its half-update: (chain, lnps,
+    accepted, (pos, lnp))."""
+    from cha1_mcmc_tpu_torch.parallel.sharded import ShardedRunner
+
+    runner = ShardedRunner(MESH, rnd[0].shape[0], pos0.dtype, None,
+                           lambda s, *ops: (s, half(s, *ops, *args)))
+    return runner(pos0, lnp0=lnp0, randomness=rnd)
+
+
+def check_sharded(case, gen, errs):
+    """K5 against its plain version on the card, at world size 1: the f64
+    64-step chains bitwise (lnps rtol 1e-12) and equal to the whole-step
+    kernel's (K1 / K2 / K3) on the same randomness and lnp0, where the
+    sharded split degenerates to the single-device one; the f32 lnprob of
+    one half-step whose every finite proposal is accepted (acc_u = 0),
+    rtol 2e-5; the f32 acceptance within 0.02 over case['n_f32'] steps.
+    Returns the f32 acceptance fractions."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    label, kernel, plain = case["label"], case["kernel"], case["plain"]
+    (tb64, st64), (tb32, st32) = case["args64"], case["args32"]
+    pos0 = case["pos0"]
+    D, h = pos0.shape[1], W // 2
+    lnp0 = case["lnprob"](pos0, tb64, st64)
+    rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=torch.float64)
+    ck, lk, ak, _ = (t.cpu().numpy() if i < 3 else t for i, t in
+                     enumerate(run_k5(kernel, case["args64"], pos0, lnp0, rnd)))
+    cp, lp, ap, _ = (t.cpu().numpy() if i < 3 else t for i, t in
+                     enumerate(run_k5(plain, case["args64"], pos0, lnp0, rnd)))
+    assert np.array_equal(ck, cp), f"{label}: f64 chains differ"
+    assert np.array_equal(ak, ap), f"{label}: f64 acceptances differ"
+    assert np.array_equal(np.isfinite(lk), np.isfinite(lp)), label
+    fin = np.isfinite(lp)
+    np.testing.assert_allclose(lk[fin], lp[fin], rtol=1e-12, err_msg=f"{label} f64 lnps")
+    errs[case["name"]] = float(np.max(np.abs(lk[fin] - lp[fin])))
+    cw, lw, aw = (t.cpu().numpy() for t in
+                  run_blocks(case["step"], pos0, lnp0, rnd, 4, tb64, st64))
+    assert np.array_equal(ck.reshape(-1, D), cw), \
+        f"{label}: f64 chain differs from {case['whole']}'s at world size 1"
+    assert np.array_equal(ak, aw), f"{label}: acceptances differ from {case['whole']}'s"
+
+    # f32 lnprob through one half-step that accepts every finite proposal
+    pos32 = pos0.to(torch.float32)
+    lnp32 = case["lnprob"](pos32, tb32, st32)
+    perms, z_u, pair, _ = draw_randomness(1, W, gen, device=DEVICE, dtype=torch.float32)
+    ops = (perms[0, :h].to(torch.int32).contiguous(), pos32[perms[0, h:]].contiguous(),
+           z_u[0, 0].contiguous(), pair[0, 0].to(torch.int32).contiguous(),
+           torch.zeros(h, dtype=torch.float32, device=DEVICE))
+    state0 = torch.cat([pos32, lnp32[:, None]], dim=1).contiguous()
+    sk, sp = state0.clone(), state0.clone()
+    kernel(sk, *ops, tb32, st32)
+    plain(sp, *ops, tb32, st32)
+    k, p = sk[ops[0].long(), D].cpu().numpy(), sp[ops[0].long(), D].cpu().numpy()
+    assert np.array_equal(np.isfinite(k), np.isfinite(p)), label
+    assert np.isfinite(p).mean() > 0.9, f"{label}: proposals should be in the prior"
+    scale = 2e-5 * abs(0.5 * float(torch.log(tb32[-2][2]).sum()))
+    fin = np.isfinite(p)
+    np.testing.assert_allclose(k[fin], p[fin], rtol=2e-5, atol=scale,
+                               err_msg=f"{label} f32 lnprob")
+
+    # f32 acceptance over n_f32 steps
+    rnd = draw_randomness(case["n_f32"], W, gen, device=DEVICE, dtype=torch.float32)
+    fracs = {}
+    for name, fn in (("kernel", kernel), ("plain", plain)):
+        c, _, acc, _ = run_k5(fn, case["args32"], pos32, lnp32, rnd)
+        fracs[name] = float(acc.sum()) / (case["n_f32"] * W)
+        assert bool(torch.isfinite(c[-1]).all()), f"{label}: non-finite f32 {name} walkers"
+    assert abs(fracs["kernel"] - fracs["plain"]) < 0.02, (label, fracs)
+    return fracs
+
+
+def time_sharded(case, gen, device):
+    """Phase 4 for one K5: the wrapper per half-step call (kernel and
+    plain, time_calls) at W walkers in f32, and the world-1 sharded runner
+    per ensemble step (2 index_selects, 2 all_gathers and 2 K5 calls a
+    step), median and quartiles of 10 runs of 64 steps. Returns ({kernel,
+    plain: (median, q1, q3) ms per call}, runner (median, q1, q3) us per
+    step)."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    tb32, st32 = case["args32"]
+    pos32 = case["pos0"].to(torch.float32)
+    lnp32 = case["lnprob"](pos32, tb32, st32)
+    h = W // 2
+    perms, z_u, pair, acc_u = draw_randomness(1, W, gen, device=DEVICE,
+                                              dtype=torch.float32)
+    ops = (perms[0, :h].to(torch.int32).contiguous(), pos32[perms[0, h:]].contiguous(),
+           z_u[0, 0].contiguous(), pair[0, 0].to(torch.int32).contiguous(),
+           acc_u[0, 0].contiguous())
+    state0 = torch.cat([pos32, lnp32[:, None]], dim=1).contiguous()
+    states = {"kernel": state0.clone(), "plain": state0.clone()}
+    calls = {name: (lambda f=fn, s=states[name]: f(s, *ops, tb32, st32))
+             for name, fn in (("kernel", case["kernel"]), ("plain", case["plain"]))}
+    per_call = time_calls(calls, reps=20)
+
+    rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=torch.float32)
+    run_k5(case["kernel"], case["args32"], pos32, lnp32, rnd)   # warm-up
+    runs = []
+    for _ in range(2 * TIMING_PAIRS):
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        run_k5(case["kernel"], case["args32"], pos32, lnp32, rnd)
+        t1.record()
+        torch.cuda.synchronize()
+        runs.append(1e3 * t0.elapsed_time(t1) / 64)
+    return per_call, quartiles(runs)
+
+
+def slice_sharded(case, model, spec, grid, lnprior, bounds, means, stds, dv_max,
+                  use_pallas, tmp, device, nruns=2048):
+    """make_sharded_sampler(n_devices=1, use_fused=True) and
+    ShardedEnsembleSampler.run_mcmc with a chain file, through the case's
+    K5 at W walkers in f32: returns the launch counts of the run."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.parallel import make_sharded_sampler
+
+    zero_launches()
+    sampler = make_sharded_sampler(
+        n_devices=1, n_line_shards=1, nwalkers=W, ndim=spec.ndim, a=2.0,
+        dtype=torch.float32, model=model, spec=spec, grid_ints=grid.ints,
+        grid_yerrs=grid.yerrs, lnprior_fn=lnprior, use_pallas=use_pallas, dv_max=dv_max,
+        use_fused=True, bounds=bounds, prior_means=means, prior_stds=stds)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    chain_file = os.path.join(tmp, f"{case['name']}.npy")
+    t0 = time.perf_counter()
+    sampler.run_mcmc(case["pos0"].to(torch.float32), nruns, gen, checkpoint_every=1024,
+                     chain_file=chain_file)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    assert launches[case["name"]] == 2 * nruns, (case["name"], launches)
+    chain = sampler.chain
+    assert chain.shape == (W, nruns, spec.ndim), chain.shape
+    assert np.isfinite(chain).all(), case["label"]
+    acc = sampler.acceptance_fraction
+    assert 0.1 < acc < 0.9, (case["label"], acc)
+    assert np.array_equal(np.load(chain_file), chain)
+    assert os.path.exists(chain_file[:-4] + ".state.npz")
+    phase(5, "slice", f"{case['label']}: make_sharded_sampler(n_devices=1) -> "
+          f"ShardedEnsembleSampler.run_mcmc, launches {launches}, chain {chain.shape}, "
+          f"acceptance {acc:.3f}, {W * nruns / secs:,.0f} walker-steps/s (wall time "
+          f"incl. checkpoints; {device})")
+    return launches
+
+
+# -- T3: the construct probe -----------------------------------------------------
+
+def check_probe(errs):
+    """T3 against its plain version on the card: the band sums A-F bitwise
+    (the same float32 additions in the same order), G (exp2 / where) rtol
+    1e-6."""
+    import numpy as np
+    from cha1_mcmc_tpu_torch.utils import construct_probe as t3
+
+    inputs = t3.probe_inputs(DEVICE, seed=5)
+    k, p = t3.probes(*inputs), t3.probes_plain(*inputs)
+    for name in "ABCDEF":
+        assert np.array_equal(k[name].cpu().numpy(), p[name].cpu().numpy()), name
+    np.testing.assert_allclose(k["G"].cpu().numpy(), p["G"].cpu().numpy(), rtol=1e-6,
+                               err_msg="T3 probe G")
+    errs["construct_probe"] = max(float((k[n] - p[n]).abs().max()) for n in "ABCDEFG")
+    return inputs
+
+
+def probe_work():
+    """(special-function results, flops, bytes) of T3: G's exp2 per input
+    element; one add per element a probe reads; the inputs once and the
+    seven outputs once."""
+    n_a, n_c, n_f = 48 * 128, 336 * 128, 32 * 128
+    return n_a, 4 * n_a + 2 * (50 * 6 * 128) + n_f, 4 * (n_a + n_c + n_f + 84 * 128)
+
+
+def time_probe(inputs, device):
+    """T3 and its plain version per launch of the seven probes
+    (time_calls)."""
+    from cha1_mcmc_tpu_torch.utils import construct_probe as t3
+
+    t = time_calls({"kernel": lambda: t3.probes(*inputs),
+                    "plain": lambda: t3.probes_plain(*inputs)})
+    phase(4, "time", "T3 one launch of the seven probes: kernel {:.2f} us, plain torch "
+          "{:.2f} us (median of {} runs of 20; {})".format(
+              t["kernel"][0] * 1e3, t["plain"][0] * 1e3, 2 * TIMING_PAIRS, device))
+    return t
+
+
+def slice_probe(device):
+    """The probe tool as a user runs it (run_probes on the card): every
+    probe OK against the float64 reference; returns the launch counts."""
+    from cha1_mcmc_tpu_torch.utils import construct_probe as t3
+
+    zero_launches()
+    ok = t3.run_probes(DEVICE)
+    launches = read_launches()
+    assert all(ok.values()), ok
+    assert launches["construct_probe"] == 1, launches
+    phase(5, "slice", f"T3 run_probes: {', '.join(f'{k} OK' for k in ok)}; launches "
+          f"{launches['construct_probe']} ({device})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1043,6 +1340,7 @@ def main() -> int:
     from tests.port_problems import (write_dense_problem, write_hc5n_problem,
                                      write_hc9n_problem)
 
+    start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     device = card                       # "<name>, <power limit>"
@@ -1051,17 +1349,28 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build_kernels()
-    phase(2, "build", f"K1, K2, K3 and K4 built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel)")
+    phase(2, "build", f"K1 + K5a, K2 + K5c, K3 + K5b, K4 and T3 built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for kname, (secs, log) in built.items():
         print(f"    {kname}: {secs:.1f} s")
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 print(f"    {kname} ptxas: {ln.strip()}")
 
+    global MESH
+    import torch.distributed as dist
+    from cha1_mcmc_tpu_torch.inference import (ordered_velocity_lnprior,
+                                               single_component_lnprior)
+    from cha1_mcmc_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    MESH = make_mesh(1, 1)
+    phase(2, "build", f"world-1 mesh {MESH.shape} on {MESH.device}: torch.distributed "
+          f"backend {dist.get_backend()}, started in {time.perf_counter() - t0:.1f} s")
+
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
-    errs, errs2, errs3, errs4 = {}, {}, {}, {}
+    errs, errs2, errs3, errs4, errs5 = {}, {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         prob = write_hc5n_problem(os.path.join(tmp, "problem"))
         prob9 = write_hc9n_problem(os.path.join(tmp, "problem9"))
@@ -1109,6 +1418,18 @@ def main() -> int:
         check_opacity(dense[0], gen, errs4)
         phase(3, "check", f"K4 max |kernel - plain|: block {errs4['block']:.3e}, csr "
               f"{errs4['csr']:.3e} ({device})")
+        k5 = k5_cases(all_cases[0], gotham[0], dense[0])
+        for case in k5:
+            fracs = check_sharded(case, gen, errs5)
+            phase(3, "check", f"{case['label']} at world size 1: f64 64-step chain "
+                  f"bitwise vs plain and vs {case['whole']}, f32 lnprob ok, f32 "
+                  f"{case['n_f32']}-step acceptance kernel {fracs['kernel']:.4f} vs "
+                  f"plain {fracs['plain']:.4f}")
+        phase(3, "check", "K5 max |kernel - plain| f64 lnps: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs5.items()) + f" ({device})")
+        probe_in = check_probe(errs5)
+        phase(3, "check", f"T3 probes A-F bitwise, G rtol 1e-6 vs the plain version; max "
+              f"|kernel - plain| {errs5['construct_probe']:.3e} ({device})")
 
         label, m32, m64, spec, cfg, grid = all_cases[0]
         t1, w1 = time_steps(m32, spec, cfg, grid, gen)
@@ -1119,6 +1440,21 @@ def main() -> int:
         t2 = report_times("K2", t2, f"K=4, {m9.n_lines} lines x {m9.n_channels} channels",
                           "16 launches a run", device)
         t3, t4, w3 = time_dense(dense[0], gen, device)
+        t5 = {}
+        for case, whole_us in zip(k5, (t1[0], t2[0], t3[0])):
+            per_call, (r_us, r1, r3) = time_sharded(case, gen, device)
+            t5[case["name"]] = per_call
+            (k_ms, k1, k3), (p_ms, p1, p3) = per_call["kernel"], per_call["plain"]
+            n_kern = 6 if case["name"] == "sharded_gather_half" else 2
+            phase(4, "time", f"{case['label']}, {W} walkers, f32: one half-step "
+                  f"call median [q1, q3] of {2 * TIMING_PAIRS} runs of 20: kernel "
+                  f"{k_ms * 1e3:.2f} [{k1 * 1e3:.2f}, {k3 * 1e3:.2f}] us, plain torch "
+                  f"{p_ms * 1e3:.2f} [{p1 * 1e3:.2f}, {p3 * 1e3:.2f}] us; the world-1 "
+                  f"sharded runner {r_us:.2f} [{r1:.2f}, {r3:.2f}] us/step ({n_kern} "
+                  f"kernel launches, 2 gathers and 2 NCCL all_gathers a step) vs "
+                  f"{case['whole']} {whole_us:.2f} us/step; {device}")
+
+        t5["construct_probe"] = time_probe(probe_in, device)
 
         launches = slice_flagship(prob, tmp, device)
         launches.update((k, v) for k, v in slice_gotham(prob9, tmp, device).items()
@@ -1130,6 +1466,27 @@ def main() -> int:
         # the opacity kernels run on the "csr" / "block" formulations of the
         # batched lnprob: drive each once through build_lnprob_batched
         launches.update(slice_opacity(dense[0], gen))
+        # the sharded path at world size 1, through each K5
+        f32 = torch.float32
+        _, m32, _, spec, cfg, grid = all_cases[0]
+        prior = single_component_lnprior(spec, cfg.bounds, cfg.template_means,
+                                         cfg.template_stds, dtype=f32)
+        runs = [(m32, spec, grid, prior, cfg.bounds, cfg.template_means,
+                 cfg.template_stds, cfg.bounds["dV"][1], False)]
+        _, g32, _, gspec, gmeans, gstds, _, ggrid = gotham[0]
+        runs.append((g32, gspec, ggrid, ordered_velocity_lnprior(
+            gspec, gmeans, gstds, dv_max=DV_BOUND, dtype=f32), None, gmeans, gstds,
+            DV_BOUND, False))
+        _, d32, _, dspec, dbounds, dmeans, dstds, dgrid, _ = dense[0]
+        runs.append((d32, dspec, dgrid, single_component_lnprior(
+            dspec, dbounds, dmeans, dstds, dtype=f32), dbounds, dmeans, dstds,
+            DENSE_DV_MAX, True))
+        for case, run in zip(k5, runs):
+            counts = slice_sharded(case, *run, tmp, device)
+            launches[case["name"]] = counts[case["name"]]
+        launches.update((k, v) for k, v in slice_probe(device).items()
+                        if k == "construct_probe")
+    dist.destroy_process_group()
 
     work = {**w1, **w2, **w3}
     entries = []
@@ -1153,9 +1510,23 @@ def main() -> int:
                         "replaces": tpu, "launches": launches[kname],
                         "max_abs_err": errs4[kname.split("_")[1]],
                         "ms": t4[f"{key} kernel"][0], "plain_ms": t4[f"{key} plain"][0]})
+    for case in k5:   # per half-step call; the bound is half the whole step's
+        kname = case["name"]
+        work[kname] = tuple(x / 2 for x in case["work"])
+        entries.append({"name": kname, "route": "cuda",
+                        "source": K5_SOURCE[kname], "replaces": K5_TPU[kname],
+                        "launches": launches[kname], "max_abs_err": errs5[kname],
+                        "ms": t5[kname]["kernel"][0], "plain_ms": t5[kname]["plain"][0]})
+    work["construct_probe"] = probe_work()
+    entries.append({"name": "construct_probe", "route": "cuda", "source": CU_SOURCE_T3,
+                    "replaces": PROBE_TPU, "launches": launches["construct_probe"],
+                    "max_abs_err": errs5["construct_probe"],
+                    "ms": t5["construct_probe"]["kernel"][0],
+                    "plain_ms": t5["construct_probe"]["plain"][0]})
     for entry in entries:
         entry["bound_ms"], entry["bound_by"] = bound(*work[entry["name"]])
         entry["library_ms"] = None
+    phase(5, "slice", f"all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,7 +33,7 @@ def test_every_source_includes_the_shared_header():
 
 
 @pytest.mark.parametrize("source", ["fused_step.cu", "multi_step.cu", "gather_step.cu",
-                                    "opacity.cu"])
+                                    "opacity.cu", "construct_probe.cu"])
 def test_editing_a_header_changes_the_digest(csrc, source):
     before = cuda_build.source_digest(csrc / source, csrc)
     assert before == cuda_build.source_digest(csrc / source, csrc)   # stable

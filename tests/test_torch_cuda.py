@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3 and K4a / K4b against their plain PyTorch
-versions, on an NVIDIA GPU.
+"""The CUDA kernels K1, K2, K3, K4a / K4b, K5a / K5b / K5c and T3 against
+their plain PyTorch versions, on an NVIDIA GPU.
 
 The same checks as phase 3 of chip_smoke.py, through its check functions:
 K1 on the synthetic flagship problem (128 walkers; analytic, Chebyshev
@@ -11,8 +11,9 @@ rectangular table, analytic Q in 5 dims): the f32 lnprob entry (rtol
 2e-5), the f64 whole-step kernel over 64 steps (chain and acceptances
 bitwise, lnps rtol 1e-12) and the f32 whole-step kernel over 1024 (K1) /
 512 (K2) / 1024 (K3) steps (acceptance fraction within 0.02); K4a / K4b's
-opacity on the dense problem in both formulas, masked and unmasked.
-Every test here needs a CUDA device and nvcc, and skips without them; on
+opacity on the dense problem in both formulas, masked and unmasked; the
+sharded half-steps K5a / K5c / K5b at world size 1, against their plain
+versions and against K1 / K2 / K3; T3's probes. Every test here needs a CUDA device and nvcc, and skips without them; on
 the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -123,3 +124,47 @@ def test_k4_kernels_match_plain(dense_cases):
     chip_smoke.check_opacity(dense_cases["cheb-split-4d"], gen, errs)
     assert all(opacity_kernels.LAUNCHES[k] > before[k] for k in before)
     assert set(errs) == {"block", "csr"}
+
+
+@pytest.fixture(scope="module")
+def k5_cases(cuda_cases, gotham_cases, dense_cases):
+    """chip_smoke's K5 cases over a world-1 mesh (an NCCL group of one
+    rank, destroyed after the module)."""
+    import torch.distributed as dist
+
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.parallel import make_mesh
+
+    chip_smoke.MESH = make_mesh(1, 1)
+    yield {c["name"]: c for c in chip_smoke.k5_cases(
+        cuda_cases["analytic-4d"], gotham_cases["analytic-4c"], dense_cases["cheb-split-4d"])}
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["sharded_half", "sharded_multi_half",
+                                  "sharded_gather_half"])
+def test_k5_kernel_matches_plain_and_whole_step(k5_cases, name):
+    """K5a / K5c / K5b at world size 1: f64 chains bitwise against the
+    plain version and against K1 / K2 / K3; f32 lnprob and acceptance."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    before = sharded_fused.LAUNCHES[name]
+    fracs = chip_smoke.check_sharded(k5_cases[name], gen, {})
+    assert sharded_fused.LAUNCHES[name] > before
+    assert 0.1 < fracs["kernel"] < 0.9
+
+
+def test_t3_probes_match_plain():
+    _require_card()
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.utils import construct_probe
+
+    before = construct_probe.LAUNCHES["construct_probe"]
+    errs = {}
+    chip_smoke.check_probe(errs)
+    assert construct_probe.LAUNCHES["construct_probe"] == before + 1
+    assert construct_probe.run_probes("cuda", verbose=False) == dict.fromkeys("ABCDEFG",
+                                                                               True)

@@ -508,7 +508,8 @@ def test_dense_mle_matches_jax(dense_problem, reduced):
     spec = ParamSpec(ncomp=1, fixed_source_size=ss)
     got = estimate_ncol_mle(build_lnlike_batched(port_model(jm, torch.float64), spec,
                                                  grid.ints, grid.yerrs, **kw),
-                            spec, means, DENSE_BOUNDS["Ncol"], dtype=torch.float64)
+                            spec, means, DENSE_BOUNDS["Ncol"], device="cpu",
+                            dtype=torch.float64)
     assert abs(got / want - 1) < 1e-4
     assert abs(got / dense_problem["truth"][0] - 1) < 0.5
 
@@ -631,7 +632,7 @@ def test_k3_checkpoint_resume_exact(dense_problem, reduced, tmp_path):
 
     def sampler():
         return FusedEnsembleSampler(lnprob_fn=None, nwalkers=W, ndim=4, run_fn=run,
-                                    k_steps=4)
+                                    k_steps=4, device="cpu")
 
     before = dict(LAUNCHES)
     full = sampler()

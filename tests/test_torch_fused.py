@@ -144,7 +144,7 @@ def port_problem(reduced):
     cat = load_catalog(cat_j.catalog_file)
     model = SpectralModel.build(cat, grid.covered_trans, grid.freqs, ll=18000.0,
                                 ul=25000.0, dish_size=70.0, vel_offset=4.10,
-                                mask_center=4.10, dtype=torch.float64)
+                                mask_center=4.10, device="cpu", dtype=torch.float64)
     spec = ParamSpec(ncomp=1, fixed_source_size=52.0)
     run = make_fused_ensemble(model, spec, grid.ints, grid.yerrs, BOUNDS,
                               MEANS_4, STDS_4)
@@ -161,7 +161,8 @@ def test_fused_sampler_thinning_is_exact(port_problem, tmp_path):
     lnp0 = run.lnprob(pos0)
     raw = run(pos0, lnp0, 8, 4, generator=torch.Generator().manual_seed(7))
     sampler = FusedEnsembleSampler(lnprob_fn=None, nwalkers=W, ndim=4,
-                                   dtype=torch.float64, run_fn=run, k_steps=4)
+                                   dtype=torch.float64, run_fn=run, k_steps=4,
+                                   device="cpu")
     sampler.run_mcmc(pos0, 4, torch.Generator().manual_seed(7),
                      checkpoint_every=4, thin=2, lnp0=lnp0)
     np.testing.assert_array_equal(sampler.chain,

@@ -68,7 +68,7 @@ def test_spectral_model_build_matches_jax(reduced, problem, dtype):
         arrays = model_arrays(jax_model(cat, grid, dtype))
     pm = SpectralModel.build(load_catalog(problem["cat_path"]), grid.covered_trans,
                              grid.freqs, ll=18000.0, ul=25000.0, dish_size=70.0,
-                             vel_offset=4.10, mask_center=4.10,
+                             vel_offset=4.10, mask_center=4.10, device="cpu",
                              dtype=getattr(torch, dtype))
     for name, a in arrays.items():
         np.testing.assert_array_equal(getattr(pm, name).numpy(), a)
@@ -173,7 +173,7 @@ def test_mle_device_search_matches_jax(reduced, ndim):
     plike = pinf.build_lnlike(port_model(jm, torch.float64), pspec, grid.ints,
                               grid.yerrs)
     est = pinf.estimate_ncol_mle(plike, pspec, means, bounds["Ncol"],
-                                 dtype=torch.float64)
+                                 device="cpu", dtype=torch.float64)
     assert _GRID_K == 65 and mle_rounds(bounds["Ncol"], torch.float64) == 11
     assert mle_rounds(bounds["Ncol"], torch.float32) == 6
     assert est == pytest.approx(ref, rel=1e-4)
@@ -186,7 +186,7 @@ def test_mle_scipy_method_agrees_with_device_search(reduced):
     (_, jlike, _), (_, plike, _) = _build_both(reduced, 4, "float64")
     pspec = pinf.ParamSpec(ncomp=1, fixed_source_size=52.0)
     dev = pinf.estimate_ncol_mle(plike, pspec, spec_and_prior(4)[1], (1e8, 1e14),
-                                 dtype=torch.float64)
+                                 device="cpu", dtype=torch.float64)
     sci = pinf.estimate_ncol_mle(plike, pspec, spec_and_prior(4)[1], (1e8, 1e14),
-                                 method="scipy", dtype=torch.float64)
+                                 method="scipy", device="cpu", dtype=torch.float64)
     assert sci == pytest.approx(dev, rel=1e-3)

@@ -473,7 +473,7 @@ def test_k2_shared_memory_gate(reduced, port_k2):
     arrays["grid_freq"], arrays["vel_grid"] = (arrays["grid_freq"][perm],
                                                arrays["vel_grid"][:, perm])
     shuffled = model_from_arrays(arrays, q_dict(jm.q_model), mask_center=5.8,
-                                 dish_size=100.0)
+                                 dish_size=100.0, device="cpu")
     assert not fused_multi_supported(shuffled, ParamSpec(ncomp=4), DV_BOUND)
 
 
@@ -543,6 +543,12 @@ def test_out_of_slice_branches_raise(reduced, what, match):
     from cha1_mcmc_tpu_torch import MultiFitConfig, MultiComponentFit
     from cha1_mcmc_tpu_torch.pipeline.presets import load_workbench_preset
 
+    if match == "P14":
+        # ported: the sharded multifit runs on a torch.distributed world
+        # (tests/test_torch_parallel.py)
+        assert MultiComponentFit(MultiFitConfig(mol_name="hc9n_hfs", device="cpu",
+                                                n_devices=2)).sharded
+        return
     with pytest.raises(NotImplementedError, match=match):
         if what in ("n_devices", "n_chains"):
             MultiComponentFit(MultiFitConfig(mol_name="hc9n_hfs", device="cpu",

@@ -69,7 +69,7 @@ def test_slice_stage_by_stage_matches_jax(problem, tmp_path):
     pspec = pfit.spec
     p_ncol = pinf.estimate_ncol_mle(
         pinf.build_lnlike(pm, pspec, pgrid.ints, pgrid.yerrs), pspec, means,
-        pcfg.bounds["Ncol"], dtype=torch.float64)
+        pcfg.bounds["Ncol"], device="cpu", dtype=torch.float64)
     assert p_ncol == pytest.approx(j_ncol, rel=1e-4)
 
     from cha1_mcmc_tpu.sampler import initialize_walkers as jax_init
@@ -164,6 +164,15 @@ def test_branches_outside_the_slice_raise(problem, tmp_path, kw, item):
     from cha1_mcmc_tpu_torch import SpectralFit
 
     _, cfg = _configs(problem, tmp_path, **kw)
+    if item == "P14":
+        # ported: a sharded fit needs a torch.distributed world of
+        # n_devices ranks (tests/test_torch_parallel.py runs one)
+        fit = SpectralFit(cfg)
+        assert fit.sharded
+        with pytest.raises(ValueError, match="world holds 1 ranks"), \
+                contextlib.redirect_stdout(io.StringIO()):
+            fit.run()
+        return
     with pytest.raises(NotImplementedError, match=item):
         SpectralFit(cfg)
 

@@ -89,7 +89,7 @@ def _sampler(**kw):
     from cha1_mcmc_tpu_torch.sampler import EnsembleSampler
 
     return EnsembleSampler(lnprob_fn=_toy_lnprob, nwalkers=8, ndim=3,
-                           dtype=torch.float64, **kw)
+                           dtype=torch.float64, device="cpu", **kw)
 
 
 def _pos(seed=0):

@@ -185,6 +185,25 @@ def jax_randomness(key, n_raw: int, W: int, dtype):
     return tuple(np.asarray(t) for t in (perms, z_u, pair, acc_u))
 
 
+def jax_shard_randomness(key, nsteps: int, w_local: int, n_comp: int, w_idx: int,
+                         dtype):
+    """(perms, z_u, pair, acc_u) of walker shard `w_idx` as NumPy, drawn
+    exactly as the JAX sharded runners draw them inside their mesh
+    program (cha1_mcmc_tpu/parallel/sharded.py:220-230,
+    sharded_fused.py:622-629): the key folded with the shard index, split
+    in four; pair indexes the n_comp walkers of the gathered complement.
+    Call it in the same jax.enable_x64() scope as the runner."""
+    import jax
+
+    h = w_local // 2
+    k_perm, k_z, k_pair, k_acc = jax.random.split(jax.random.fold_in(key, w_idx), 4)
+    perms = jax.numpy.argsort(jax.random.uniform(k_perm, (nsteps, w_local)), axis=1)
+    z_u = jax.random.uniform(k_z, (nsteps, 2, h), dtype=dtype)
+    pair = jax.random.randint(k_pair, (nsteps, 2, h), 0, n_comp)
+    acc_u = jax.random.uniform(k_acc, (nsteps, 2, h), dtype=dtype)
+    return tuple(np.asarray(t) for t in (perms, z_u, pair, acc_u))
+
+
 def to_torch(arrays):
     return tuple(torch.from_numpy(np.array(a)) for a in arrays)
 
