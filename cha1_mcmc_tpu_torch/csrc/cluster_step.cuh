@@ -1,0 +1,193 @@
+// Device code of the port's cluster step kernels, K2 and its sharded
+// half-step K5c (multi_step.cu): one ensemble spread over a thread-block
+// cluster of up to 16 CTAs.
+//
+//  * CTA `rank` of n owns proposals [rank h / n, (rank + 1) h / n) of a
+//    half-update (owned_slice): a balanced, possibly ragged split in which
+//    every proposal has exactly one owner;
+//  * each proposal is evaluated by a group of kGroupWarps warps, kGroups
+//    groups per CTA, in rounds over the owned proposals; the lnprob is a
+//    CTA-cooperative functor lnprob(theta or nullptr, out) that every
+//    thread calls once per round and that ends on a CTA barrier;
+//  * the owning CTA decides acceptance and hands the accepted row to a
+//    commit policy: ResidentCommit (K2) writes it into every CTA's copy of
+//    the (W, D+1) state through distributed shared memory, GlobalCommit
+//    (K5c) into the rank's state in device memory;
+//  * accepted proposals are counted with integer atomics into a counter
+//    in rank 0's shared memory, so the count is exact whatever the order;
+//  * every half-update ends on cluster.sync() (release / acquire over the
+//    cluster), which orders the remote writes before the next half reads
+//    them and keeps every CTA resident while a peer still writes into it.
+//
+// The arithmetic of a proposal and of the acceptance test is
+// half_update's (step_loop.cuh), operation for operation, so chains do not
+// depend on the cluster size or on which CTA owns a proposal.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "step_loop.cuh"
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kGroupWarps = 4;                      // warps per proposal
+constexpr int kGroupThreads = 32 * kGroupWarps;
+constexpr int kGroups = kThreads / kGroupThreads;   // proposals per round
+constexpr int kMaxCluster = 16;                     // non-portable on Hopper
+
+struct Slice {
+  int first, count;
+};
+
+// Proposals [first, first + count) of h owned by CTA `rank` of n.
+__device__ __forceinline__ Slice owned_slice(int rank, int n, int h) {
+  const int first = (int)((long long)rank * h / n);
+  return {first, (int)((long long)(rank + 1) * h / n) - first};
+}
+
+// K2: the state lives in every CTA's shared memory. The accepted rows go
+// into every copy; each walker's row of the step goes to the chain output
+// from the half-update in which it was active (each walker is active in
+// exactly one half of a step).
+template <typename T>
+struct ResidentCommit {
+  T* state;       // this CTA's copy, (W, D+1)
+  T* out_chain;   // this step's (W, D)
+  T* out_lnps;    // this step's (W,)
+  int D;
+  __device__ void row(int32_t w, bool accept, const T* prop_row, const T* state_row) const {
+    const T* src = accept ? prop_row : state_row;
+    for (int d = 0; d < D; ++d) out_chain[(size_t)w * D + d] = src[d];
+    out_lnps[w] = src[D];
+  }
+  __device__ void broadcast(const int* flag, const T* prop, const int32_t* act, int p) const {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int n = (int)cluster.num_blocks(), D1 = D + 1, per = n * D1;
+    for (int i = threadIdx.x; i < p * per; i += kThreads) {
+      const int jl = i / per;
+      if (!flag[jl]) continue;
+      const int rem = i - jl * per, r = rem / D1, d = rem - r * D1;
+      cluster.map_shared_rank(state, r)[act[jl] * D1 + d] = prop[jl * D1 + d];
+    }
+  }
+};
+
+// K5c: the rank's state stays in device memory; only the owner of a row
+// reads or writes it during the half-update.
+template <typename T>
+struct GlobalCommit {
+  T* state;       // (W, D+1) in device memory
+  int D;
+  __device__ void row(int32_t w, bool accept, const T* prop_row, const T*) const {
+    if (accept)
+      for (int d = 0; d <= D; ++d) state[(size_t)w * (D + 1) + d] = prop_row[d];
+  }
+  __device__ void broadcast(const int*, const T*, const int32_t*, int) const {}
+};
+
+// One half-update of an ensemble spread over the cluster: the h walkers
+// `act` of `state` (W, D+1) against the partners comp(pair[j]) (see
+// StateComplement / GatheredComplement), around a CTA-cooperative
+// lnprob. Shared scratch of the CTA's owned slice: `prop` (P, D+1), `zz`
+// (P,), `flag` (P,), P = ceil(h / n); `acc_count` (in rank 0's shared
+// memory) gains the accepted proposals. Ends on cluster.sync().
+template <typename T, typename Comp, typename LnProb, typename Commit>
+__device__ void cluster_half_update(const T* state, int D, int h, const int32_t* act,
+                                    const Comp& comp, const T* zu, const int32_t* pair,
+                                    const T* au, T a, T* prop, T* zz, int* flag,
+                                    int* acc_count, const LnProb& lnprob,
+                                    const Commit& commit) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, D1 = D + 1;
+  const Slice own = owned_slice((int)cluster.block_rank(), (int)cluster.num_blocks(), h);
+  act += own.first;
+  zu += own.first;
+  pair += own.first;
+  au += own.first;
+  // Phase 1: the owned proposals Y = c + z (s - c), from this CTA's copy.
+  for (int jl = tid; jl < own.count; jl += kThreads) {
+    const T* s = state + act[jl] * D1;
+    const T* c = comp(pair[jl]);
+    const T z = stretch_z(zu[jl], a);
+    zz[jl] = z;
+    for (int d = 0; d < D; ++d)
+      prop[jl * D1 + d] = fma_rn(z, sub_rn(s[d], c[d]), c[d]);
+  }
+  __syncthreads();
+  // Phase 2: kGroups proposals a round, a warp group each.
+  const int grp = tid / kGroupThreads;
+  for (int base = 0; base < own.count; base += kGroups) {
+    const int jl = base + grp;
+    T* th = jl < own.count ? prop + jl * D1 : nullptr;
+    lnprob(th, th != nullptr ? th + D : nullptr);
+  }
+  // Phase 3: the owner accepts and commits.
+  for (int jl = tid; jl < own.count; jl += kThreads) {
+    const int32_t w = act[jl];
+    const T lnp_new = prop[jl * D1 + D], lnp_s = state[w * D1 + D];
+    const T diff = sub_rn(add_rn(mul_rn(T(D - 1), lg(zz[jl])), lnp_new), lnp_s);
+    const bool accept = lg(au[jl]) < diff;
+    flag[jl] = accept;
+    if (accept) atomicAdd(acc_count, 1);
+    commit.row(w, accept, prop + jl * D1, state + w * D1);
+  }
+  __syncthreads();
+  commit.broadcast(flag, prop, act, own.count);
+  cluster.sync();
+}
+
+// The launch configuration of one cluster of n CTAs of kThreads threads
+// with `smem` bytes of dynamic shared memory each; sets the kernel's
+// attributes for it (sizes above 8 are non-portable). `attr` backs
+// cfg.attrs. Returns a CUDA error code.
+template <typename Kernel>
+int cluster_config(Kernel kernel, int n, size_t smem, void* stream,
+                   cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  if (n < 1 || n > kMaxCluster) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && n > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(n, 1, 1);
+  cfg->blockDim = dim3(kThreads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return (int)cudaSuccess;
+}
+
+// How many clusters of n CTAs of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: the card cannot run that size).
+template <typename Kernel>
+int cluster_occupancy(Kernel kernel, int n, size_t smem, int* out_clusters) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int err = cluster_config(kernel, n, smem, nullptr, &attr, &cfg);
+  if (err != (int)cudaSuccess) return err;
+  return (int)cudaOccupancyMaxActiveClusters(out_clusters, kernel, &cfg);
+}
+
+// Launch `kernel` as one cluster of n CTAs. Returns a CUDA error code,
+// cudaGetLastError() after the launch.
+template <typename Kernel, typename... Args>
+int cluster_launch(Kernel kernel, int n, size_t smem, void* stream, Args... args) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int err = cluster_config(kernel, n, smem, stream, &attr, &cfg);
+  if (err != (int)cudaSuccess) return err;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (launched != cudaSuccess) return (int)launched;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -18,22 +18,40 @@
 //   opac_k,c = sum_l tau_k,l 1{|v_lc - v0| < 10 dV} exp2(aa (v_lc - vlsr_k)^2),
 // and accepting when ln u < (D - 1) ln z + lnp_new - lnp_s.
 //
-// What bounds it on this card: latency, as for K1. The half-updates and
-// steps depend on each other, so one ensemble is one CTA on one SM. At the
-// GOTHAM size (128 walkers, K = 4, 66 lines x ~1,133 channels, 3 lines
-// per channel) a half-update evaluates 64 proposals x 1,133 channels x 3
-// lines x 4 components ~ 870k windowed exp2 plus ~360k exp/log of the
-// radiative transfer, against ~40 KB of tables that stay in L1/L2.
-//
-// Design (the TPU layout does not carry over: its (C, K*h) opacity
-// accumulator alone is 1.16 MB of VMEM at 128 walkers, five times a
-// CTA's shared memory):
-//  * K1's shape and K1's step loop (run_step_loop, step_loop.cuh): the
-//    (W, D+1) state in shared memory, indexed gathers and a select
-//    write-back, no one-hot products and no -inf clamp; a walker that
-//    never accepted keeps lnp = -inf;
-//  * one warp per proposal, lanes striding the channels; each lane keeps
-//    its channel's K opacities in registers;
+// What bounds it on this card: latency. At the GOTHAM size (128 walkers,
+// K = 4, 66 lines x ~1,133 channels, ~3 lines per channel) a half-update
+// evaluates 64 proposals x 1,133 channels x 3 lines x 4 components ~ 870k
+// windowed exp2 plus ~300k exp and divides of the radiative transfer; on
+// one SM that alone is ~56 us of special-function issue, over the card
+// under 1 us. The half-updates depend on each other, so the time of one
+// is the time of its longest chain: each lane walks its ~9 channels in
+// series, a dependent chain of table loads, exp2, exp and divides per
+// channel. So one ensemble is spread over a thread-block cluster
+// (cluster_step.cuh) and the chain is kept short:
+//  * one cluster of n = 16 CTAs (8 where the card cannot place 16), each
+//    with a full copy of the (W, D+1) state in shared memory; CTA r owns
+//    proposals [r h / n, (r + 1) h / n) of every half;
+//  * four warps per proposal, 128 lanes striding the channels; their chi^2
+//    partials are reduced per warp and added in warp order (no float
+//    atomics: a theta's lnprob is one function of theta, the same in the
+//    lnprob entry, in K2 and in K5c, whatever the cluster size);
+//  * where they fit (a "staged" launch: up to ~3,200 GOTHAM-shaped
+//    channels in f32, ~1,900 in f64, at 128 walkers and K = 4), every
+//    table the loop reads (lines, the (M, C) entry tables, chans) is
+//    copied into each CTA's shared memory once per launch — a half-step
+//    is a chain of dependent loads per channel, and shared memory answers
+//    in tens of cycles where L2 takes hundreds — and the per-channel
+//    constants h nu / k, J(Tbg), ln(1 / sigma^2) and the beam's square
+//    are computed there once per launch, so the (proposal, channel) loop
+//    pays only for J(Tex), per component the dilution's divide and
+//    exp(-opac), and the in-window exp2 terms. Larger problems take the
+//    same kernel reading the tables from device memory and computing the
+//    constants in the loop (chan_consts: the same function, so the same
+//    bits); their shared memory does not grow with the channel count;
+//  * the owner of a proposal accepts it and writes the row into every
+//    CTA's copy through distributed shared memory, then cluster.sync();
+//    accepted counts are integer atomics into rank 0's shared memory;
+//    each walker's chain row is written by the owner of its proposal;
 //  * the lines that can touch a channel come from the channel-major
 //    tables (M, C) of the gather formulation (build_opacity_gather:
 //    active-line index and velocity per entry, padding at velocity 1e30)
@@ -44,7 +62,8 @@
 //    the channel's opacity in group order — the TPU kernel's
 //    group-then-scatter order exactly, so in float64 the plain version
 //    reproduces the Pallas kernel's opacities;
-//  * only tau needs scratch: (K x La) values per warp in shared memory;
+//  * no one-hot products and no -inf clamp: a walker that never accepted
+//    keeps lnp = -inf;
 //  * statics (prior bounds and Gaussians, Q(T), geometry) are a plain
 //    struct passed by value (__grid_constant__), rounded to the kernel's
 //    scalar type once on the host; at most kMaxComp components.
@@ -53,27 +72,51 @@
 // is K2's lnprob and half-update. Replaces the Pallas TPU kernel
 // cha1_mcmc_tpu/parallel/sharded_fused.py:_half_step_kernel_multi (:320,
 // call :494): one half-update of a rank's W_l local walkers against the
-// complement all-gathered over the walker shards. It keeps K2's (W, D+1)
-// state layout, not the TPU kernel's transposed (D+1, W) one: one CTA
-// loads the state from device memory into shared memory, runs half_update
-// (step_loop.cuh) with partners from the gathered (h n_w, D) buffer and
-// stores it back; the accepted count goes to out_acc. Bound as K2, plus a
-// launch per half-step.
+// complement all-gathered over the walker shards, as one cluster launch.
+// It keeps K2's (W, D+1) layout, not the TPU kernel's transposed (D+1, W)
+// one, but no copy of it in shared memory: each CTA reads the rows of its
+// own proposals from device memory and writes its accepted rows back
+// there; the accepted count goes to out_acc.
 //
-// C entries (all return cudaGetLastError() after the launch):
-//   k2_fused_steps_{f32,f64}: k whole steps of one ensemble;
-//   k2_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch;
+// C entries (all return a CUDA error code, cudaGetLastError() after the
+// launch):
+//   k2_fused_steps_{f32,f64}: k whole steps of one ensemble, one cluster;
+//   k2_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch,
+//                             kGroups thetas per CTA, no cluster;
 //   k5c_half_{f32,f64}:       one sharded half-step (K5c), state in place;
+//   k2_cluster_occupancy_{f32,f64}: cudaOccupancyMaxActiveClusters of the
+//                             steps (entry 0) or half-step (1) kernel;
 //   k2_statics_size_{f32,f64}: sizeof(MultiStatics<T>), checked by the binding;
+//   k2_geometry:              the constants the binding's layout assumes,
+//                             checked when the library loads;
 //   k2_error_string: the CUDA error message of a returned code.
+// The cluster size and the shared-memory layout (SmemLayout: each
+// region's offset, the total, staged or not) come from the binding
+// (fused_multi.py:plan_multi_cluster / smem_layout), the one place that
+// sizes them; the kernels only apply the offsets.
 
 #include "step_loop.cuh"
+#include "cluster_step.cuh"
 
 namespace {
 
 constexpr int kMaxComp = 4;
 constexpr int kMaxPoly = 8;
 constexpr int kMaxCheb = 65;
+constexpr int kChanConsts = 4;   // per channel: x, J(Tbg), ln(1/sigma^2), beam^2
+constexpr int kChanRows = 3;     // chans: freq, y, 1/sigma^2
+constexpr int kLineRows = 5;     // lines: freq, elower, aij, gup, glow
+
+// Byte offsets of the regions of a launch's dynamic shared memory and
+// their total, from the binding (fused_multi.py:smem_layout): the T
+// regions first, then the int32 ones; a region a launch does not use has
+// size 0. `staged`: the tables and per-channel constants are in shared
+// memory (chans, cc, vel, lines, line_idx, group), else they are not.
+struct SmemLayout {
+  int32_t state, chans, cc, vel, lines, tau, part, prop, zz;
+  int32_t line_idx, group, flag, acc;
+  int32_t bytes, staged;
+};
 
 template <typename T>
 struct MultiStatics {
@@ -99,175 +142,290 @@ struct MultiTables {
   int La, M, C, S;
 };
 
-// lnprob of one proposal, evaluated by one warp; `tau` is the warp's
-// (K, La) scratch. The value is returned on every lane.
+// The proposal-independent constants of one channel (frequency gf in MHz,
+// isig = 1 / sigma^2): x = h nu / k, J(Tbg) (planck_J), ln(1 / sigma^2)
+// and the beam's square (beam_dilution's wl and beam, squared with one
+// rounding as the plain version squares it). A staged launch computes
+// them once into shared memory, an unstaged one in the channel loop: one
+// function, so the same bits either way.
 template <typename T>
-__device__ T multi_lnprob(const T* th, const MultiStatics<T>& st,
-                          const MultiTables<T>& tb, T* tau, int lane) {
-  const int K = st.ncomp;
-  const T Tex = th[2 * K], dV = th[3 * K + 1];
-  T ss[kMaxComp], vl[kMaxComp];
-  // Ordered-velocity prior (_make_multi_lnprob:350-365): per component the
-  // ss and vlsr Gaussians, then Tex, then dV; flat Ncol.
-  bool ok = true;
-  T lp = T(0);
-#pragma unroll
-  for (int k = 0; k < kMaxComp; ++k) {
-    if (k < K) {
-      ss[k] = th[k];
-      vl[k] = th[2 * K + 1 + k];
-      const T ncol = th[K + k];
-      ok = ok && (ss[k] > st.ss_lo) && (ss[k] < st.ss_hi)
-              && (ncol > st.ncol_lo) && (ncol < st.ncol_hi);
-      T u = (ss[k] - st.mean_ss[k]) / st.sd_ss[k];
-      lp = lp + (st.norm_ss[k] - T(0.5) * (u * u));
-      u = (vl[k] - st.mean_vlsr[k]) / st.sd_vlsr[k];
-      lp = lp + (st.norm_vlsr[k] - T(0.5) * (u * u));
-    }
-  }
-#pragma unroll
-  for (int k = 0; k + 1 < kMaxComp; ++k) {
-    if (k + 1 < K)
-      ok = ok && (vl[k] < vl[k + 1] - st.vlsr_min_sep)
-              && (vl[k + 1] < vl[k] + st.vlsr_max_sep);
-  }
-  ok = ok && (dV < st.dv_bound) && (Tex > st.tex_min);
-  T u = (Tex - st.mean_tex) / st.sd_tex;
-  lp = lp + (st.norm_tex - T(0.5) * (u * u));
-  u = (dV - st.mean_dv) / st.sd_dv;
-  lp = lp + (st.norm_dv - T(0.5) * (u * u));
-  if (!ok) return neg_inf<T>();  // the whole warp leaves together
-
-  // Stick opacities per (component, active line), spread over the lanes.
-  const T Q = q_of(Tex, st, tb.qst, tb.S, lane);
-  for (int i = lane; i < K * tb.La; i += 32) {
-    const int k = i / tb.La, l = i - k * tb.La;
-    tau[i] = tau_stick(tb.lines[l], tb.lines[tb.La + l], tb.lines[2 * tb.La + l],
-                       tb.lines[3 * tb.La + l], tb.lines[4 * tb.La + l], Q,
-                       th[K + k], Tex, dV);
-  }
-  __syncwarp();
-
-  // exp(-0.5 ((v - vlsr) / sigma)^2) as exp2(aa d^2), aa = -log2(e) / (2 sigma^2).
-  const T sigma = dV / T(2.355);
-  const T aa = T(-0.5 * 1.4426950408889634) / (sigma * sigma);
-  const T win = T(10) * dV;
-  T part = T(0);
-  for (int c = lane; c < tb.C; c += 32) {
-    T opac[kMaxComp], gacc[kMaxComp];
-#pragma unroll
-    for (int k = 0; k < kMaxComp; ++k) opac[k] = gacc[k] = T(0);
-    int cur = -1;
-    for (int m = 0; m < tb.M; ++m) {
-      const T v = tb.vel[m * tb.C + c];
-      if (ab(v - st.mask_center) < win) {
-        const int g = tb.group[m * tb.C + c];
-        if (g != cur) {  // a new hfs group: add the finished group's sums
-#pragma unroll
-          for (int k = 0; k < kMaxComp; ++k) {
-            opac[k] = opac[k] + gacc[k];
-            gacc[k] = T(0);
-          }
-          cur = g;
-        }
-        const T* tl = tau + tb.line_idx[m * tb.C + c];
-#pragma unroll
-        for (int k = 0; k < kMaxComp; ++k) {
-          if (k < K) {
-            const T d = v - vl[k];
-            gacc[k] = gacc[k] + tl[k * tb.La] * ex2(aa * (d * d));
-          }
-        }
-      }
-    }
-    const T gf = tb.chans[c], y = tb.chans[tb.C + c], isig = tb.chans[2 * tb.C + c];
-    const T J_T = planck_J(gf, Tex);
-    const T J_Tbg = planck_J(gf, st.Tbg);
-    T mdl = T(0);
-#pragma unroll
-    for (int k = 0; k < kMaxComp; ++k) {
-      if (k < K) {
-        const T o = opac[k] + gacc[k];
-        mdl = mdl + beam_dilution(gf, ss[k], st.dish_size) * (J_T - J_Tbg)
-                    * (T(1) - ex(-o));
-      }
-    }
-    const T resid = y - mdl;
-    part += resid * resid * isig - lg(isig);
-  }
-  const T chi = warp_sum(part);
-  __syncwarp();  // tau is rewritten by this warp's next proposal
-  const T val = lp + T(-0.5) * chi;
-  return isfinite(val) ? val : neg_inf<T>();
-}
-
-template <typename T>
-struct MultiLnProb {
-  const MultiStatics<T>& st;
-  MultiTables<T> tb;
-  T* tau;  // kWarps x (K x La) scratch
-  __device__ T operator()(const T* th, int warp, int lane) const {
-    return multi_lnprob(th, st, tb, tau + (size_t)warp * st.ncomp * tb.La, lane);
-  }
+struct ChanConsts {
+  T x, jbg, lnisig, b2;
 };
 
 template <typename T>
+__device__ __forceinline__ ChanConsts<T> chan_consts(const MultiStatics<T>& st, T gf, T isig) {
+  const T wl = T(2.998e8) / (gf * T(1e6));
+  const T beam = wl * T(206265.0) * T(1.22) / st.dish_size;
+  return {T(6.626e-34) * gf * T(1e6) / T(1.381e-23), planck_J(gf, st.Tbg), lg(isig),
+          mul_rn(beam, beam)};
+}
+
+// The (kChanConsts, C) constants of every channel into `cc`, by the CTA.
+template <typename T>
+__device__ void channel_constants(const MultiStatics<T>& st, const MultiTables<T>& tb,
+                                  T* cc) {
+  const int C = tb.C;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const ChanConsts<T> k = chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
+    cc[c] = k.x;
+    cc[C + c] = k.jbg;
+    cc[2 * C + c] = k.lnisig;
+    cc[3 * C + c] = k.b2;
+  }
+}
+
+// K2's lnprob as a CTA-cooperative functor: every thread of the CTA calls
+// it once per round with its warp group's theta (nullptr: none this round);
+// thread 0 of each group with a theta writes the value to `out`. Ends on a
+// CTA barrier. kStaged: `tb` and `cc` are in shared memory; else `tb` is
+// in device memory and the constants are computed per channel.
+template <typename T, bool kStaged>
+struct MultiGroupLnProb {
+  const MultiStatics<T>& st;
+  MultiTables<T> tb;
+  const T* cc;   // (kChanConsts, C) per-channel constants (kStaged)
+  T* tau;        // kGroups x (K x La) stick opacities
+  T* part;       // kGroups x kGroupWarps chi^2 partials
+
+  __device__ void operator()(const T* th, T* out) const {
+    const int tid = threadIdx.x, grp = tid / kGroupThreads, gt = tid - grp * kGroupThreads;
+    const int lane = tid & 31, K = st.ncomp, C = tb.C;
+    T* tg = tau + (size_t)grp * K * tb.La;
+    T* pg = part + grp * kGroupWarps;
+    T ss2[kMaxComp], vl[kMaxComp];
+    T lp = T(0), Tex = T(0), dV = T(0);
+    bool ok = th != nullptr;
+    if (ok) {
+      // Ordered-velocity prior (_make_multi_lnprob:350-365): per component
+      // the ss and vlsr Gaussians, then Tex, then dV; flat Ncol.
+      Tex = th[2 * K];
+      dV = th[3 * K + 1];
+#pragma unroll
+      for (int k = 0; k < kMaxComp; ++k) {
+        if (k < K) {
+          const T ss = th[k], ncol = th[K + k];
+          vl[k] = th[2 * K + 1 + k];
+          ss2[k] = mul_rn(ss, ss);
+          ok = ok && (ss > st.ss_lo) && (ss < st.ss_hi)
+                  && (ncol > st.ncol_lo) && (ncol < st.ncol_hi);
+          T u = (ss - st.mean_ss[k]) / st.sd_ss[k];
+          lp = lp + (st.norm_ss[k] - T(0.5) * (u * u));
+          u = (vl[k] - st.mean_vlsr[k]) / st.sd_vlsr[k];
+          lp = lp + (st.norm_vlsr[k] - T(0.5) * (u * u));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k + 1 < kMaxComp; ++k) {
+        if (k + 1 < K)
+          ok = ok && (vl[k] < vl[k + 1] - st.vlsr_min_sep)
+                  && (vl[k + 1] < vl[k] + st.vlsr_max_sep);
+      }
+      ok = ok && (dV < st.dv_bound) && (Tex > st.tex_min);
+      T u = (Tex - st.mean_tex) / st.sd_tex;
+      lp = lp + (st.norm_tex - T(0.5) * (u * u));
+      u = (dV - st.mean_dv) / st.sd_dv;
+      lp = lp + (st.norm_dv - T(0.5) * (u * u));
+    }
+    // Stick opacities per (component, active line), over the group.
+    if (ok) {
+      const T Q = q_of(Tex, st, tb.qst, tb.S, lane);
+      for (int i = gt; i < K * tb.La; i += kGroupThreads) {
+        const int k = i / tb.La, l = i - k * tb.La;
+        tg[i] = tau_stick(tb.lines[l], tb.lines[tb.La + l], tb.lines[2 * tb.La + l],
+                          tb.lines[3 * tb.La + l], tb.lines[4 * tb.La + l], Q,
+                          th[K + k], Tex, dV);
+      }
+    }
+    __syncthreads();
+    if (ok) {
+      // exp(-0.5 ((v - vlsr) / sigma)^2) as exp2(aa d^2), aa = -log2(e) / (2 sigma^2).
+      const T sigma = dV / T(2.355);
+      const T aa = T(-0.5 * 1.4426950408889634) / (sigma * sigma);
+      const T win = T(10) * dV;
+      T p = T(0);
+      for (int c = gt; c < C; c += kGroupThreads) {
+        T opac[kMaxComp], gacc[kMaxComp];
+#pragma unroll
+        for (int k = 0; k < kMaxComp; ++k) opac[k] = gacc[k] = T(0);
+        int cur = -1;
+        for (int m = 0; m < tb.M; ++m) {
+          const T v = tb.vel[m * C + c];
+          if (ab(v - st.mask_center) < win) {
+            const int g = tb.group[m * C + c];
+            if (g != cur) {  // a new hfs group: add the finished group's sums
+#pragma unroll
+              for (int k = 0; k < kMaxComp; ++k) {
+                opac[k] = opac[k] + gacc[k];
+                gacc[k] = T(0);
+              }
+              cur = g;
+            }
+            const T* tl = tg + tb.line_idx[m * C + c];
+#pragma unroll
+            for (int k = 0; k < kMaxComp; ++k) {
+              if (k < K) {
+                const T d = v - vl[k];
+                gacc[k] = gacc[k] + tl[k * tb.La] * ex2(aa * (d * d));
+              }
+            }
+          }
+        }
+        ChanConsts<T> kc;
+        if constexpr (kStaged)
+          kc = {cc[c], cc[C + c], cc[2 * C + c], cc[3 * C + c]};
+        else
+          kc = chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
+        // planck_J(nu, Tex) from x, minus J(Tbg)
+        const T dJ = kc.x / (ex(kc.x / Tex) - T(1) + T(1e-10)) - kc.jbg;
+        T mdl = T(0);
+#pragma unroll
+        for (int k = 0; k < kMaxComp; ++k) {
+          if (k < K) {
+            const T o = opac[k] + gacc[k];
+            mdl = mdl + ss2[k] / add_rn(kc.b2, ss2[k]) * dJ * (T(1) - ex(-o));
+          }
+        }
+        const T resid = tb.chans[C + c] - mdl;
+        p += resid * resid * tb.chans[2 * C + c] - kc.lnisig;
+      }
+      const T w = warp_sum(p);
+      if (lane == 0) pg[gt >> 5] = w;
+    }
+    __syncthreads();
+    if (th != nullptr && gt == 0) {
+      T val = neg_inf<T>();
+      if (ok) {
+        T chi = pg[0];
+#pragma unroll
+        for (int w = 1; w < kGroupWarps; ++w) chi = chi + pg[w];
+        const T v = lp + T(-0.5) * chi;
+        if (isfinite(v)) val = v;
+      }
+      *out = val;
+    }
+    __syncthreads();  // tau and the partials are rewritten next round
+  }
+};
+
+// The regions of a launch's dynamic shared memory, at the layout's
+// offsets: [the (W, D+1) state], [the staged tables: chans, per-channel
+// constants, entry velocities, lines], each warp group's (K, La) tau and
+// chi^2 partials, the cluster kernels' owned proposals and stretch
+// factors; [the entry line indices and groups], flags and counters.
+template <typename T>
+struct Carve {
+  T *state, *chans, *cc, *vel, *lines, *tau, *part, *prop, *zz;
+  int *line_idx, *group, *flag, *acc;
+};
+
+template <typename T>
+__device__ Carve<T> carve(unsigned char* smem, const SmemLayout& L) {
+  const auto t = [smem](int32_t off) { return reinterpret_cast<T*>(smem + off); };
+  const auto i = [smem](int32_t off) { return reinterpret_cast<int*>(smem + off); };
+  return {t(L.state), t(L.chans), t(L.cc),       t(L.vel),   t(L.lines), t(L.tau), t(L.part),
+          t(L.prop),  t(L.zz),    i(L.line_idx), i(L.group), i(L.flag),  i(L.acc)};
+}
+
+// kStaged: copy the tables into the CTA's shared memory and compute the
+// per-channel constants there, and return the tables as the lnprob reads
+// them (the state sum's qst stays in device memory); the caller's next
+// barrier publishes them. Else the tables stay where they are.
+template <typename T, bool kStaged>
+__device__ MultiTables<T> stage_tables(const MultiStatics<T>& st, const MultiTables<T>& g,
+                                       const Carve<T>& s) {
+  if constexpr (!kStaged) return g;
+  const int C = g.C, MC = g.M * g.C;
+  for (int i = threadIdx.x; i < kChanRows * C; i += kThreads) s.chans[i] = g.chans[i];
+  for (int i = threadIdx.x; i < MC; i += kThreads) {
+    s.vel[i] = g.vel[i];
+    s.line_idx[i] = g.line_idx[i];
+    s.group[i] = g.group[i];
+  }
+  for (int i = threadIdx.x; i < kLineRows * g.La; i += kThreads) s.lines[i] = g.lines[i];
+  channel_constants(st, g, s.cc);
+  return MultiTables<T>{s.lines, s.vel, s.line_idx, s.group, s.chans, g.qst,
+                        g.La, g.M, g.C, g.S};
+}
+
+// K2: k whole steps of one ensemble on one cluster.
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-multi_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
-                   const int32_t* __restrict__ perm, const T* __restrict__ zu,
-                   const int32_t* __restrict__ pair, const T* __restrict__ au,
-                   MultiTables<T> tb, T* __restrict__ out_chain,
-                   T* __restrict__ out_lnps, float* __restrict__ out_acc,
-                   int W, int D, int k, __grid_constant__ const MultiStatics<T> st) {
+multi_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
+                           const int32_t* __restrict__ perm, const T* __restrict__ zu,
+                           const int32_t* __restrict__ pair, const T* __restrict__ au,
+                           MultiTables<T> tb, T* __restrict__ out_chain,
+                           T* __restrict__ out_lnps, float* __restrict__ out_acc,
+                           int W, int D, int k, SmemLayout L,
+                           __grid_constant__ const MultiStatics<T> st) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = W / 2;
-  T* state = reinterpret_cast<T*>(smem);
-  T* prop = state + (size_t)W * (D + 1);
-  T* zz = prop + (size_t)h * (D + 1);
-  T* tau = zz + h;
-  int* flag = reinterpret_cast<int*>(tau + (size_t)kWarps * st.ncomp * tb.La);
-  int* acc_count = flag + h;
-  MultiLnProb<T> lnprob{st, tb, tau};
-  run_step_loop<T>(coords, lnp0, perm, zu, pair, au, out_chain, out_lnps,
-                   out_acc, W, D, k, st.a, state, prop, zz, flag, acc_count,
-                   lnprob);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, h = W / 2, D1 = D + 1;
+  const int rank = (int)cluster.block_rank();
+  const Carve<T> s = carve<T>(smem, L);
+  for (int i = tid; i < W * D; i += kThreads) s.state[(i / D) * D1 + i % D] = coords[i];
+  for (int w = tid; w < W; w += kThreads) s.state[w * D1 + D] = lnp0[w];
+  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
+  if (tid < 2) s.acc[tid] = 0;
+  cluster.sync();  // every CTA resident and initialised before remote access
+  int* acc0 = cluster.map_shared_rank(s.acc, 0);
+  const MultiGroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
+  for (int step = 0; step < k; ++step) {
+    const int32_t* pm = perm + (size_t)step * W;
+    const ResidentCommit<T> commit{s.state, out_chain + (size_t)step * W * D,
+                                   out_lnps + (size_t)step * W, D};
+    for (int half = 0; half < 2; ++half) {
+      const int r = 2 * step + half;
+      const StateComplement<T> comp{s.state, pm + (1 - half) * h, D1};
+      cluster_half_update<T>(s.state, D, h, pm + half * h, comp, zu + r * h,
+                             pair + r * h, au + r * h, st.a, s.prop, s.zz, s.flag,
+                             acc0 + (step & 1), lnprob, commit);
+    }
+    // Every add of this step precedes the cluster.sync() just passed; the
+    // slot is next added to two steps on, after rank 0 has reset it.
+    if (rank == 0 && tid == 0) {
+      out_acc[step] = (float)s.acc[step & 1];
+      s.acc[step & 1] = 0;
+    }
+  }
 }
 
 // K5c: one sharded half-step of a rank's W local walkers against the
-// complement gathered over the walker shards (run_sharded_half in
-// step_loop.cuh around the same MultiLnProb); one CTA, K2's layout.
-template <typename T>
+// complement gathered over the walker shards, on one cluster.
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
-multi_sharded_half_kernel(T* __restrict__ state_g, const int32_t* __restrict__ act,
+multi_cluster_half_kernel(T* __restrict__ state_g, const int32_t* __restrict__ act,
                           const T* __restrict__ comp, const T* __restrict__ zu,
                           const int32_t* __restrict__ pair, const T* __restrict__ au,
                           MultiTables<T> tb, float* __restrict__ out_acc, int W, int D,
-                          __grid_constant__ const MultiStatics<T> st) {
+                          SmemLayout L, __grid_constant__ const MultiStatics<T> st) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = W / 2;
-  T* state = reinterpret_cast<T*>(smem);
-  T* prop = state + (size_t)W * (D + 1);
-  T* zz = prop + (size_t)h * (D + 1);
-  T* tau = zz + h;
-  int* flag = reinterpret_cast<int*>(tau + (size_t)kWarps * st.ncomp * tb.La);
-  int* acc_count = flag + h;
-  MultiLnProb<T> lnprob{st, tb, tau};
-  run_sharded_half<T>(state_g, act, comp, zu, pair, au, out_acc, W, D, st.a, state,
-                      prop, zz, flag, acc_count, lnprob);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, h = W / 2;
+  const Carve<T> s = carve<T>(smem, L);
+  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
+  if (tid == 0) s.acc[0] = 0;
+  cluster.sync();
+  const MultiGroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
+  cluster_half_update<T>(state_g, D, h, act, GatheredComplement<T>{comp, D}, zu, pair, au,
+                         st.a, s.prop, s.zz, s.flag, cluster.map_shared_rank(s.acc, 0),
+                         lnprob, GlobalCommit<T>{state_g, D});
+  if (cluster.block_rank() == 0 && tid == 0) out_acc[0] = (float)s.acc[0];
 }
 
-template <typename T>
+// The lnprob entry: kGroups thetas per CTA, as many CTAs as the batch fills.
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 multi_lnprob_kernel(const T* __restrict__ theta, T* __restrict__ out,
-                    MultiTables<T> tb, int N, int D,
+                    MultiTables<T> tb, int N, int D, SmemLayout L,
                     __grid_constant__ const MultiStatics<T> st) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int j = blockIdx.x * kWarps + warp;
-  if (j >= N) return;  // whole warps only: no block barrier follows
-  MultiLnProb<T> lnprob{st, tb, reinterpret_cast<T*>(smem)};
-  const T v = lnprob(theta + (size_t)j * D, warp, lane);
-  if (lane == 0) out[j] = v;
+  const Carve<T> s = carve<T>(smem, L);
+  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
+  __syncthreads();
+  const int j = blockIdx.x * kGroups + threadIdx.x / kGroupThreads;
+  const MultiGroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
+  lnprob(j < N ? theta + (size_t)j * D : nullptr, out + j);
 }
 
 template <typename T>
@@ -282,68 +440,81 @@ MultiTables<T> make_tables(const void* lines, const void* vel,
                         La, M, C, S};
 }
 
+// Each kernel's instance for a layout: staged or not.
+template <typename T>
+auto steps_kernel(const SmemLayout& L) {
+  return L.staged ? multi_cluster_steps_kernel<T, true> : multi_cluster_steps_kernel<T, false>;
+}
+template <typename T>
+auto half_kernel(const SmemLayout& L) {
+  return L.staged ? multi_cluster_half_kernel<T, true> : multi_cluster_half_kernel<T, false>;
+}
+template <typename T>
+auto lnprob_kernel(const SmemLayout& L) {
+  return L.staged ? multi_lnprob_kernel<T, true> : multi_lnprob_kernel<T, false>;
+}
+
 template <typename T>
 int launch_steps(const void* coords, const void* lnp0, const void* perm,
                  const void* zu, const void* pair, const void* au,
                  const void* lines, const void* vel, const void* line_idx,
                  const void* group, const void* chans, const void* qst,
                  void* out_chain, void* out_lnps, void* out_acc,
-                 const void* statics, int W, int D, int La, int M, int C,
-                 int S, int k, void* stream) {
+                 const void* statics, const void* layout, int W, int D, int La, int M,
+                 int C, int S, int k, int n, void* stream) {
   const MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
-  const MultiTables<T> tb = make_tables<T>(lines, vel, line_idx, group, chans,
-                                           qst, La, M, C, S);
-  const size_t smem = step_smem_bytes<T>(W, D, (size_t)kWarps * st.ncomp * La);
-  cudaError_t err = cudaFuncSetAttribute(
-      multi_steps_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  multi_steps_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(coords), static_cast<const T*>(lnp0),
-      static_cast<const int32_t*>(perm), static_cast<const T*>(zu),
-      static_cast<const int32_t*>(pair), static_cast<const T*>(au), tb,
-      static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
-      static_cast<float*>(out_acc), W, D, k, st);
-  return (int)cudaGetLastError();
+  const SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  return cluster_launch(steps_kernel<T>(L), n, (size_t)L.bytes, stream,
+                        static_cast<const T*>(coords), static_cast<const T*>(lnp0),
+                        static_cast<const int32_t*>(perm), static_cast<const T*>(zu),
+                        static_cast<const int32_t*>(pair), static_cast<const T*>(au),
+                        make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S),
+                        static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
+                        static_cast<float*>(out_acc), W, D, k, L, st);
 }
 
 template <typename T>
 int launch_half(void* state, const void* act, const void* comp, const void* zu,
                 const void* pair, const void* au, const void* lines, const void* vel,
                 const void* line_idx, const void* group, const void* chans,
-                const void* qst, void* out_acc, const void* statics, int W, int D,
-                int La, int M, int C, int S, void* stream) {
+                const void* qst, void* out_acc, const void* statics, const void* layout,
+                int W, int D, int La, int M, int C, int S, int n, void* stream) {
   const MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
-  const MultiTables<T> tb = make_tables<T>(lines, vel, line_idx, group, chans,
-                                           qst, La, M, C, S);
-  const size_t smem = step_smem_bytes<T>(W, D, (size_t)kWarps * st.ncomp * La);
-  cudaError_t err = cudaFuncSetAttribute(
-      multi_sharded_half_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  multi_sharded_half_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(state), static_cast<const int32_t*>(act),
-      static_cast<const T*>(comp), static_cast<const T*>(zu),
-      static_cast<const int32_t*>(pair), static_cast<const T*>(au), tb,
-      static_cast<float*>(out_acc), W, D, st);
-  return (int)cudaGetLastError();
+  const SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  return cluster_launch(half_kernel<T>(L), n, (size_t)L.bytes, stream,
+                        static_cast<T*>(state), static_cast<const int32_t*>(act),
+                        static_cast<const T*>(comp), static_cast<const T*>(zu),
+                        static_cast<const int32_t*>(pair), static_cast<const T*>(au),
+                        make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S),
+                        static_cast<float*>(out_acc), W, D, L, st);
 }
 
 template <typename T>
 int launch_lnprob(const void* theta, void* out, const void* lines,
                   const void* vel, const void* line_idx, const void* group,
                   const void* chans, const void* qst, const void* statics,
-                  int N, int D, int La, int M, int C, int S, void* stream) {
+                  const void* layout, int N, int D, int La, int M, int C, int S,
+                  void* stream) {
   const MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
-  const MultiTables<T> tb = make_tables<T>(lines, vel, line_idx, group, chans,
-                                           qst, La, M, C, S);
-  const size_t smem = sizeof(T) * (size_t)kWarps * st.ncomp * La;
-  cudaError_t err = cudaFuncSetAttribute(
-      multi_lnprob_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  if (N == 0) return (int)cudaSuccess;
+  const auto kernel = lnprob_kernel<T>(L);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L.bytes);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + kWarps - 1) / kWarps;
-  multi_lnprob_kernel<T><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(theta), static_cast<T*>(out), tb, N, D, st);
+  const int blocks = (N + kGroups - 1) / kGroups;
+  kernel<<<blocks, kThreads, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(theta), static_cast<T*>(out),
+      make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S), N, D, L, st);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int entry, int n, const void* layout, void* out) {
+  const SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  int* clusters = static_cast<int*>(out);
+  return entry == 0 ? cluster_occupancy(steps_kernel<T>(L), n, (size_t)L.bytes, clusters)
+                    : cluster_occupancy(half_kernel<T>(L), n, (size_t)L.bytes, clusters);
 }
 
 }  // namespace
@@ -354,58 +525,52 @@ int k2_statics_size_f32() { return (int)sizeof(MultiStatics<float>); }
 int k2_statics_size_f64() { return (int)sizeof(MultiStatics<double>); }
 const char* k2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-int k2_fused_steps_f32(const void* coords, const void* lnp0, const void* perm,
-                       const void* zu, const void* pair, const void* au,
-                       const void* lines, const void* vel, const void* line_idx,
-                       const void* group, const void* chans, const void* qst,
-                       void* out_chain, void* out_lnps, void* out_acc,
-                       const void* statics, int W, int D, int La, int M, int C,
-                       int S, int k, void* stream) {
-  return launch_steps<float>(coords, lnp0, perm, zu, pair, au, lines, vel,
-                             line_idx, group, chans, qst, out_chain, out_lnps,
-                             out_acc, statics, W, D, La, M, C, S, k, stream);
+// threads a CTA, warp groups a CTA, warps a group, per-channel constants,
+// sizeof(SmemLayout): what fused_multi.py:smem_layout sizes the regions by.
+void k2_geometry(int* out) {
+  out[0] = kThreads;
+  out[1] = kGroups;
+  out[2] = kGroupWarps;
+  out[3] = kChanConsts;
+  out[4] = (int)sizeof(SmemLayout);
 }
 
-int k2_fused_steps_f64(const void* coords, const void* lnp0, const void* perm,
-                       const void* zu, const void* pair, const void* au,
-                       const void* lines, const void* vel, const void* line_idx,
-                       const void* group, const void* chans, const void* qst,
-                       void* out_chain, void* out_lnps, void* out_acc,
-                       const void* statics, int W, int D, int La, int M, int C,
-                       int S, int k, void* stream) {
-  return launch_steps<double>(coords, lnp0, perm, zu, pair, au, lines, vel,
-                              line_idx, group, chans, qst, out_chain, out_lnps,
-                              out_acc, statics, W, D, La, M, C, S, k, stream);
-}
-
-int k2_lnprob_f32(const void* theta, void* out, const void* lines,
-                  const void* vel, const void* line_idx, const void* group,
-                  const void* chans, const void* qst, const void* statics,
-                  int N, int D, int La, int M, int C, int S, void* stream) {
-  return launch_lnprob<float>(theta, out, lines, vel, line_idx, group, chans,
-                              qst, statics, N, D, La, M, C, S, stream);
-}
-
-int k2_lnprob_f64(const void* theta, void* out, const void* lines,
-                  const void* vel, const void* line_idx, const void* group,
-                  const void* chans, const void* qst, const void* statics,
-                  int N, int D, int La, int M, int C, int S, void* stream) {
-  return launch_lnprob<double>(theta, out, lines, vel, line_idx, group, chans,
-                               qst, statics, N, D, La, M, C, S, stream);
-}
-
-#define K5C_HALF(SFX, T)                                                             \
+#define K2_ENTRIES(SFX, T)                                                            \
+  int k2_fused_steps_##SFX(const void* coords, const void* lnp0, const void* perm,    \
+                           const void* zu, const void* pair, const void* au,          \
+                           const void* lines, const void* vel, const void* line_idx,  \
+                           const void* group, const void* chans, const void* qst,     \
+                           void* out_chain, void* out_lnps, void* out_acc,            \
+                           const void* statics, const void* layout, int W, int D,     \
+                           int La, int M, int C, int S, int k, int cluster,           \
+                           void* stream) {                                            \
+    return launch_steps<T>(coords, lnp0, perm, zu, pair, au, lines, vel, line_idx,    \
+                           group, chans, qst, out_chain, out_lnps, out_acc, statics,  \
+                           layout, W, D, La, M, C, S, k, cluster, stream);            \
+  }                                                                                   \
+  int k2_lnprob_##SFX(const void* theta, void* out, const void* lines,                \
+                      const void* vel, const void* line_idx, const void* group,       \
+                      const void* chans, const void* qst, const void* statics,        \
+                      const void* layout, int N, int D, int La, int M, int C, int S,  \
+                      void* stream) {                                                 \
+    return launch_lnprob<T>(theta, out, lines, vel, line_idx, group, chans, qst,      \
+                            statics, layout, N, D, La, M, C, S, stream);              \
+  }                                                                                   \
   int k5c_half_##SFX(void* state, const void* act, const void* comp, const void* zu,  \
                      const void* pair, const void* au, const void* lines,             \
                      const void* vel, const void* line_idx, const void* group,        \
                      const void* chans, const void* qst, void* out_acc,               \
-                     const void* statics, int W, int D, int La, int M, int C, int S,  \
-                     void* stream) {                                                  \
+                     const void* statics, const void* layout, int W, int D, int La,   \
+                     int M, int C, int S, int cluster, void* stream) {                \
     return launch_half<T>(state, act, comp, zu, pair, au, lines, vel, line_idx,       \
-                          group, chans, qst, out_acc, statics, W, D, La, M, C, S,     \
-                          stream);                                                    \
+                          group, chans, qst, out_acc, statics, layout, W, D, La, M,   \
+                          C, S, cluster, stream);                                     \
+  }                                                                                   \
+  int k2_cluster_occupancy_##SFX(int entry, int cluster, const void* layout,          \
+                                 void* out) {                                         \
+    return occupancy<T>(entry, cluster, layout, out);                                 \
   }
-K5C_HALF(f32, float)
-K5C_HALF(f64, double)
+K2_ENTRIES(f32, float)
+K2_ENTRIES(f64, double)
 
 }  // extern "C"

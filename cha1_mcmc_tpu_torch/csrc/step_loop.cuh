@@ -1,12 +1,14 @@
 // Device code shared by the port's whole-ensemble-step kernels, K1
-// (fused_step.cu) and K2 (multi_step.cu), and their sharded half-steps K5a
-// and K5c: the launch shape, the scalar overloads and explicitly rounded
-// intrinsics that make one template body serve float and double, the warp
-// reduction, Q(T), the Planck term, the stretch factor, the emcee-v3
-// half-update (half_update, templated on where the partners come from),
-// the step loop over it (run_step_loop) and the sharded half-step
-// (run_sharded_half), each templated on the warp-level device lnprob each
-// kernel supplies.
+// (fused_step.cu) and K2 (multi_step.cu, through cluster_step.cuh), and
+// their sharded half-steps K5a and K5c: the launch shape, the scalar
+// overloads and explicitly rounded intrinsics that make one template body
+// serve float and double, the warp reduction, Q(T), the Planck term, the
+// stretch factor and where a partner comes from; and K1's one-CTA
+// emcee-v3 half-update (half_update, templated on where the partners come
+// from), the step loop over it (run_step_loop) and the sharded half-step
+// (run_sharded_half), each templated on the warp-level device lnprob
+// K1 / K5a supply. K2 / K5c spread their half-update over a cluster
+// instead (cluster_step.cuh).
 //
 // Port of the parts of cha1_mcmc_tpu/sampler/fused.py that the TPU
 // kernels share: _run_step_loop (:221) and _make_q_of (:57); and of
@@ -23,7 +25,7 @@
 
 namespace {
 
-constexpr int kThreads = 512;  // one CTA per ensemble, 16 warps
+constexpr int kThreads = 512;  // 16 warps a CTA
 constexpr int kWarps = kThreads / 32;
 
 enum QKind : int32_t { kQAnalytic = 0, kQCheb = 1, kQStates = 2 };

@@ -13,7 +13,8 @@ communication. Per ensemble step, per half:
                                     lnprob, acceptance, the write-back
 
 The half-step is K5a (csrc/fused_step.cu: K1's dense-grid lnprob, one
-CTA), K5c (csrc/multi_step.cu: K2's multi-component lnprob, one CTA) or
+CTA), K5c (csrc/multi_step.cu: K2's multi-component lnprob and cluster
+half-update, one cluster of 16 or 8 CTAs) or
 K5b (csrc/gather_step.cu: K3's prepare / evaluate / accept kernels over
 the channel-major gather tables, spread over the card). The runners are
 ShardedRunner's (parallel/sharded.py): the same split, pairing,
@@ -83,10 +84,11 @@ def fused_sharded_supported(model, mesh: Mesh, nwalkers: int, ndim: int = 4) -> 
 def fused_multi_sharded_supported(model, spec, dv_max: float, mesh: Mesh,
                                   nwalkers: int) -> bool:
     """Can K5c run this mesh's half-steps? One line shard, and K2's
-    conditions (fused_multi_supported) at the rank's walker count."""
+    conditions (fused_multi_supported) at the rank's walker count, with
+    K5c's cluster plan (the state stays in device memory)."""
     w_local = _local_walkers(mesh, nwalkers)
     return w_local is not None and fused_multi.fused_multi_supported(
-        model, spec, dv_max, nwalkers=w_local)
+        model, spec, dv_max, nwalkers=w_local, resident_state=False)
 
 
 def plan_fused_gather_sharded(model, spec, mesh: Mesh, nwalkers: int, dv_max: float,
@@ -185,21 +187,19 @@ def _launch_half(state, active, comp, z_u, pair, acc_u, tables, st):
     return out_acc
 
 
-def _launch_multi_half(state, active, comp, z_u, pair, acc_u, tables, st):
+def _launch_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan):
     lib, _ = fused_multi.load_kernel_library()
     W, D, _ = _check_half("K5c", state, active, comp, z_u, pair, acc_u, st.ndim)
     dtype, dev = state.dtype, state.device
     La, M, C, S = fused_multi._check_tables(tables, dtype, dev)
-    smem = fused_multi.multi_smem_bytes(W, st.ncomp, La, dtype)
-    if smem > fused._SMEM_LIMIT:
-        raise ValueError(f"K5c: {W} walkers x {st.ncomp} components x {La} lines "
-                         f"need {smem} B of shared memory (> {fused._SMEM_LIMIT})")
+    plan = fused_multi.checked_plan("half", plan, W, st.ncomp, La, C, M, dtype, dev)
     out_acc = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k5c_half_{_SUFFIX[dtype]}")(
             *_operands(state, active, comp, z_u, pair, acc_u),
             *(t.data_ptr() for t in tables), out_acc.data_ptr(),
-            ctypes.addressof(fused_multi._pack_statics(st, dtype)), W, D, La, M, C, S,
+            ctypes.addressof(fused_multi._pack_statics(st, dtype)),
+            ctypes.addressof(plan.layout.packed), W, D, La, M, C, S, plan.cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k2_error_string, "sharded_multi_half", "K5c")
     LAUNCHES["sharded_multi_half"] += 1
@@ -242,10 +242,12 @@ def sharded_half(state, active, comp, z_u, pair, acc_u, tables, st):
     return sharded_half_plain(state, active, comp, z_u, pair, acc_u, tables, st)
 
 
-def sharded_multi_half(state, active, comp, z_u, pair, acc_u, tables, st):
-    """K5c: sharded_half over K2's tables and statics."""
+def sharded_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan=None):
+    """K5c: sharded_half over K2's tables and statics (`plan`: a cluster
+    geometry of plan_multi_cluster(resident_state=False) instead of
+    cluster_plan's)."""
     if route(state, "K5c") == "cuda":
-        return _launch_multi_half(state, active, comp, z_u, pair, acc_u, tables, st)
+        return _launch_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan)
     return sharded_multi_half_plain(state, active, comp, z_u, pair, acc_u, tables, st)
 
 

@@ -356,7 +356,7 @@ def _pack_statics(st: FusedStatics, dtype):
 def step_smem_bytes(nwalkers: int, ndim: int, n_lines: int, dtype) -> int:
     """Dynamic shared memory of one step launch (csrc/step_loop.cuh:
     step_smem_bytes) with `n_lines` values of per-warp scratch: K1's
-    (L,) opacities, K2's (K, La)."""
+    (L,) opacities."""
     h = nwalkers // 2
     item = torch.empty((), dtype=dtype).element_size()
     return (item * (nwalkers * (ndim + 1) + h * (ndim + 1) + h + _WARPS * n_lines)

@@ -13,9 +13,12 @@ last line):
      (csrc/multi_step.cu), K3 and K5b (csrc/gather_step.cu), K4a/K4b
      (csrc/opacity.cu) and T3 (csrc/construct_probe.cu) with nvcc, one
      process per source, started together; prints each build's registers
-     and spills, and K3's launch geometry at the dense size; starts the
-     world-1 mesh (make_mesh(1, 1): an NCCL group of one rank), destroyed
-     at the end;
+     and spills, K3's launch geometry at the dense size, and the cluster
+     geometry K2 and K5c take on the card at the GOTHAM size (cluster
+     size, proposals per CTA, shared bytes, staged tables or not,
+     cudaOccupancyMaxActiveClusters at 16 and 8 CTAs) with the channel
+     counts up to which the tables are staged; starts the world-1 mesh
+     (make_mesh(1, 1): an NCCL group of one rank), destroyed at the end;
   3. check   — each kernel against its plain PyTorch version on the card.
      K1 on the synthetic flagship problem (tests/port_problems.py), for
      analytic, Chebyshev and state-sum Q(T), 4- and 5-dim: the f32 lnprob
@@ -24,7 +27,13 @@ last line):
      whole-step kernel over 1024 steps (acceptance within 0.02). K2 on the
      full-size synthetic GOTHAM problem (22 multiplets, 66 lines, ~1,133
      channels) at 128 walkers, K=4 for the three Q kinds and the K=1
-     ordered family: the same three checks, the f32 run over 512 steps.
+     ordered family: the same three checks, the f32 run over 512 steps;
+     then K2 and K5c off the main path's geometry (f64 64-step chains
+     bitwise vs plain, K5c vs K2, the lnprob entry vs the in-chain lnps):
+     8 CTAs and 16 CTAs with the tables in device memory on the GOTHAM
+     case, and the geometry the card takes on a wide GOTHAM-shaped
+     problem (39 multiplets, ~2,100 channels) whose f64 tables do not fit
+     shared memory.
      K3 on the full-size dense problem (write_dense_problem: ~2,200 lines
      x ~10,900 channels) at 128 walkers, for Chebyshev and state-sum Q on
      the split tables, Chebyshev on the rectangular table and analytic Q
@@ -39,17 +48,19 @@ last line):
      acceptance over 1024 (K5c: 512) steps within 0.02. T3's probes
      against their plain version (A-F bitwise, G rtol 1e-6);
   4. time    — K1, K2 and K3 and their plain versions in us per ensemble
-     step (128 walkers, k=16) and per lnprob call of 128 thetas; K3's
+     step (128 walkers, k=16) and per lnprob call of 128 thetas; K2 at 16
+     CTAs, 8 CTAs and 16 CTAs with the tables in device memory; K3's
      lnprob with Q replaced by ones and at channel blocks of 128, 256 and
-     512; K4a / K4b per opacity evaluation of 128 walkers; the batched
+     512, with their bounds (T2); K4a / K4b per opacity evaluation of 128 walkers; the batched
      gather lnprob of 128 thetas; each K5 per half-step call against its
      plain version, and the world-1 sharded runner per ensemble step beside
      K1 / K2 / K3; T3 per launch. CUDA events after warm-up, in turns
      (plain, kernel, kernel, plain), median and quartiles;
   5. slice   — SpectralFit(...).run() at 128 walkers x 4096 steps through
      FusedEnsembleSampler (K1), MultiComponentFit(...).run() at 128
-     walkers x 4096 steps through K2 and with use_fused_step=False (the
-     general gather path), and SpectralFit(...).run() on the full-size
+     walkers x 4096 steps through K2, then a torch.profiler window over
+     1024 more steps of its sampler (the device-idle share), and with
+     use_fused_step=False (the general gather path), and SpectralFit(...).run() on the full-size
      dense problem (the sparse path auto-selected) at 128 walkers x 2048
      steps through K3 and, for 256 steps, with use_fused_step=False;
      make_sharded_sampler(n_devices=1, use_fused=True) with
@@ -96,6 +107,10 @@ TIMING_PAIRS = 5
 DEVICE = "cuda"
 DV_BOUND = 0.3            # MultiFitConfig.dv_bound
 DENSE_DV_MAX = 1.5        # the dense prior's dV upper bound
+#: A GOTHAM-shaped problem whose f64 K2 / K5c tables do not fit a CTA's
+#: shared memory (~2,100 channels; the most multiplets the synthetic
+#: catalog lets pass the reduction is 39).
+WIDE_MULTIPLETS = 39
 #: The card's peaks (NVIDIA H100 SXM data sheet, at the 700 W limit):
 #: device memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s
 #: (132 SMs x 128 lanes x 2 x 1.98 GHz), and the special-function units'
@@ -167,27 +182,31 @@ def in_box_thetas(n, ndim, bounds, gen):
 
 
 def blocks(rnd, nb):
-    """Randomness of nb * K_STEPS raw steps in the kernels' block layout:
-    (perm (nb, k*W) int32, z_u, pair int32, acc_u (nb, 2k, h))."""
+    """Randomness of nb * K_STEPS raw steps of the walkers in `rnd` in the
+    kernels' block layout: (perm (nb, k*W) int32, z_u, pair int32, acc_u
+    (nb, 2k, h))."""
     import torch
 
     perms, z_u, pair, acc_u = rnd
-    return (perms.to(torch.int32).reshape(nb, K_STEPS * W),
-            z_u.reshape(nb, 2 * K_STEPS, W // 2),
-            pair.to(torch.int32).reshape(nb, 2 * K_STEPS, W // 2),
-            acc_u.reshape(nb, 2 * K_STEPS, W // 2))
+    w = perms.shape[1]
+    return (perms.to(torch.int32).reshape(nb, K_STEPS * w),
+            z_u.reshape(nb, 2 * K_STEPS, w // 2),
+            pair.to(torch.int32).reshape(nb, 2 * K_STEPS, w // 2),
+            acc_u.reshape(nb, 2 * K_STEPS, w // 2))
 
 
 def run_blocks(step, pos0, lnp0, rnd, nb, tables, st):
     """nb blocks of K_STEPS steps through `step` (a kernel wrapper or its
-    plain version): (chain, lnps, acc) per block, concatenated."""
+    plain version) from the walkers pos0: (chain, lnps, acc) per block,
+    concatenated."""
     import torch
 
     pb, zb, prb, ab = blocks(rnd, nb)
+    w = pos0.shape[0]
     c, l, out = pos0, lnp0, []
     for b in range(nb):
         cb, lb, acc = step(c, l, pb[b], zb[b], prb[b], ab[b], tables, st)
-        c, l = cb[(K_STEPS - 1) * W:], lb[(K_STEPS - 1) * W:]
+        c, l = cb[(K_STEPS - 1) * w:], lb[(K_STEPS - 1) * w:]
         out.append((cb, lb, acc))
     return [torch.cat(t) for t in zip(*out)]
 
@@ -269,10 +288,10 @@ def check_case(label, m32, m64, spec, cfg, grid, gen, errs):
     return check_kernel(label, fns, t32, t64, th, pos0, grid.yerrs, gen, errs, 1024)
 
 
-def multi_cases(problem_dir):
+def multi_cases(problem_dir, labels=("analytic-4c", "cheb-4c", "states-4c", "analytic-1c")):
     """(label, model_f32, model_f64, spec, means, stds, perturbation, grid)
-    for K2 on the GOTHAM problem: K=4 with analytic, Chebyshev and
-    state-sum Q; the K=1 ordered family with analytic Q."""
+    for K2 on the GOTHAM problem, for each of `labels`: K=4 with analytic,
+    Chebyshev and state-sum Q; the K=1 ordered family with analytic Q."""
     import contextlib
     import io
 
@@ -303,10 +322,13 @@ def multi_cases(problem_dir):
                                        cfg.perturbation))
     out = []
     for label, ncomp, q, prior in (
-            ("analytic-4c", 4, None, k4),
-            ("cheb-4c", 4, fit_device_cheb(states, 2.7, 60.0), k4),
-            ("states-4c", 4, states, k4),
-            ("analytic-1c", 1, None, k1_family)):
+            ("analytic-4c", 4, lambda: None, k4),
+            ("cheb-4c", 4, lambda: fit_device_cheb(states, 2.7, 60.0), k4),
+            ("states-4c", 4, lambda: states, k4),
+            ("analytic-1c", 1, lambda: None, k1_family)):
+        if label not in labels:
+            continue
+        q = q()
         models = [SpectralModel.build(cat, grid.covered_trans, grid.freqs,
                                       ll=cfg.lower_limit, ul=cfg.upper_limit,
                                       dish_size=cfg.dish_size, vel_offset=0.0,
@@ -365,6 +387,182 @@ def check_multi_case(label, m32, m64, spec, means, stds, pert, grid, gen, errs):
     fns = (multi_lnprob, multi_lnprob_plain, multi_step_block, multi_steps_plain)
     return check_kernel(label, fns, t32, t64, th, multi_pos0(means, pert),
                         grid.yerrs, gen, errs, 512)
+
+
+def cluster_plans(tb, ncomp, nwalkers, cluster, stage):
+    """K2's and K5c's plans for `nwalkers` walkers on the tables `tb` at
+    `cluster` CTAs, tables staged (True), read from device memory (False)
+    or as they fit (None); (None, None) for cluster=None: cluster_plan's."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+
+    if cluster is None:
+        return None, None
+    (M, C), La = tb[1].shape, tb[0].shape[1]
+    return tuple(plan_multi_cluster(nwalkers, ncomp, La, C, M, tb[0].dtype, cluster=cluster,
+                                    resident_state=r, stage=stage) for r in (True, False))
+
+
+def check_cluster_chains(label, tb, st, pos0, seed, geometries, errs):
+    """K2 and K5c at each of `geometries` ((name, K2 plan, K5c plan),
+    None: cluster_plan's) on f64 tables, from the walkers pos0 over 64
+    steps: K2's chain and acceptances bitwise against the plain version's
+    (lnps rtol 1e-12), its lnprob entry equal to the in-chain lnps of every
+    walker that moved, and K5c's chain at world size 1 bitwise against its
+    plain version and against K2. One plain run of each serves every
+    geometry."""
+    import functools
+
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
+    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    nw, D = pos0.shape
+    lnp0 = fm.multi_lnprob_plain(pos0, tb, st)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    rnd = draw_randomness(64, nw, gen, device=DEVICE, dtype=torch.float64)
+    cp, lp, ap = (t.cpu().numpy() for t in
+                  run_blocks(fm.multi_steps_plain, pos0, lnp0, rnd, 4, tb, st))
+    c5p, l5p, a5p, _ = run_k5(sf.sharded_multi_half_plain, (tb, st), pos0, lnp0, rnd)
+    c5p, l5p, a5p = (t.cpu().numpy() for t in (c5p, l5p, a5p))
+    fin = np.isfinite(lp)
+    assert 0 < ap.sum() < 64 * nw, f"{label}: the chain should accept some proposals"
+    for name, k2_plan, k5c_plan in geometries:
+        where = f"K2 {label}, {name}"
+        before = fm.LAUNCHES["multi_steps"]
+        step = functools.partial(fm.multi_step_block, plan=k2_plan)
+        ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, 4, tb, st))
+        assert fm.LAUNCHES["multi_steps"] == before + 4, where
+        assert np.array_equal(ck, cp), f"{where}: f64 chains differ"
+        assert np.array_equal(ak, ap), f"{where}: f64 acceptances differ"
+        assert np.array_equal(np.isfinite(lk), fin), where
+        np.testing.assert_allclose(lk[fin], lp[fin], rtol=1e-12, err_msg=f"{where} f64 lnps")
+        errs[name] = max(errs.get(name, 0.0), float(np.max(np.abs(lk[fin] - lp[fin]))))
+        moved = (ck[-nw:] != pos0.cpu().numpy()).any(axis=1)
+        assert moved.any(), where
+        entry = fm.multi_lnprob(torch.as_tensor(ck[-nw:], device=DEVICE), tb, st)
+        assert np.array_equal(entry.cpu().numpy()[moved], lk[-nw:][moved]), \
+            f"{where}: the lnprob entry differs from the in-chain lnps"
+        where = f"K5c {label}, {name}"
+        before = sf.LAUNCHES["sharded_multi_half"]
+        half = functools.partial(sf.sharded_multi_half, plan=k5c_plan)
+        c5, l5, a5, _ = run_k5(half, (tb, st), pos0, lnp0, rnd)
+        assert sf.LAUNCHES["sharded_multi_half"] == before + 128, where
+        c5, l5, a5 = (t.cpu().numpy() for t in (c5, l5, a5))
+        assert np.array_equal(c5, c5p) and np.array_equal(a5, a5p), \
+            f"{where}: f64 chains differ from the plain version's"
+        f5 = np.isfinite(l5p)
+        assert np.array_equal(np.isfinite(l5), f5), where
+        np.testing.assert_allclose(l5[f5], l5p[f5], rtol=1e-12, err_msg=f"{where} f64 lnps")
+        assert np.array_equal(c5.reshape(-1, D), ck) and np.array_equal(a5, ak), \
+            f"{where}: f64 chains differ from K2's at world size 1"
+        assert np.array_equal(l5.reshape(-1), lk), f"{where}: lnps differ from K2's"
+
+
+def check_geometries(gotham_case, wide_case, errs):
+    """Phase 3: K2 and K5c off the main path's geometry, f64 64-step
+    chains at W walkers (check_cluster_chains). On the GOTHAM case: 8 CTAs
+    (the size taken where a card places no cluster of 16) and 16 CTAs with
+    the tables read from device memory. On the wide GOTHAM-shaped problem
+    (WIDE_MULTIPLETS multiplets), whose f64 tables do not fit a CTA:
+    cluster_plan's own geometry, which must read them from device memory
+    (K2, K5c and the lnprob entry)."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+
+    for case, geometries in (
+            (gotham_case, (("8 CTAs, staged", 8, True), ("16 CTAs, unstaged", 16, False))),
+            (wide_case, (("cluster_plan's", None, None),))):
+        label, m32, m64, spec, means, stds, pert, grid = case
+        _, (st, tb) = multi_tables(m32, m64, spec, means, stds, grid)
+        (M, C), La = tb[1].shape, tb[0].shape[1]
+        if case is wide_case:
+            staged = [fm.cluster_plan(e, W, spec.ncomp, La, C, M, torch.float64,
+                                      tb[0].device)[0].staged for e in ("steps", "half")]
+            staged.append(fm.smem_layout(torch.float64, spec.ncomp, La, C, M).staged)
+            assert not any(staged), f"{label}: {C} f64 channels should not be staged"
+        plans = [(name, *cluster_plans(tb, spec.ncomp, W, n, stage))
+                 for name, n, stage in geometries]
+        check_cluster_chains(label, tb, st, multi_pos0(means, pert), 5, plans, errs)
+        phase(3, "check", f"K2 and K5c {label} ({La} lines x {C} channels x {M} entries, f64, "
+              f"{W} walkers) at " + ", ".join(n for n, _, _ in plans) + ": 64-step chains "
+              "bitwise vs plain and K5c vs K2, lnprob entry = in-chain lnps")
+
+
+def staging_limits(tb, ncomp):
+    """The largest channel count whose tables K2 (and K5c) stage at W
+    walkers and 8 CTAs, per dtype, with the active lines and the entries
+    a channel in the proportion of the tables `tb`; and the most active
+    lines K2's unstaged layout holds (it has no channel limit)."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+
+    (M, C0), La0 = tb[1].shape, tb[0].shape[1]
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        def fits(C, La, stage):
+            return plan_multi_cluster(W, ncomp, La, C, M, dt, cluster=8, stage=stage).fits
+
+        lo, hi = 1, 1 << 20            # largest C with a staged plan that fits
+        while lo + 1 < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if fits(mid, max(1, mid * La0 // C0), True) else (lo, mid)
+        la_lo, la_hi = 1, 1 << 20      # most lines of an unstaged plan
+        while la_lo + 1 < la_hi:
+            mid = (la_lo + la_hi) // 2
+            la_lo, la_hi = (mid, la_hi) if fits(1 << 30, mid, False) else (la_lo, mid)
+        out[str(dt).split(".")[-1]] = (lo, la_lo)
+    return out
+
+
+def time_geometries(case, gen, device):
+    """Phase 4: K2's step at GOTHAM's size in f32 at 16 CTAs (the main
+    path's geometry), at 8 CTAs and at 16 CTAs with the tables read from
+    device memory, in turns over 16 launches of 16 steps: (name, median,
+    q1, q3 us/step) per geometry."""
+    import functools
+
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import multi_lnprob_plain, multi_step_block
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    label, m32, m64, spec, means, stds, pert, grid = case
+    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
+    pos0 = multi_pos0(means, pert, seed=1).to(torch.float32)
+    lnp0 = multi_lnprob_plain(pos0, tb, st)
+    steps = {name: functools.partial(multi_step_block, plan=cluster_plans(
+        tb, spec.ncomp, W, n, stage)[0]) for name, n, stage in (
+            ("16 CTAs, staged", 16, True), ("8 CTAs, staged", 8, True),
+            ("16 CTAs, unstaged", 16, False))}
+    nb = 16
+    rnd = draw_randomness(nb * K_STEPS, W, gen, device=DEVICE)
+    pb, zb, prb, ab = blocks(rnd, nb)
+    times = {name: [] for name in steps}
+
+    def run(fn):
+        fn(pos0, lnp0, pb[0], zb[0], prb[0], ab[0], tb, st)   # warm-up
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        c, l = pos0, lnp0
+        t0.record()
+        for b in range(nb):
+            cb, lb, _ = fn(c, l, pb[b], zb[b], prb[b], ab[b], tb, st)
+            c, l = cb[(K_STEPS - 1) * W:], lb[(K_STEPS - 1) * W:]
+        t1.record()
+        torch.cuda.synchronize()
+        return 1e3 * t0.elapsed_time(t1) / (nb * K_STEPS)
+
+    order = list(steps)
+    for _ in range(TIMING_PAIRS):   # in turns, forwards then backwards
+        for name in order + order[::-1]:
+            times[name].append(run(steps[name]))
+    out = [(name, *quartiles(ts)) for name, ts in times.items()]
+    phase(4, "time", f"K2 {label} by geometry, {W} walkers, f32, median [q1, q3] of "
+          f"{2 * TIMING_PAIRS} runs of {nb} launches: " + "; ".join(
+              f"{n} {m:.2f} [{a:.2f}, {b:.2f}] us/step" for n, m, a, b in out) + f"; {device}")
+    return out
 
 
 def time_kernel(fns, tables, st, pos0, th, gen, kernel_blocks=64, plain_blocks=4):
@@ -456,7 +654,7 @@ def time_multi(case, gen):
     th = multi_thetas(W, spec.ncomp, means, gen).to(torch.float32)
     fns = (multi_lnprob, multi_lnprob_plain, multi_step_block, multi_steps_plain)
     K, mc = spec.ncomp, st.mask_center
-    work = {"multi_steps": tuple(K_STEPS * x for x in k2_work(tb, K, pos0[:, -1], mc)),
+    work = {"multi_steps": k2_work(tb, K, pos0[:, -1], mc, evaluations=K_STEPS),
             "multi_lnprob": k2_work(tb, K, th[:, -1], mc)}
     return time_kernel(fns, tb, st, pos0, th, gen, kernel_blocks=16), work
 
@@ -777,6 +975,17 @@ def time_dense(case, gen, device):
 
     work = {"gather_steps": tuple(K_STEPS * x for x in k3_work(pos0[:, -1])),
             "gather_lnprob": k3_work(th[:, -1])}
+    # T2: K3's lnprob at its inputs with Q(T) (its series or state sum on
+    # top of the channel work) and with Q = 1 (none); the channel-block
+    # ablations do the Q(T) call's work.
+    q_sfu, q_flops = q_work(st, W, tb[-1].shape[1])
+    sfu, flops, nbytes = work["gather_lnprob"]
+    t2_bounds = {"Q(T)": bound(sfu + q_sfu, flops + q_flops, nbytes),
+                 "Q = 1": bound(sfu, flops, nbytes)}
+    phase(4, "time", "T2 bounds: Q(T) {:.4f} us ({}), Q = 1 {:.4f} us ({}); channel "
+          "blocks 128 / 256 / 512 as Q(T) (K3 lnprob of {} thetas, Q kind {!r})".format(
+              t2_bounds["Q(T)"][0] * 1e3, t2_bounds["Q(T)"][1], t2_bounds["Q = 1"][0] * 1e3,
+              t2_bounds["Q = 1"][1], W, st.q_kind))
     # K4: per in-window term one exp2; every term of an active tile pays
     # the window compare; taus, the velocities of the active tiles (K4a)
     # or the compacted lines (K4b) and the output move once.
@@ -809,17 +1018,113 @@ def k1_work(m32, dv):
             4 * (5 * L + L * C + 3 * C))
 
 
-def k2_work(tables, ncomp, dv, mask_center):
-    """The same for K2: tau per (row, component, active line), one exp2
-    per (component, in-window entry), per (row, channel) the Planck term
-    and per component the dilution and 1 - exp(-opac)."""
+def k2_work(tables, ncomp, dv, mask_center, evaluations=1):
+    """The least work of one K2 / K5c call, (special-function results,
+    flops, bytes), where each theta with the given dV is evaluated
+    `evaluations` times (K_STEPS for a k-step call, 1/2 for a half-step of
+    those walkers): per evaluation tau per (component, active line) (2 exp
+    + 4 divides, ~20 flops), one exp2 per (component, in-window entry) (~6
+    flops), per channel J(Tex) (an exp + 2 divides) and per component the
+    dilution's divide and 1 - exp(-opac) (~10 + 10 K flops); once per call
+    the proposal-independent per-channel constants (h nu / k: a divide;
+    J(Tbg): an exp + 2 divides; ln(1 / sigma^2); the beam: 2 divides; ~12
+    flops); the f32 tables once."""
     lines, vel = tables[0], tables[1]
     La, C = lines.shape[1], vel.shape[1]
     win = in_window(vel, dv, mask_center)
     rows = dv.numel()
-    return (6 * rows * ncomp * La + ncomp * win + rows * C * (3 + 2 * ncomp),
-            20 * rows * ncomp * La + 6 * ncomp * win + rows * C * (10 + 10 * ncomp),
+    per = (6 * rows * ncomp * La + ncomp * win + rows * C * (3 + 2 * ncomp),
+           20 * rows * ncomp * La + 6 * ncomp * win + rows * C * (10 + 10 * ncomp))
+    return (evaluations * per[0] + 7 * C, evaluations * per[1] + 12 * C,
             4 * (5 * La + 3 * vel.numel() + 3 * C))
+
+
+def q_work(st, rows, n_states):
+    """(special-function results, flops) of Q(T) for `rows` thetas: a
+    state sum pays an exp and a divide per state (~3 flops), a Chebyshev
+    series ~3 flops per coefficient, the analytic form ~2 flops per term
+    and, with a power term, a pow (a log and an exp)."""
+    if st.q_kind == "states":
+        return 2 * n_states * rows, 3 * n_states * rows
+    if st.q_kind == "cheb":
+        return 0, 3 * len(st.q_coeffs) * rows
+    return (2 * rows if st.q_power is not None else 0), 2 * len(st.q_coeffs) * rows
+
+def cluster_geometry(case, device):
+    """Phase 2: the cluster geometry K2 and K5c take on this card for W
+    walkers of a GOTHAM case in f32 (fused_multi.cluster_plan), with the
+    card's cudaOccupancyMaxActiveClusters answer at 16 and at 8 CTAs; and
+    the channel counts up to which the tables are staged (staging_limits)."""
+    from cha1_mcmc_tpu_torch.sampler import fused_multi
+
+    label, m32, m64, spec, means, stds, pert, grid = case
+    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
+    (M, C), La = tb[1].shape, tb[0].shape[1]
+    for entry, kname in (("steps", "K2"), ("half", "K5c")):
+        plan, active = fused_multi.cluster_plan(entry, W, spec.ncomp, La, C, M, tb[0].dtype,
+                                                tb[0].device)
+        answers = {n: fused_multi.cluster_occupancy(entry, fused_multi.plan_multi_cluster(
+            W, spec.ncomp, La, C, M, tb[0].dtype, cluster=n, resident_state=entry == "steps"),
+            tb[0].dtype, tb[0].device) for n in (16, 8)}
+        phase(2, "build", f"{kname} cluster geometry, {label}, {W} walkers, {La} lines x "
+              f"{C} channels x {M} entries, f32: one cluster of {plan.cluster} CTAs x 512 "
+              f"threads, "
+              f"{plan.proposals} proposals a half-step, at most {plan.per_cta} per CTA, "
+              f"{plan.warps_per_proposal} warps a proposal, {plan.smem_bytes} B shared "
+              f"memory a CTA, tables {'staged' if plan.staged else 'in device memory'}; "
+              f"cudaOccupancyMaxActiveClusters: 16 CTAs {answers[16]}, "
+              f"8 CTAs {answers[8]} ({device})")
+    limits = staging_limits(tb, spec.ncomp)
+    phase(2, "build", f"K2 at {W} walkers, 8 CTAs, {spec.ncomp} components, lines and "
+          f"entries in {label}'s proportion: tables staged up to " + ", ".join(
+              f"{c} channels in {dt}" for dt, (c, _) in limits.items()) + "; above, read "
+          "from device memory with no channel limit, up to " + ", ".join(
+              f"{la} active lines in {dt}" for dt, (_, la) in limits.items()))
+
+
+def device_idle(sampler, pos, nsteps, device):
+    """Phase 5: one torch.profiler window over `nsteps` steps of
+    sampler.run_mcmc from `pos` (one block, no chain file), after a
+    warm-up block: the union of the device's activity intervals (kernels,
+    copies) against the host wall time of the window, and the device time
+    by name. Returns (idle share, wall s, busy s), the idle share None
+    where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    sampler.run_mcmc(pos, K_STEPS, gen, checkpoint_every=K_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler.run_mcmc(pos, nsteps, gen, checkpoint_every=nsteps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + (b - a))
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy *= 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    idle = 1.0 - busy / wall if spans else None
+    phase(5, "slice", f"torch.profiler window, {nsteps} steps of run_mcmc: host wall "
+          f"{wall * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms, device-idle share "
+          + (f"{idle:.4f}" if idle is not None else "not measured (no device activity "
+             "in the trace)") + "; by device time: " + "; ".join(
+              f"{name[:60]} x{n} {t / 1e3:.3f} ms" for name, (n, t) in top) + f" ({device})")
+    return idle, wall, busy
+
 
 def quartiles(xs):
     """(median, 25th, 75th percentile) of a list of timings."""
@@ -969,6 +1274,7 @@ def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096):
         phase(5, "slice", "posterior medians vs injected truth: " + ", ".join(
             f"{lbl.split(' [')[0]} {m:.4g} ({t:.4g})" for lbl, m, t in
             zip(fit.spec.labels, med, GOTHAM_TRUTH)))
+        device_idle(fit.sampler, chain[:, -1, :], 1024, device)
     return launches
 
 
@@ -1070,7 +1376,9 @@ def k5_cases(flagship, gotham, dense_case):
     dense Chebyshev split-table case beside K3. `args*` are the wrappers'
     trailing (tables, statics) per dtype, `step` the whole-step kernel
     over the same args, `lnprob` the plain lnprob for the entry lnp, and
-    `work` K1/K2/K3's (special-function results, flops, bytes) per step."""
+    `work` the (special-function results, flops, bytes) of one half-step
+    call: half of K1 / K3's step, and K2's work for half the walkers plus
+    its per-call constants (k2_work)."""
     import functools
 
     import numpy as np
@@ -1094,7 +1402,8 @@ def k5_cases(flagship, gotham, dense_case):
     glabel, g32, g64, gspec, means, stds, pert, ggrid = gotham
     t2 = [tuple(x)[::-1] for x in multi_tables(g32, g64, gspec, means, stds, ggrid)]
     pos2 = multi_pos0(means, pert)
-    k2w = k2_work(t2[0][0], gspec.ncomp, pos2[:, -1].to(torch.float32), t2[0][1].mask_center)
+    k2w = k2_work(t2[0][0], gspec.ncomp, pos2[:, -1].to(torch.float32), t2[0][1].mask_center,
+                  evaluations=0.5)
 
     fns, (st3, tb3), (st3d, tb3d), geom = dense_tables(dense_case)
     pos3 = dense_pos0(dense_case)
@@ -1107,7 +1416,8 @@ def k5_cases(flagship, gotham, dense_case):
     return [
         dict(name="sharded_half", label=f"K5a flagship {label}", kernel=sf.sharded_half,
              plain=sf.sharded_half_plain, args32=t1[0], args64=t1[1],
-             step=fused_step_block, lnprob=fused_lnprob_plain, pos0=pos1, work=k1w,
+             step=fused_step_block, lnprob=fused_lnprob_plain, pos0=pos1,
+             work=tuple(x / 2 for x in k1w),
              n_f32=1024, whole="K1"),
         dict(name="sharded_multi_half", label=f"K5c GOTHAM {glabel}",
              kernel=sf.sharded_multi_half, plain=sf.sharded_multi_half_plain,
@@ -1116,7 +1426,8 @@ def k5_cases(flagship, gotham, dense_case):
         dict(name="sharded_gather_half", label=f"K5b dense {dense_case[0]}",
              kernel=g(sf.sharded_gather_half, geom=geom),
              plain=g(sf.sharded_gather_half_plain, geom=geom), args32=(tb3, st3),
-             args64=(tb3d, st3d), step=fns[2], lnprob=fns[1], pos0=pos3, work=k3w,
+             args64=(tb3d, st3d), step=fns[2], lnprob=fns[1], pos0=pos3,
+             work=tuple(x / 2 for x in k3w),
              n_f32=1024, whole="K3")]
 
 
@@ -1374,6 +1685,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         prob = write_hc5n_problem(os.path.join(tmp, "problem"))
         prob9 = write_hc9n_problem(os.path.join(tmp, "problem9"))
+        prob_w = write_hc9n_problem(os.path.join(tmp, "problem_wide"),
+                                    n_multiplets=WIDE_MULTIPLETS)
         prob_d = write_dense_problem(os.path.join(tmp, "dense"), scale="full")
         dense = dense_cases(prob_d)
         m_d = dense[0][1]
@@ -1390,6 +1703,9 @@ def main() -> int:
               f"({geom.cblock} channels per block), prepare {-(-W // 2 // 4)} CTAs, "
               f"accept 1 CTA; 3 kernels per half-step")
 
+        gotham = multi_cases(prob9)
+        cluster_geometry(gotham[0], device)
+
         all_cases = cases(prob)
         for label, m32, m64, spec, cfg, grid in all_cases:
             fracs = check_case(label, m32, m64, spec, cfg, grid, gen, errs)
@@ -1398,7 +1714,6 @@ def main() -> int:
                   f"{fracs['kernel']:.4f} vs plain {fracs['plain']:.4f}")
         phase(3, "check", f"K1 max |kernel - plain|: f32 lnprob {errs['lnprob']:.3e}, "
               f"f64 step lnps {errs['steps']:.3e} ({device})")
-        gotham = multi_cases(prob9)
         for case in gotham:
             fracs = check_multi_case(*case, gen, errs2)
             phase(3, "check", f"K2 {case[0]}: f32 lnprob ok, f64 64-step chain "
@@ -1406,6 +1721,10 @@ def main() -> int:
                   f"{fracs['kernel']:.4f} vs plain {fracs['plain']:.4f}")
         phase(3, "check", f"K2 max |kernel - plain|: f32 lnprob {errs2['lnprob']:.3e}, "
               f"f64 step lnps {errs2['steps']:.3e} ({device})")
+        errs_g = {}
+        check_geometries(gotham[0], multi_cases(prob_w, labels=("analytic-4c",))[0], errs_g)
+        phase(3, "check", "K2 max |kernel - plain| f64 step lnps by geometry: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs_g.items()) + f" ({device})")
         for case in dense:
             fracs, g = check_dense_case(case, gen, errs3)
             phase(3, "check", f"K3 {case[0]} ({g.n_blk} blocks, cb0 {g.cb0}): f32 "
@@ -1439,6 +1758,7 @@ def main() -> int:
         t2, w2 = time_multi(gotham[0], gen)
         t2 = report_times("K2", t2, f"K=4, {m9.n_lines} lines x {m9.n_channels} channels",
                           "16 launches a run", device)
+        time_geometries(gotham[0], gen, device)
         t3, t4, w3 = time_dense(dense[0], gen, device)
         t5 = {}
         for case, whole_us in zip(k5, (t1[0], t2[0], t3[0])):
@@ -1510,9 +1830,9 @@ def main() -> int:
                         "replaces": tpu, "launches": launches[kname],
                         "max_abs_err": errs4[kname.split("_")[1]],
                         "ms": t4[f"{key} kernel"][0], "plain_ms": t4[f"{key} plain"][0]})
-    for case in k5:   # per half-step call; the bound is half the whole step's
+    for case in k5:   # per half-step call
         kname = case["name"]
-        work[kname] = tuple(x / 2 for x in case["work"])
+        work[kname] = case["work"]
         entries.append({"name": kname, "route": "cuda",
                         "source": K5_SOURCE[kname], "replaces": K5_TPU[kname],
                         "launches": launches[kname], "max_abs_err": errs5[kname],

@@ -449,11 +449,23 @@ def test_k2_statics_struct_rounds_constants_once(port_k2, dtype, size):
 def test_k2_shared_memory_gate(reduced, port_k2):
     from cha1_mcmc_tpu_torch.inference import ParamSpec
     from cha1_mcmc_tpu_torch.sampler.fused_multi import (fused_multi_supported,
-                                                         multi_smem_bytes)
+                                                         plan_multi_cluster)
 
-    # GOTHAM full size: 128 walkers x 14 dims, 66 lines, f32
-    assert multi_smem_bytes(128, 4, 66, torch.float32) == (
-        4 * (128 * 15 + 64 * 15 + 64 + 16 * 4 * 66) + 4 * 65)
+    # GOTHAM full size: 128 walkers x 14 dims, 66 lines, 1,138 channels, 3
+    # entries a channel, f32, 16 CTAs: per CTA the state, the staged chans
+    # (3 rows), 4 constants a channel, the entry velocities (3, 1138) and the
+    # lines (5, 66), 4 groups' (4, 66) tau, 16 partials, 4 owned proposals
+    # and stretch factors; the entry indices and groups (2, 3, 1138), 4
+    # flags and 2 counters
+    plan = plan_multi_cluster(128, 4, 66, 1138, 3, torch.float32)
+    assert (plan.cluster, plan.per_cta, plan.warps_per_proposal) == (16, 4, 4)
+    assert plan.staged
+    assert plan.smem_bytes == (4 * (128 * 15 + 7 * 1138 + 3 * 1138 + 5 * 66 + 4 * 4 * 66
+                                    + 16 + 4 * 15 + 4) + 4 * (2 * 3 * 1138 + 4 + 2))
+    # unstaged: no table, no per-channel constant
+    unstaged = plan_multi_cluster(128, 4, 66, 1138, 3, torch.float32, stage=False)
+    assert unstaged.smem_bytes == (4 * (128 * 15 + 4 * 4 * 66 + 16 + 4 * 15 + 4)
+                                   + 4 * (4 + 2))
     model = port_model(jax_gotham_model(*reduced, "float32"), torch.float32)
     assert fused_multi_supported(model, ParamSpec(ncomp=4), DV_BOUND)
     assert fused_multi_supported(model, ParamSpec(ncomp=1), DV_BOUND)
@@ -475,6 +487,193 @@ def test_k2_shared_memory_gate(reduced, port_k2):
     shuffled = model_from_arrays(arrays, q_dict(jm.q_model), mask_center=5.8,
                                  dish_size=100.0, device="cpu")
     assert not fused_multi_supported(shuffled, ParamSpec(ncomp=4), DV_BOUND)
+
+
+@pytest.mark.parametrize("nwalkers,cluster", [(128, 16), (128, 8), (96, 16), (96, 8),
+                                              (64, 16), (32, 16), (32, 8), (8, 16),
+                                              (250, 16), (250, 8)])
+def test_k2_cluster_plan_owns_each_proposal_once(nwalkers, cluster):
+    """The ragged split of a half-update's h = W / 2 proposals over the
+    cluster's CTAs (csrc/cluster_step.cuh:owned_slice): every proposal
+    has exactly one owner, contiguous, at most per_cta = ceil(h / n) each,
+    sizes differing by at most one."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+
+    plan = plan_multi_cluster(nwalkers, 4, 66, 1138, 3, torch.float32, cluster=cluster)
+    h = nwalkers // 2
+    slices = [plan.owned(r) for r in range(cluster)]
+    assert [j for sl in slices for j in sl] == list(range(h))
+    sizes = [len(sl) for sl in slices]
+    assert max(sizes) == plan.per_cta == -(-h // cluster)
+    assert max(sizes) - min(sizes) <= 1
+    assert plan.proposals == h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster", [16, 8])
+def test_k2_cluster_plan_fits_gotham(dtype, cluster):
+    """At the GOTHAM size (128 walkers, K = 4, 66 lines x 1,138 channels x
+    3 entries) both plans fit a Hopper CTA's 232,448 bytes; K5c's leaves
+    the state in device memory, so it needs exactly the state's bytes
+    less."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+
+    item = torch.empty((), dtype=dtype).element_size()
+    k2 = plan_multi_cluster(128, 4, 66, 1138, 3, dtype, cluster=cluster)
+    k5c = plan_multi_cluster(128, 4, 66, 1138, 3, dtype, cluster=cluster,
+                             resident_state=False)
+    assert k2.fits and k5c.fits and k2.smem_bytes <= 232_448
+    assert k2.staged and k5c.staged
+    assert k2.smem_bytes - k5c.smem_bytes == item * 128 * 15
+    P = 64 // cluster
+    tables = 7 * 1138 + 3 * 1138 + 5 * 66
+    assert k5c.smem_bytes == (item * (tables + 4 * 4 * 66 + 16 + P * 15 + P)
+                              + 4 * (2 * 3 * 1138 + P + 2))
+
+
+@pytest.mark.parametrize("stage", [True, False])
+@pytest.mark.parametrize("resident", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_smem_layout_regions_tile_the_bytes(dtype, resident, stage):
+    """The layout the kernels apply (csrc/multi_step.cu:carve): regions in
+    order, each the size of what it holds, the values aligned to their
+    dtype and the int32 regions after them, ending at `bytes`; without
+    staging no region grows with the channels."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (_I_REGIONS, _T_REGIONS,
+                                                         plan_multi_cluster)
+
+    item = torch.empty((), dtype=dtype).element_size()
+    W, K, La, C, M, n = 96, 4, 66, 1138, 3, 16
+    P, D1 = -(-(W // 2) // n), 3 * K + 3
+    plan = plan_multi_cluster(W, K, La, C, M, dtype, cluster=n, resident_state=resident,
+                              stage=stage)
+    t = int(stage)
+    sizes = dict(state=item * W * D1 * resident, chans=item * 3 * C * t,
+                 cc=item * 4 * C * t, vel=item * M * C * t, lines=item * 5 * La * t,
+                 tau=item * 4 * K * La, part=item * 16, prop=item * P * D1, zz=item * P,
+                 line_idx=4 * M * C * t, group=4 * M * C * t, flag=4 * P, acc=8)
+    offsets = dict(zip(_T_REGIONS + _I_REGIONS, plan.layout.offsets))
+    at = 0
+    for name in _T_REGIONS + _I_REGIONS:
+        assert offsets[name] == at, name
+        assert at % (item if name in _T_REGIONS else 4) == 0, name
+        at += sizes[name]
+    assert plan.smem_bytes == at and plan.staged == stage
+    wider = plan_multi_cluster(W, K, La, 10 * C, M, dtype, cluster=n, resident_state=resident,
+                               stage=stage)
+    assert (wider.smem_bytes == plan.smem_bytes) == (not stage)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_gate_accepts_thousands_of_channels(reduced, dtype):
+    """A GOTHAM-shaped problem of ~6,000 channels — copies of the reduced
+    problem side by side, each copy's lines far from the other copies'
+    channels — is past what a CTA can stage, yet K2's and K5c's gates
+    accept it at 128 walkers: the plan reads the tables from device memory,
+    and that layout does not grow with the channels."""
+    import types
+
+    from cha1_mcmc_tpu_torch.inference import ParamSpec
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (fused_multi_supported,
+                                                         plan_multi_cluster, smem_layout,
+                                                         window_extents)
+
+    model = port_model(jax_gotham_model(*reduced, "float32"), dtype)
+    vg = model.vel_grid.cpu().numpy()
+    L, C = vg.shape
+    n = -(-6000 // C)
+    wide = np.full((n * L, n * C), 1e4)
+    for i in range(n):
+        wide[i * L:(i + 1) * L, i * C:(i + 1) * C] = vg
+    big = types.SimpleNamespace(vel_grid=torch.as_tensor(wide), mask_center=model.mask_center,
+                                n_channels=n * C, dtype=dtype)
+    spec = ParamSpec(ncomp=4)
+    assert fused_multi_supported(big, spec, DV_BOUND)
+    assert fused_multi_supported(big, spec, DV_BOUND, resident_state=False)
+    active, _, _, _ = window_extents(wide, model.mask_center, DV_BOUND)
+    M = int((np.abs(wide - model.mask_center) < 10 * DV_BOUND).sum(axis=0).max())
+    assert n * C >= 6000
+    assert active.size == n * window_extents(vg, model.mask_center, DV_BOUND)[0].size
+    for cluster in (16, 8):
+        plan = plan_multi_cluster(128, 4, active.size, n * C, M, dtype, cluster=cluster)
+        assert plan.fits and not plan.staged
+        assert not plan_multi_cluster(128, 4, active.size, n * C, M, dtype, cluster=cluster,
+                                      stage=True).fits
+    assert smem_layout(dtype, 4, active.size, n * C, M).fits
+
+
+def test_k2_explicit_plan_is_checked_against_the_launch():
+    """A plan handed to the K2 / K5c wrappers must have been made for the
+    launch's sizes and entry and fit a CTA; else the wrapper raises before
+    it launches anything."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import checked_plan, plan_multi_cluster
+
+    args = (64, 4, 66, 1138, 3, torch.float32, torch.device("cpu"))
+    k2 = plan_multi_cluster(64, 4, 66, 1138, 3, torch.float32, cluster=8)
+    k5c = plan_multi_cluster(64, 4, 66, 1138, 3, torch.float32, cluster=8,
+                             resident_state=False)
+    assert checked_plan("steps", k2, *args) is k2
+    assert checked_plan("half", k5c, *args) is k5c
+    with pytest.raises(ValueError, match="cannot launch"):
+        checked_plan("half", k2, *args)
+    with pytest.raises(ValueError, match="cannot launch"):
+        checked_plan("steps", k2, 96, *args[1:])
+    with pytest.raises(ValueError, match="cannot launch"):
+        checked_plan("steps", k2, 64, 4, 66, 1138, 3, torch.float64, torch.device("cpu"))
+    too_big = plan_multi_cluster(64, 4, 66, 113800, 3, torch.float32, cluster=8, stage=True)
+    with pytest.raises(ValueError, match="cannot launch"):
+        checked_plan("steps", too_big, 64, 4, 66, 113800, 3, torch.float32,
+                     torch.device("cpu"))
+
+
+@pytest.mark.parametrize("w_local", [32, 64, 128])
+def test_k2_gate_agrees_with_the_sharded_gate(reduced, w_local):
+    """fused_multi_sharded_supported is fused_multi_supported at the rank's
+    walker count with K5c's plan, for one and for two walker shards."""
+    from cha1_mcmc_tpu_torch.inference import ParamSpec
+    from cha1_mcmc_tpu_torch.parallel import Mesh
+    from cha1_mcmc_tpu_torch.parallel.sharded_fused import fused_multi_sharded_supported
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import fused_multi_supported
+
+    model = port_model(jax_gotham_model(*reduced, "float32"), torch.float32)
+    spec = ParamSpec(ncomp=4)
+    want = fused_multi_supported(model, spec, DV_BOUND, nwalkers=w_local,
+                                 resident_state=False)
+    assert want and fused_multi_supported(model, spec, DV_BOUND, nwalkers=w_local)
+    for n_w in (1, 2):
+        mesh = Mesh(shape={"chains": 1, "walkers": n_w, "lines": 1}, rank=0,
+                    coords=(0, 0, 0), device=torch.device("cpu"), walker_group=None,
+                    line_group=None, ensemble_group=None)
+        assert fused_multi_sharded_supported(model, spec, DV_BOUND, mesh,
+                                             n_w * w_local) == want
+    # above the resident state's limit K2 stops; K5c's plan still fits
+    assert not fused_multi_supported(model, spec, DV_BOUND, nwalkers=8192)
+    assert fused_multi_supported(model, spec, DV_BOUND, nwalkers=8192,
+                                 resident_state=False)
+
+
+def test_k2_work_counts_the_constants_once(port_k2):
+    """chip_smoke.k2_work on the small problem against a count by hand:
+    per evaluation tau per (component, line), one exp2 per (component,
+    in-window entry), J(Tex) and per component two per channel; the seven
+    per-channel constants once per call."""
+    import chip_smoke
+
+    lines, vel = port_k2.tables[0], port_k2.tables[1]
+    La, (M, C) = lines.shape[1], vel.shape
+    K, mc = 4, port_k2.statics.mask_center
+    dv = torch.tensor([0.002, 0.01, 0.117, 0.29], dtype=torch.float64)
+    v = vel.numpy()
+    win = sum(int(abs(v[m, c] - mc) < 10.0 * d) for d in dv.tolist()
+              for m in range(M) for c in range(C))
+    assert 0 < win < 4 * M * C     # the narrow windows leave entries out
+    per = 4 * (6 * K * La) + K * win + 4 * C * (3 + 2 * K)
+    sfu, flops, nbytes = chip_smoke.k2_work(port_k2.tables, K, dv, mc)
+    assert sfu == per + 7 * C
+    assert nbytes == 4 * (5 * La + 3 * M * C + 3 * C)
+    assert chip_smoke.k2_work(port_k2.tables, K, dv, mc, evaluations=16)[0] == 16 * per + 7 * C
+    assert chip_smoke.k2_work(port_k2.tables, K, dv, mc, evaluations=0.5)[0] == per / 2 + 7 * C
+    assert flops > sfu
 
 
 # -- the pipeline ----------------------------------------------------------------
