@@ -1,6 +1,7 @@
-// Device code of the port's cluster step kernels, K2 and its sharded
-// half-step K5c (multi_step.cu): one ensemble spread over a thread-block
-// cluster of up to 16 CTAs.
+// Device code of the port's cluster step kernels — K1 and its sharded
+// half-step K5a (fused_step.cu), K2 and its sharded half-step K5c
+// (multi_step.cu): one ensemble spread over a thread-block cluster of up
+// to 16 CTAs.
 //
 //  * CTA `rank` of n owns proposals [rank h / n, (rank + 1) h / n) of a
 //    half-update (owned_slice): a balanced, possibly ragged split in which
@@ -10,18 +11,24 @@
 //    CTA-cooperative functor lnprob(theta or nullptr, out) that every
 //    thread calls once per round and that ends on a CTA barrier;
 //  * the owning CTA decides acceptance and hands the accepted row to a
-//    commit policy: ResidentCommit (K2) writes it into every CTA's copy of
-//    the (W, D+1) state through distributed shared memory, GlobalCommit
-//    (K5c) into the rank's state in device memory;
+//    commit policy: ResidentCommit (K1, K2) writes it into every CTA's
+//    copy of the (W, D+1) state through distributed shared memory,
+//    GlobalCommit (K5a, K5c) into the rank's state in device memory;
 //  * accepted proposals are counted with integer atomics into a counter
 //    in rank 0's shared memory, so the count is exact whatever the order;
 //  * every half-update ends on cluster.sync() (release / acquire over the
 //    cluster), which orders the remote writes before the next half reads
 //    them and keeps every CTA resident while a peer still writes into it.
 //
-// The arithmetic of a proposal and of the acceptance test is
-// half_update's (step_loop.cuh), operation for operation, so chains do not
-// depend on the cluster size or on which CTA owns a proposal.
+// The arithmetic of a proposal and of the acceptance test is the plain
+// version's (sampler/stretch.py:half_step), operation for operation, so
+// chains do not depend on the cluster size or on which CTA owns a
+// proposal.
+//
+// Also here, because both kernel sources lay out and fill their shared
+// memory the same way: the layout the binding sizes (SmemLayout, applied
+// by carve) and the proposal-independent per-channel constants
+// (chan_consts).
 
 #pragma once
 
@@ -38,6 +45,78 @@ constexpr int kGroupThreads = 32 * kGroupWarps;
 constexpr int kGroups = kThreads / kGroupThreads;   // proposals per round
 constexpr int kMaxCluster = 16;                     // non-portable on Hopper
 
+constexpr int kChanConsts = 4;   // per channel: x, J(Tbg), ln(1/sigma^2), beam term
+constexpr int kChanRows = 3;     // chans: freq, y, 1/sigma^2
+constexpr int kLineRows = 5;     // lines: freq, elower, aij, gup, glow
+
+// Byte offsets of the regions of a launch's dynamic shared memory and
+// their total, from the binding (sampler/cluster.py:smem_layout): the T
+// regions first, then the int32 ones; a region a launch does not use has
+// size 0. `staged`: the tables and per-channel constants are in shared
+// memory (chans, cc, vel, lines, line_idx, group), else they are not.
+struct SmemLayout {
+  int32_t state, chans, cc, vel, lines, tau, part, prop, zz;
+  int32_t line_idx, group, flag, acc;
+  int32_t bytes, staged;
+};
+
+// The regions of a launch's dynamic shared memory, at the layout's
+// offsets: [the (W, D+1) state], [the staged tables: chans, per-channel
+// constants, entry velocities, lines], each warp group's tau and chi^2
+// partials, the cluster kernels' owned proposals and stretch factors;
+// [the entry line indices and (K2) groups], flags and counters.
+template <typename T>
+struct Carve {
+  T *state, *chans, *cc, *vel, *lines, *tau, *part, *prop, *zz;
+  int *line_idx, *group, *flag, *acc;
+};
+
+template <typename T>
+__device__ Carve<T> carve(unsigned char* smem, const SmemLayout& L) {
+  const auto t = [smem](int32_t off) { return reinterpret_cast<T*>(smem + off); };
+  const auto i = [smem](int32_t off) { return reinterpret_cast<int*>(smem + off); };
+  return {t(L.state), t(L.chans), t(L.cc),       t(L.vel),   t(L.lines), t(L.tau), t(L.part),
+          t(L.prop),  t(L.zz),    i(L.line_idx), i(L.group), i(L.flag),  i(L.acc)};
+}
+
+// threads a CTA, warp groups a CTA, warps a group, per-channel constants,
+// sizeof(SmemLayout): what sampler/cluster.py sizes the regions by,
+// checked by the binding when a library loads.
+inline void layout_geometry(int* out) {
+  out[0] = kThreads;
+  out[1] = kGroups;
+  out[2] = kGroupWarps;
+  out[3] = kChanConsts;
+  out[4] = (int)sizeof(SmemLayout);
+}
+
+// The proposal-independent constants of one channel (frequency gf in MHz,
+// isig = 1 / sigma^2): x = h nu / k, J(Tbg) (planck_J), ln(1 / sigma^2)
+// and the beam's square (beam_dilution's wl and beam, squared with one
+// rounding as the plain version squares it). `st` is any statics struct
+// with dish_size and Tbg. A staged launch computes them once into shared
+// memory, an unstaged one in the channel loop: one function, so the same
+// bits either way.
+template <typename T>
+struct ChanConsts {
+  T x, jbg, lnisig, b2;
+};
+
+template <typename T, typename S>
+__device__ __forceinline__ ChanConsts<T> chan_consts(const S& st, T gf, T isig) {
+  const T wl = T(2.998e8) / (gf * T(1e6));
+  const T beam = wl * T(206265.0) * T(1.22) / st.dish_size;
+  return {T(6.626e-34) * gf * T(1e6) / T(1.381e-23), planck_J(gf, st.Tbg), lg(isig),
+          mul_rn(beam, beam)};
+}
+
+// The beam dilution ss^2 / (beam^2 + ss^2) from the beam's square and
+// ss2 = mul_rn(ss, ss), the denominator rounded once.
+template <typename T>
+__device__ __forceinline__ T dilution(T b2, T ss2) {
+  return ss2 / add_rn(b2, ss2);
+}
+
 struct Slice {
   int first, count;
 };
@@ -48,7 +127,7 @@ __device__ __forceinline__ Slice owned_slice(int rank, int n, int h) {
   return {first, (int)((long long)(rank + 1) * h / n) - first};
 }
 
-// K2: the state lives in every CTA's shared memory. The accepted rows go
+// K1, K2: the state lives in every CTA's shared memory. The accepted rows go
 // into every copy; each walker's row of the step goes to the chain output
 // from the half-update in which it was active (each walker is active in
 // exactly one half of a step).
@@ -75,7 +154,7 @@ struct ResidentCommit {
   }
 };
 
-// K5c: the rank's state stays in device memory; only the owner of a row
+// K5a, K5c: the rank's state stays in device memory; only the owner of a row
 // reads or writes it during the half-update.
 template <typename T>
 struct GlobalCommit {

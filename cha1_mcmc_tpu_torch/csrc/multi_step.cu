@@ -46,8 +46,9 @@
 //    pays only for J(Tex), per component the dilution's divide and
 //    exp(-opac), and the in-window exp2 terms. Larger problems take the
 //    same kernel reading the tables from device memory and computing the
-//    constants in the loop (chan_consts: the same function, so the same
-//    bits); their shared memory does not grow with the channel count;
+//    constants in the loop (chan_consts, cluster_step.cuh: the same
+//    function, so the same bits); their shared memory does not grow with
+//    the channel count;
 //  * the owner of a proposal accepts it and writes the row into every
 //    CTA's copy through distributed shared memory, then cluster.sync();
 //    accepted counts are integer atomics into rank 0's shared memory;
@@ -92,8 +93,8 @@
 //   k2_error_string: the CUDA error message of a returned code.
 // The cluster size and the shared-memory layout (SmemLayout: each
 // region's offset, the total, staged or not) come from the binding
-// (fused_multi.py:plan_multi_cluster / smem_layout), the one place that
-// sizes them; the kernels only apply the offsets.
+// (fused_multi.py:plan_multi_cluster over sampler/cluster.py:smem_layout),
+// the one place that sizes them; the kernels only apply the offsets.
 
 #include "step_loop.cuh"
 #include "cluster_step.cuh"
@@ -103,20 +104,6 @@ namespace {
 constexpr int kMaxComp = 4;
 constexpr int kMaxPoly = 8;
 constexpr int kMaxCheb = 65;
-constexpr int kChanConsts = 4;   // per channel: x, J(Tbg), ln(1/sigma^2), beam^2
-constexpr int kChanRows = 3;     // chans: freq, y, 1/sigma^2
-constexpr int kLineRows = 5;     // lines: freq, elower, aij, gup, glow
-
-// Byte offsets of the regions of a launch's dynamic shared memory and
-// their total, from the binding (fused_multi.py:smem_layout): the T
-// regions first, then the int32 ones; a region a launch does not use has
-// size 0. `staged`: the tables and per-channel constants are in shared
-// memory (chans, cc, vel, lines, line_idx, group), else they are not.
-struct SmemLayout {
-  int32_t state, chans, cc, vel, lines, tau, part, prop, zz;
-  int32_t line_idx, group, flag, acc;
-  int32_t bytes, staged;
-};
 
 template <typename T>
 struct MultiStatics {
@@ -141,25 +128,6 @@ struct MultiTables {
   const T* qst;             // (2, S): state-sum g, E
   int La, M, C, S;
 };
-
-// The proposal-independent constants of one channel (frequency gf in MHz,
-// isig = 1 / sigma^2): x = h nu / k, J(Tbg) (planck_J), ln(1 / sigma^2)
-// and the beam's square (beam_dilution's wl and beam, squared with one
-// rounding as the plain version squares it). A staged launch computes
-// them once into shared memory, an unstaged one in the channel loop: one
-// function, so the same bits either way.
-template <typename T>
-struct ChanConsts {
-  T x, jbg, lnisig, b2;
-};
-
-template <typename T>
-__device__ __forceinline__ ChanConsts<T> chan_consts(const MultiStatics<T>& st, T gf, T isig) {
-  const T wl = T(2.998e8) / (gf * T(1e6));
-  const T beam = wl * T(206265.0) * T(1.22) / st.dish_size;
-  return {T(6.626e-34) * gf * T(1e6) / T(1.381e-23), planck_J(gf, st.Tbg), lg(isig),
-          mul_rn(beam, beam)};
-}
 
 // The (kChanConsts, C) constants of every channel into `cc`, by the CTA.
 template <typename T>
@@ -307,25 +275,6 @@ struct MultiGroupLnProb {
     __syncthreads();  // tau and the partials are rewritten next round
   }
 };
-
-// The regions of a launch's dynamic shared memory, at the layout's
-// offsets: [the (W, D+1) state], [the staged tables: chans, per-channel
-// constants, entry velocities, lines], each warp group's (K, La) tau and
-// chi^2 partials, the cluster kernels' owned proposals and stretch
-// factors; [the entry line indices and groups], flags and counters.
-template <typename T>
-struct Carve {
-  T *state, *chans, *cc, *vel, *lines, *tau, *part, *prop, *zz;
-  int *line_idx, *group, *flag, *acc;
-};
-
-template <typename T>
-__device__ Carve<T> carve(unsigned char* smem, const SmemLayout& L) {
-  const auto t = [smem](int32_t off) { return reinterpret_cast<T*>(smem + off); };
-  const auto i = [smem](int32_t off) { return reinterpret_cast<int*>(smem + off); };
-  return {t(L.state), t(L.chans), t(L.cc),       t(L.vel),   t(L.lines), t(L.tau), t(L.part),
-          t(L.prop),  t(L.zz),    i(L.line_idx), i(L.group), i(L.flag),  i(L.acc)};
-}
 
 // kStaged: copy the tables into the CTA's shared memory and compute the
 // per-channel constants there, and return the tables as the lnprob reads
@@ -525,15 +474,8 @@ int k2_statics_size_f32() { return (int)sizeof(MultiStatics<float>); }
 int k2_statics_size_f64() { return (int)sizeof(MultiStatics<double>); }
 const char* k2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// threads a CTA, warp groups a CTA, warps a group, per-channel constants,
-// sizeof(SmemLayout): what fused_multi.py:smem_layout sizes the regions by.
-void k2_geometry(int* out) {
-  out[0] = kThreads;
-  out[1] = kGroups;
-  out[2] = kGroupWarps;
-  out[3] = kChanConsts;
-  out[4] = (int)sizeof(SmemLayout);
-}
+// What sampler/cluster.py:smem_layout sizes the regions by (layout_geometry).
+void k2_geometry(int* out) { layout_geometry(out); }
 
 #define K2_ENTRIES(SFX, T)                                                            \
   int k2_fused_steps_##SFX(const void* coords, const void* lnp0, const void* perm,    \

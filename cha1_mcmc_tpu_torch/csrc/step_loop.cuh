@@ -1,18 +1,24 @@
-// Device code shared by the port's whole-ensemble-step kernels, K1
-// (fused_step.cu) and K2 (multi_step.cu, through cluster_step.cuh), and
-// their sharded half-steps K5a and K5c: the launch shape, the scalar
-// overloads and explicitly rounded intrinsics that make one template body
-// serve float and double, the warp reduction, Q(T), the Planck term, the
-// stretch factor and where a partner comes from; and K1's one-CTA
-// emcee-v3 half-update (half_update, templated on where the partners come
-// from), the step loop over it (run_step_loop) and the sharded half-step
-// (run_sharded_half), each templated on the warp-level device lnprob
-// K1 / K5a supply. K2 / K5c spread their half-update over a cluster
-// instead (cluster_step.cuh).
+// Device code shared by the port's CUDA kernels: the launch shape, the
+// scalar overloads and explicitly rounded intrinsics that make one
+// template body serve float and double, the warp reduction, Q(T), the
+// Planck term, the stick opacity, the beam dilution, the stretch factor
+// and where a half-update's partner comes from. The whole-ensemble step
+// kernels (K1 and K5a in fused_step.cu, K2 and K5c in multi_step.cu) build
+// their half-updates on these in cluster_step.cuh; K3 and K5b
+// (gather_step.cu) and K4 (opacity.cu) use the scalar pieces.
 //
 // Port of the parts of cha1_mcmc_tpu/sampler/fused.py that the TPU
-// kernels share: _run_step_loop (:221) and _make_q_of (:57); and of
-// cha1_mcmc_tpu/parallel/sharded_fused.py:_half_update (:91).
+// kernels share: _make_q_of (:57) and the stretch move of _run_step_loop
+// (:221).
+//
+// What bounds these pieces on this card is the latency they add to the
+// calling kernel's serial chain (a lane's channel walk: dependent exp,
+// exp2, log and IEEE divides), not memory or issue rate. So each is a
+// __forceinline__ device function on values in registers, with no table
+// of its own, and the half-update is spread over a cluster
+// (cluster_step.cuh) to shorten that chain. No fast-math: the explicitly
+// rounded intrinsics keep f64 chains bitwise equal to the plain versions,
+// and -inf survives the acceptance test.
 //
 // Every name here is in an anonymous namespace: each .cu file including
 // this header builds into its own shared library.
@@ -161,115 +167,5 @@ struct GatheredComplement {
   int D;
   __device__ const T* operator()(int32_t p) const { return comp + (size_t)p * D; }
 };
-
-// One half-update of the resident ensemble (the CTA): the h walkers `act`
-// of `state` (W, D+1) against the partners comp(pair[j]), around any
-// warp-level lnprob(theta, warp, lane). Shared scratch: `prop` (h, D+1),
-// `zz` (h,), `flag` (h,); `acc_count` gains the accepted proposals. Ends
-// on a barrier, so the next half reads this one's writes.
-template <typename T, typename Comp, typename LnProb>
-__device__ void half_update(T* state, int D, int h, const int32_t* act,
-                            const Comp& comp, const T* zu, const int32_t* pair,
-                            const T* au, T a, T* prop, T* zz, int* flag,
-                            int* acc_count, const LnProb& lnprob) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int D1 = D + 1;
-  // Phase 1: proposals Y = c + z (s - c) from indexed gathers.
-  for (int j = tid; j < h; j += kThreads) {
-    const T* s = state + act[j] * D1;
-    const T* c = comp(pair[j]);
-    const T z = stretch_z(zu[j], a);
-    zz[j] = z;
-    for (int d = 0; d < D; ++d)
-      prop[j * D1 + d] = fma_rn(z, sub_rn(s[d], c[d]), c[d]);
-  }
-  __syncthreads();
-  // Phase 2: one warp per proposal; lane 0 decides acceptance.
-  for (int j = warp; j < h; j += kWarps) {
-    const T lnp_new = lnprob(prop + j * D1, warp, lane);
-    if (lane == 0) {
-      const T lnp_s = state[act[j] * D1 + D];
-      const T diff = sub_rn(add_rn(mul_rn(T(D - 1), lg(zz[j])), lnp_new), lnp_s);
-      const bool accept = lg(au[j]) < diff;
-      prop[j * D1 + D] = lnp_new;
-      flag[j] = accept;
-      if (accept) atomicAdd(acc_count, 1);
-    }
-  }
-  __syncthreads();
-  // Phase 3: write accepted proposals back (a select, not a delta).
-  for (int j = tid; j < h; j += kThreads) {
-    if (flag[j]) {
-      T* dst = state + act[j] * D1;
-      for (int d = 0; d < D1; ++d) dst[d] = prop[j * D1 + d];
-    }
-  }
-  __syncthreads();
-}
-
-// k whole ensemble steps of one ensemble (the CTA), around any warp-level
-// lnprob(theta, warp, lane). Shared state: `state` (W, D+1),
-// `prop` (h, D+1), `zz` (h,), `flag` (h,), `acc_count`.
-template <typename T, typename LnProb>
-__device__ void run_step_loop(const T* coords, const T* lnp0,
-                              const int32_t* perm, const T* zu,
-                              const int32_t* pair, const T* au,
-                              T* out_chain, T* out_lnps, float* out_acc,
-                              int W, int D, int k, T a, T* state, T* prop,
-                              T* zz, int* flag, int* acc_count,
-                              const LnProb& lnprob) {
-  const int tid = threadIdx.x;
-  const int h = W / 2, D1 = D + 1;
-  for (int i = tid; i < W * D; i += kThreads) state[(i / D) * D1 + i % D] = coords[i];
-  for (int w = tid; w < W; w += kThreads) state[w * D1 + D] = lnp0[w];
-  __syncthreads();
-
-  for (int step = 0; step < k; ++step) {
-    const int32_t* pm = perm + (size_t)step * W;
-    if (tid == 0) *acc_count = 0;
-    for (int half = 0; half < 2; ++half) {
-      const int r = 2 * step + half;
-      const StateComplement<T> comp{state, pm + (1 - half) * h, D1};
-      half_update<T>(state, D, h, pm + half * h, comp, zu + r * h, pair + r * h,
-                     au + r * h, a, prop, zz, flag, acc_count, lnprob);
-    }
-    T* oc = out_chain + (size_t)step * W * D;
-    for (int i = tid; i < W * D; i += kThreads) oc[i] = state[(i / D) * D1 + i % D];
-    for (int w = tid; w < W; w += kThreads) out_lnps[(size_t)step * W + w] = state[w * D1 + D];
-    if (tid == 0) out_acc[step] = (float)(*acc_count);
-    __syncthreads();
-  }
-}
-
-// Size of the step kernels' shared memory: the state, the proposals, the
-// stretch factors, `scratch` values of per-warp scratch and the flags.
-template <typename T>
-size_t step_smem_bytes(int W, int D, size_t scratch) {
-  const int h = W / 2;
-  return sizeof(T) * ((size_t)W * (D + 1) + (size_t)h * (D + 1) + h + scratch)
-         + sizeof(int) * (h + 1);
-}
-
-// One sharded half-step (K5a, K5c) of a rank's W local walkers: load the
-// (W, D+1) state from device memory into shared memory, half_update the h
-// walkers `act` against the gathered complement `comp` (n, D), store the
-// state back and write the accepted count to out_acc[0]. Shared memory as
-// in the step kernels (step_smem_bytes).
-template <typename T, typename LnProb>
-__device__ void run_sharded_half(T* state_g, const int32_t* act, const T* comp,
-                                 const T* zu, const int32_t* pair, const T* au,
-                                 float* out_acc, int W, int D, T a, T* state,
-                                 T* prop, T* zz, int* flag, int* acc_count,
-                                 const LnProb& lnprob) {
-  const int tid = threadIdx.x, n = W * (D + 1);
-  for (int i = tid; i < n; i += kThreads) state[i] = state_g[i];
-  if (tid == 0) *acc_count = 0;
-  __syncthreads();
-  const GatheredComplement<T> c{comp, D};
-  half_update<T>(state, D, W / 2, act, c, zu, pair, au, a, prop, zz, flag,
-                 acc_count, lnprob);
-  for (int i = tid; i < n; i += kThreads) state_g[i] = state[i];
-  if (tid == 0) out_acc[0] = (float)(*acc_count);
-}
 
 }  // namespace

@@ -12,9 +12,9 @@ communication. Per ensemble step, per half:
   one half-step launch            -- proposals against comp[pair], the
                                     lnprob, acceptance, the write-back
 
-The half-step is K5a (csrc/fused_step.cu: K1's dense-grid lnprob, one
-CTA), K5c (csrc/multi_step.cu: K2's multi-component lnprob and cluster
-half-update, one cluster of 16 or 8 CTAs) or
+The half-step is K5a (csrc/fused_step.cu: K1's lnprob over its entry
+tables), K5c (csrc/multi_step.cu: K2's multi-component lnprob), each K1's
+or K2's cluster half-update on one cluster of 16 or 8 CTAs, or
 K5b (csrc/gather_step.cu: K3's prepare / evaluate / accept kernels over
 the channel-major gather tables, spread over the card). The runners are
 ShardedRunner's (parallel/sharded.py): the same split, pairing,
@@ -73,12 +73,12 @@ def _local_walkers(mesh: Mesh, nwalkers: int) -> int | None:
 
 
 def fused_sharded_supported(model, mesh: Mesh, nwalkers: int, ndim: int = 4) -> bool:
-    """Can K5a run this mesh's half-steps? One line shard, and the rank's
-    W_l walkers' K1 working set within a CTA's shared memory (the JAX
-    version tests VMEM)."""
+    """Can K5a run this mesh's half-steps? One line shard, and K1's gate
+    (fused_fits) at the rank's walker count with K5a's cluster plan (the
+    state stays in device memory; the JAX version tests VMEM)."""
     w_local = _local_walkers(mesh, nwalkers)
     return w_local is not None and fused.fused_fits(w_local, ndim, model.n_lines,
-                                                    model.dtype)
+                                                    model.dtype, resident_state=False)
 
 
 def fused_multi_sharded_supported(model, spec, dv_max: float, mesh: Mesh,
@@ -161,26 +161,20 @@ def _operands(state, active, comp, z_u, pair, acc_u):
     return tuple(t.data_ptr() for t in (state, active, comp, z_u, pair, acc_u))
 
 
-def _launch_half(state, active, comp, z_u, pair, acc_u, tables, st):
+def _launch_half(state, active, comp, z_u, pair, acc_u, tables, st, plan):
     lib, _ = fused.load_kernel_library()
     W, D, _ = _check_half("K5a", state, active, comp, z_u, pair, acc_u,
                           len(st.bounds_lo))
     dtype, dev = state.dtype, state.device
-    lines, vel, chans, qst = tables
-    L, C = vel.shape
-    check_tensor(lines, "lines", dtype, (5, L), dev, "K5a")
-    check_tensor(vel, "vel", dtype, (L, C), dev, "K5a")
-    check_tensor(chans, "chans", dtype, (3, C), dev, "K5a")
-    check_tensor(qst, "qst", dtype, (2, qst.shape[1]), dev, "K5a")
-    if not fused.fused_fits(W, D, L, dtype):
-        raise ValueError(f"K5a: {W} walkers x {L} lines need "
-                         f"{fused.step_smem_bytes(W, D, L, dtype)} B of shared memory")
+    tb, (La, M, C, S) = fused.kernel_tables(tables, dtype, dev, "K5a")
+    plan = fused.checked_plan("half", plan, W, D, La, C, M, dtype, dev)
     out_acc = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k5a_half_{_SUFFIX[dtype]}")(
             *_operands(state, active, comp, z_u, pair, acc_u),
-            *(t.data_ptr() for t in tables), out_acc.data_ptr(),
-            ctypes.addressof(fused._pack_statics(st, dtype)), W, D, L, C, qst.shape[1],
+            *(t.data_ptr() for t in tb), out_acc.data_ptr(),
+            ctypes.addressof(fused._pack_statics(st, dtype)),
+            ctypes.addressof(plan.layout.packed), W, D, La, M, C, S, plan.cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k1_error_string, "sharded_half", "K5a")
     LAUNCHES["sharded_half"] += 1
@@ -232,13 +226,14 @@ def _launch_gather_half(state, active, comp, z_u, pair, acc_u, tables, st, geom)
     return scratch[-1].to(torch.float32)
 
 
-def sharded_half(state, active, comp, z_u, pair, acc_u, tables, st):
+def sharded_half(state, active, comp, z_u, pair, acc_u, tables, st, plan=None):
     """K5a: one half-step of the (W_l, D+1) state in place (operands as in
     half_update_plain; K1's tables and statics). One kernel launch for
-    CUDA tensors, the plain version for CPU tensors. Returns the accepted
-    count, (1,) float32."""
+    CUDA tensors — with fused.cluster_plan's geometry, or `plan`, one of
+    plan_fused_cluster(resident_state=False) — the plain version for CPU
+    tensors. Returns the accepted count, (1,) float32."""
     if route(state, "K5a") == "cuda":
-        return _launch_half(state, active, comp, z_u, pair, acc_u, tables, st)
+        return _launch_half(state, active, comp, z_u, pair, acc_u, tables, st, plan)
     return sharded_half_plain(state, active, comp, z_u, pair, acc_u, tables, st)
 
 

@@ -154,7 +154,8 @@ class SpectralFit:
 
     def _use_fused(self, model: SpectralModel) -> bool:
         """The K1 selection rule (JAX fit.py:319-339): CUDA, one
-        component, float32, and a working set that fits a CTA."""
+        component, float32, and K1's cluster plan at 8 CTAs within a CTA's
+        shared memory (fused_fits: no channel limit)."""
         cfg = self.config
         return (cfg.use_fused_step and self.device.type == "cuda"
                 and self.spec.ncomp == 1 and self.dtype == torch.float32

@@ -6,7 +6,12 @@ single-component ensemble — both sequential half-updates of every step,
 each with its walker gathers, the LTE forward model, the priors and the
 acceptance write-back — so a fit at the flagship size (128 walkers, ~9
 lines x 561 channels) pays one launch per k steps instead of hundreds of
-small ones per step.
+small ones per step. The ensemble is spread over one thread-block cluster
+(csrc/cluster_step.cuh: 16 CTAs, or 8 where the card cannot place 16, four
+warps a proposal); `plan_fused_cluster` is its geometry. The kernel walks,
+per channel, only the lines whose window at the prior's dV bound can
+reach it (the channel-major entry tables of models/sparse_opacity.py:
+build_opacity_gather), in line order.
 
 Beside the kernel, `fused_lnprob_plain` / `fused_steps_plain` compute the
 same function with torch ops, in the same formulation (exp2 Gaussians,
@@ -30,7 +35,11 @@ import torch
 
 from cha1_mcmc_tpu_torch.catalogs.partition import QModel
 from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
+from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
+from cha1_mcmc_tpu_torch.sampler import cluster
+from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, ClusterPlan, SmemLayout,
+                                                 itemsize, make_plan)
 from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_randomness,
                                                  half_step)
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
@@ -38,13 +47,17 @@ from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
            "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
            "FusedEnsemble", "make_fused_ensemble", "FusedEnsembleSampler",
-           "fused_fits", "step_smem_bytes", "load_kernel_library", "LAUNCHES"]
+           "fused_fits", "smem_layout", "plan_fused_cluster", "cluster_occupancy",
+           "cluster_plan", "checked_plan", "kernel_tables", "load_kernel_library",
+           "LAUNCHES"]
 
-# Limits of the kernel's Statics struct and launch (csrc/fused_step.cu).
+# Limits of the kernel's Statics struct (csrc/single_statics.cuh).
 _MAX_DIM, _MAX_POLY, _MAX_CHEB = 5, 8, 65
-_WARPS = 16                      # 512 threads per CTA
-_SMEM_LIMIT = 232_448            # dynamic shared memory a Hopper CTA can use
 _AA = -0.5 * 1.4426950408889634  # -log2(e) / 2: exp(-x^2/2s^2) = exp2(AA x^2/s^2)
+#: The entry tables are built at the prior's dV bound widened by this
+#: relative margin, so no rounding of the kernel's 10 dV window can reach
+#: a line the tables leave out.
+DV_MARGIN = 1e-4
 
 #: Kernel launches per K1 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
@@ -121,13 +134,20 @@ def q_statics(model):
 
 
 def single_statics_tables(model, spec, grid_ints, grid_yerrs, bounds,
-                          prior_means, prior_stds, *, a: float = 2.0):
+                          prior_means, prior_stds, *, a: float = 2.0,
+                          entries: bool = True):
     """(FusedStatics, tables) for the single-component K1 lnprob. Tables
     are tensors on the model's device and dtype: lines (5, L) = freq,
-    elower, aij, gup, glow; vel (L, C); chans (3, C) = freq, y,
-    1/sigma^2; qst (2, S) = state-sum g, E (a dummy (2, 8) for the other
-    Q kinds). Prior sigmas carry the overrides sigma_vlsr = 0.8 mean_dV,
-    sigma_dV = 0.3 mean_dV (reference inference.py:200-201)."""
+    elower, aij, gup, glow and vel (L, C), the dense tables the plain
+    version reads; with `entries`, the kernel's channel-major entry tables
+    of build_opacity_gather at the prior's dV bound widened by DV_MARGIN:
+    the lines (5, La) of the La active lines (those a window reaches),
+    entry velocities (M, C) (1e30 on padding) and active-line indices (M,
+    C) int32, in ascending line order per channel; then chans (3, C) =
+    freq, y, 1/sigma^2 and qst (2, S) = state-sum g, E (a dummy (2, 8)
+    for the other Q kinds). So: (lines, vel, [lines_a, vel_e, line_idx,]
+    chans, qst). Prior sigmas carry the overrides sigma_vlsr = 0.8
+    mean_dV, sigma_dV = 0.3 mean_dV (reference inference.py:200-201)."""
     if spec.ncomp != 1:
         raise ValueError("K1 supports single-component layouts only")
     free_ss = spec.fixed_source_size is None
@@ -153,7 +173,13 @@ def single_statics_tables(model, spec, grid_ints, grid_yerrs, bounds,
         bounds_hi=tuple(float(bounds[k][1]) for k in names),
         prior_mean=tuple(float(m) for m in means),
         prior_std=tuple(float(s) for s in stds), a=float(a))
-    return statics, (lines, vel, chans, qst)
+    if not entries:
+        return statics, (lines, vel, chans, qst)
+    line_idx, vel_e, active = build_opacity_gather(
+        vel.cpu().numpy(), statics.mask_center, statics.bounds_hi[-1] * (1.0 + DV_MARGIN))
+    lines_a = lines[:, torch.as_tensor(active, dtype=torch.long, device=dev)].contiguous()
+    return statics, (lines, vel, lines_a, torch.as_tensor(vel_e, dtype=dt, device=dev),
+                     torch.as_tensor(line_idx, dtype=torch.int32, device=dev), chans, qst)
 
 
 # -- plain PyTorch version ---------------------------------------------------
@@ -162,8 +188,8 @@ def fused_lnprob_plain(theta, tables, st: FusedStatics):
     """K1's lnprob with torch ops, (N, D) -> (N,): box + Gaussian priors
     (flat Ncol) + chi^2 of the windowed-exp2 LTE model (the JAX package's
     _make_dense_lnprob), summing the lines in line order as the kernel
-    does."""
-    lines, vel, chans, qst = tables
+    does. Reads the dense tables (single_statics_tables)."""
+    (lines, vel), (chans, qst) = tables[:2], tables[-2:]
     lf, le, la, lgu, lgl = lines
     gf, y, isig = chans
     dt, dev = theta.dtype, theta.device
@@ -308,8 +334,10 @@ def load_kernel_library():
     library, nvcc build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
-        _library = bind_kernel_library("fused_step.cu", "k1", (14, 6), (7, 5),
-                                       _STATICS, "k5a_half", (12, 5))
+        lib, log = bind_kernel_library("fused_step.cu", "k1", (16, 8), (9, 6), _STATICS,
+                                       "k5a_half", (14, 7))
+        cluster.bind_cluster_entries(lib, "k1", "fused_step.cu")
+        _library = lib, log
     return _library
 
 
@@ -353,19 +381,87 @@ def _pack_statics(st: FusedStatics, dtype):
     return s
 
 
-def step_smem_bytes(nwalkers: int, ndim: int, n_lines: int, dtype) -> int:
-    """Dynamic shared memory of one step launch (csrc/step_loop.cuh:
-    step_smem_bytes) with `n_lines` values of per-warp scratch: K1's
-    (L,) opacities."""
-    h = nwalkers // 2
-    item = torch.empty((), dtype=dtype).element_size()
-    return (item * (nwalkers * (ndim + 1) + h * (ndim + 1) + h + _WARPS * n_lines)
-            + 4 * (h + 1))
+def smem_layout(dtype, n_lines: int, n_channels: int, n_entries: int, *,
+                state_rows: int = 0, ndim: int = 0, per_cta: int = 0,
+                stage: bool | None = None) -> SmemLayout:
+    """The shared memory of a K1 / K5a / lnprob launch over La = n_lines
+    active lines, C = n_channels and M = n_entries table entries a channel
+    (cluster.smem_layout for one component, no hfs group table): [the
+    (state_rows, D+1) state,] [the staged tables and per-channel
+    constants,] each warp group's (La,) tau and chi^2 partials, the owned
+    proposals and their stretch factors, [the entry line indices,] flags
+    and counters. `stage` None stages the tables where that fits a CTA."""
+    return cluster.smem_layout(dtype, 1, n_lines, n_channels, n_entries,
+                               state_rows=state_rows, ndim=ndim, per_cta=per_cta,
+                               stage=stage, group_table=False)
 
 
-def fused_fits(nwalkers: int, ndim: int, n_lines: int, dtype) -> bool:
-    """Does one ensemble's K1 working set fit a CTA's shared memory?"""
-    return step_smem_bytes(nwalkers, ndim, n_lines, dtype) <= _SMEM_LIMIT
+def plan_fused_cluster(nwalkers: int, ndim: int, n_lines: int, n_channels: int,
+                       n_entries: int, dtype, cluster: int = 16, resident_state: bool = True,
+                       stage: bool | None = None) -> ClusterPlan:
+    """The cluster geometry of a K1 step launch (`resident_state`: each CTA
+    holds the (W, D+1) state) or a K5a half-step launch (the state stays in
+    device memory), for La = n_lines active lines, C = n_channels and M =
+    n_entries table entries a channel: P = ceil(h / cluster) proposals a
+    CTA at most, and its smem_layout — the tables staged where that fits
+    (`stage` None), so the channel count sets only how fast it runs."""
+    shape = (nwalkers, ndim, n_lines, n_channels, n_entries, itemsize(dtype),
+             resident_state)
+    return make_plan(nwalkers, cluster, lambda per_cta: smem_layout(
+        dtype, n_lines, n_channels, n_entries, state_rows=nwalkers if resident_state else 0,
+        ndim=ndim, per_cta=per_cta, stage=stage), shape)
+
+
+def fused_fits(nwalkers: int, ndim: int, n_lines: int, dtype, *,
+               resident_state: bool = True) -> bool:
+    """Does K1 (K5a with resident_state False) take `nwalkers` walkers of
+    `ndim` dims over at most `n_lines` active lines? Its cluster plan at
+    the portable size of 8 CTAs — the larger share per CTA — within a
+    Hopper CTA's 232,448 bytes of shared memory. The tables are staged
+    where they fit and read from device memory otherwise, a layout that
+    grows with the walkers and the lines but not with the channels, so the
+    answer is that unstaged layout's."""
+    return plan_fused_cluster(nwalkers, ndim, n_lines, 1, 1, dtype, cluster=min(CLUSTER_SIZES),
+                              resident_state=resident_state, stage=False).fits
+
+
+def cluster_occupancy(entry: str, plan: ClusterPlan, dtype, device) -> int:
+    """How many clusters of `plan` the card holds at once for the K1
+    ("steps") or K5a ("half") kernel (cudaOccupancyMaxActiveClusters; 0:
+    the card cannot place a cluster of that size)."""
+    lib, _ = load_kernel_library()
+    return cluster.occupancy(getattr(lib, f"k1_cluster_occupancy_{_SUFFIX[dtype]}"),
+                             lib.k1_error_string, f"K1 {entry}", int(entry != "steps"),
+                             plan, device)
+
+
+@functools.lru_cache(maxsize=64)
+def cluster_plan(entry: str, nwalkers: int, ndim: int, n_lines: int, n_channels: int,
+                 n_entries: int, dtype, device: torch.device) -> tuple[ClusterPlan, int]:
+    """The geometry a K1 ("steps") or K5a ("half") launch takes on this card
+    (cluster.cluster_plan: the largest cluster size that fits shared
+    memory and that the card can place), with cudaOccupancyMaxActiveClusters
+    for it. Raises where no size can run."""
+    return cluster.cluster_plan(
+        f"K1 {entry}: {nwalkers} walkers x {ndim} dims x {n_lines} lines x {n_channels} "
+        f"channels x {n_entries} entries",
+        lambda n: plan_fused_cluster(nwalkers, ndim, n_lines, n_channels, n_entries, dtype,
+                                     cluster=n, resident_state=entry == "steps"),
+        lambda plan: cluster_occupancy(entry, plan, dtype, device))
+
+
+def checked_plan(entry: str, plan: ClusterPlan | None, nwalkers: int, ndim: int,
+                 n_lines: int, n_channels: int, n_entries: int, dtype, device) -> ClusterPlan:
+    """The plan a K1 ("steps") or K5a ("half") launch runs: cluster_plan's,
+    or the caller's `plan` (a geometry chosen with plan_fused_cluster, as
+    the card tests choose 8 CTAs or unstaged tables) after checking it was
+    made for these sizes and fits a CTA."""
+    shape = (nwalkers, ndim, n_lines, n_channels, n_entries, itemsize(dtype),
+             entry == "steps")
+    return cluster.checked_plan(
+        f"K{'1' if entry == 'steps' else '5a'} {entry}", plan, shape,
+        lambda: cluster_plan(entry, nwalkers, ndim, n_lines, n_channels, n_entries, dtype,
+                             device)[0])
 
 
 def check_tensor(t, name, dtype, shape, device, kernel: str = "K1"):
@@ -378,14 +474,21 @@ def check_tensor(t, name, dtype, shape, device, kernel: str = "K1"):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def _check_tables(tables, dtype, device):
-    lines, vel, chans, qst = tables
-    L, C = vel.shape
-    check_tensor(lines, "lines", dtype, (5, L), device)
-    check_tensor(vel, "vel", dtype, (L, C), device)
-    check_tensor(chans, "chans", dtype, (3, C), device)
-    check_tensor(qst, "qst", dtype, (2, qst.shape[1]), device)
-    return L, C, qst.shape[1]
+def kernel_tables(tables, dtype, device, kernel: str = "K1"):
+    """The tables K1 / K5a read — (lines (5, La), vel (M, C), line_idx (M,
+    C), chans (3, C), qst (2, S)), the entries of single_statics_tables —
+    after checking them, and (La, M, C, S)."""
+    if len(tables) != 7:
+        raise ValueError(f"{kernel} needs single_statics_tables' entry tables "
+                         "(entries=True)")
+    lines, vel, line_idx, chans, qst = tables[2:]
+    (M, C), La = vel.shape, lines.shape[1]
+    check_tensor(lines, "lines", dtype, (5, La), device, kernel)
+    check_tensor(vel, "vel", dtype, (M, C), device, kernel)
+    check_tensor(line_idx, "line_idx", torch.int32, (M, C), device, kernel)
+    check_tensor(chans, "chans", dtype, (3, C), device, kernel)
+    check_tensor(qst, "qst", dtype, (2, qst.shape[1]), device, kernel)
+    return tables[2:], (La, M, C, qst.shape[1])
 
 
 def raise_on(err: int, error_string, entry: str, kernel: str = "K1"):
@@ -396,7 +499,7 @@ def raise_on(err: int, error_string, entry: str, kernel: str = "K1"):
                            f"({error_string(err).decode()})")
 
 
-def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st):
+def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
     lib, _ = load_kernel_library()
     dtype, dev = coords.dtype, coords.device
     if dtype not in _SUFFIX:
@@ -412,28 +515,25 @@ def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st):
     check_tensor(z_u, "z_u", dtype, (2 * k, h), dev)
     check_tensor(pair, "pair", torch.int32, (2 * k, h), dev)
     check_tensor(acc_u, "acc_u", dtype, (2 * k, h), dev)
-    L, C, S = _check_tables(tables, dtype, dev)
-    if not fused_fits(W, D, L, dtype):
-        raise ValueError(f"K1: {W} walkers x {L} lines need "
-                         f"{step_smem_bytes(W, D, L, dtype)} B of shared memory")
+    tb, (La, M, C, S) = kernel_tables(tables, dtype, dev)
+    plan = checked_plan("steps", plan, W, D, La, C, M, dtype, dev)
+    packed = _pack_statics(st, dtype)
     out_chain = torch.empty((k * W, D), dtype=dtype, device=dev)
     out_lnps = torch.empty(k * W, dtype=dtype, device=dev)
     out_acc = torch.empty(k, dtype=torch.float32, device=dev)
-    packed = _pack_statics(st, dtype)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k1_fused_steps_{_SUFFIX[dtype]}")(
             coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
-            pair.data_ptr(), acc_u.data_ptr(),
-            *(t.data_ptr() for t in tables),
+            pair.data_ptr(), acc_u.data_ptr(), *(t.data_ptr() for t in tb),
             out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
-            ctypes.addressof(packed), W, D, L, C, S, k,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ctypes.addressof(packed), ctypes.addressof(plan.layout.packed),
+            W, D, La, M, C, S, k, plan.cluster, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k1_error_string, "fused_steps")
     LAUNCHES["fused_steps"] += 1
     return out_chain, out_lnps, out_acc
 
 
-def _launch_lnprob(theta, tables, st):
+def _launch_lnprob(theta, tables, st, plan):
     lib, _ = load_kernel_library()
     dtype, dev = theta.dtype, theta.device
     if dtype not in _SUFFIX:
@@ -442,13 +542,17 @@ def _launch_lnprob(theta, tables, st):
     if D != len(st.bounds_lo):
         raise ValueError(f"K1: {D}-dim thetas for a {len(st.bounds_lo)}-dim problem")
     check_tensor(theta, "theta", dtype, (N, D), dev)
-    L, C, S = _check_tables(tables, dtype, dev)
+    tb, (La, M, C, S) = kernel_tables(tables, dtype, dev)
+    layout = smem_layout(dtype, La, C, M, stage=None if plan is None else plan.staged)
+    if not layout.fits:
+        raise ValueError(f"K1 lnprob: {La} lines need {layout.bytes} B of shared memory "
+                         f"(> {cluster.SMEM_LIMIT})")
     out = torch.empty(N, dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k1_lnprob_{_SUFFIX[dtype]}")(
-            theta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
-            ctypes.addressof(_pack_statics(st, dtype)), N, D, L, C, S,
-            torch.cuda.current_stream(dev).cuda_stream)
+            theta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tb),
+            ctypes.addressof(_pack_statics(st, dtype)), ctypes.addressof(layout.packed),
+            N, D, La, M, C, S, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k1_error_string, "fused_lnprob")
     LAUNCHES["fused_lnprob"] += 1
     return out
@@ -465,20 +569,22 @@ def route(t, kernel: str = "K1") -> str:
                      f"version), not on {t.device}")
 
 
-def fused_lnprob(theta, tables, st: FusedStatics):
-    """K1's lnprob, (N, D) -> (N,): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+def fused_lnprob(theta, tables, st: FusedStatics, plan: ClusterPlan | None = None):
+    """K1's lnprob, (N, D) -> (N,): the CUDA kernel for CUDA tensors — its
+    tables staged where they fit, or as `plan` stages them — the plain
+    version for CPU tensors."""
     if route(theta) == "cuda":
-        return _launch_lnprob(theta, tables, st)
+        return _launch_lnprob(theta, tables, st, plan)
     return fused_lnprob_plain(theta, tables, st)
 
 
 def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
-                     st: FusedStatics):
+                     st: FusedStatics, plan: ClusterPlan | None = None):
     """k whole steps (see fused_steps_plain for the layout): one CUDA
-    kernel launch for CUDA tensors, the plain version for CPU tensors."""
+    kernel launch for CUDA tensors — with cluster_plan's geometry, or
+    `plan` — the plain version for CPU tensors."""
     if route(coords) == "cuda":
-        return _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st)
+        return _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan)
     return fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
 
 

@@ -197,7 +197,8 @@ def gather_statics_tables(model, spec, grid_ints, grid_yerrs, bounds, prior_mean
     the tables' heavy-first channel order, qst (2, S) = state-sum g, E (a
     dummy (2, 8) for the other Q kinds)."""
     statics, (_, _, chans, qst) = single_statics_tables(
-        model, spec, grid_ints, grid_yerrs, bounds, prior_means, prior_stds, a=a)
+        model, spec, grid_ints, grid_yerrs, bounds, prior_means, prior_stds, a=a,
+        entries=False)
     tb = plan["tables"]
     dev, dt = model.device, model.dtype
     if tb["perm"] is not None:

@@ -42,36 +42,21 @@ from cha1_mcmc_tpu_torch.catalogs.partition import QModel
 from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
 from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
+from cha1_mcmc_tpu_torch.sampler import cluster
+from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, SMEM_LIMIT, ClusterPlan,
+                                                 SmemLayout, itemsize, make_plan)
 from cha1_mcmc_tpu_torch.sampler.fused import (
-    _AA, _MAX_CHEB, _MAX_POLY, _SMEM_LIMIT, _SUFFIX, FusedEnsemble,
+    _AA, _MAX_CHEB, _MAX_POLY, _SUFFIX, FusedEnsemble,
     bind_kernel_library, check_tensor, gauss_norm, pack_q, q_statics, raise_on,
     route, statics_q_model, steps_plain)
 
 __all__ = ["window_extents", "fused_multi_supported", "MultiStatics",
            "multi_statics_tables", "multi_lnprob_plain", "multi_steps_plain",
            "multi_lnprob", "multi_step_block", "MultiFusedEnsemble",
-           "make_fused_ensemble_multi", "SmemLayout", "smem_layout", "ClusterPlan",
-           "plan_multi_cluster", "cluster_occupancy", "cluster_plan", "checked_plan",
+           "make_fused_ensemble_multi", "smem_layout", "plan_multi_cluster", "cluster_occupancy", "cluster_plan", "checked_plan",
            "load_kernel_library", "LAUNCHES"]
 
 _MAX_COMP = 4   # kMaxComp of the kernel's MultiStatics (csrc/multi_step.cu)
-# What the shared-memory layout is sized by (csrc/multi_step.cu:k2_geometry,
-# checked when the library loads): threads a CTA, warp groups a CTA (the
-# proposals of one round), warps a proposal and per-channel constants; the
-# rows of the chans (3, C) and lines (5, La) tables; and the cluster sizes
-# the wrapper tries, largest first (above 8 is non-portable).
-_THREADS, _GROUPS, _GROUP_WARPS, _CHAN_CONSTS = 512, 4, 4, 4
-_CHAN_ROWS, _LINE_ROWS = 3, 5
-_CLUSTER_SIZES = (16, 8)
-# The regions of a launch's dynamic shared memory (csrc/multi_step.cu:
-# SmemLayout), values of the walkers' dtype first, then int32.
-_T_REGIONS = ("state", "chans", "cc", "vel", "lines", "tau", "part", "prop", "zz")
-_I_REGIONS = ("line_idx", "group", "flag", "acc")
-
-
-class _SmemLayoutC(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_int32) for n in _T_REGIONS + _I_REGIONS + ("bytes", "staged")]
-
 
 #: Kernel launches per K2 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
@@ -105,99 +90,17 @@ def window_extents(vel_grid: np.ndarray, mask_center: float, dv_max: float):
     return active, first, last, C
 
 
-@dataclasses.dataclass(frozen=True)
-class SmemLayout:
-    """The dynamic shared memory of one K2 / K5c / lnprob launch: the byte
-    offset of each region (_T_REGIONS, then _I_REGIONS; size 0 where the
-    launch has none), the total, and whether the tables are staged (copied
-    into shared memory with the per-channel constants) or read from device
-    memory. The kernels apply these offsets (csrc/multi_step.cu:carve);
-    nothing else sizes the regions."""
-
-    offsets: tuple
-    bytes: int
-    staged: bool
-
-    @property
-    def fits(self) -> bool:
-        """Within a Hopper CTA's 232,448 bytes of shared memory?"""
-        return self.bytes <= _SMEM_LIMIT
-
-    @functools.cached_property
-    def packed(self) -> _SmemLayoutC:
-        return _SmemLayoutC(*self.offsets, self.bytes, int(self.staged))
-
-
-def _itemsize(dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
-
-
-@functools.lru_cache(maxsize=256)
 def smem_layout(dtype, ncomp: int, n_lines: int, n_channels: int, n_entries: int, *,
                 state_rows: int = 0, ndim: int = 0, per_cta: int = 0,
                 stage: bool | None = None) -> SmemLayout:
-    """The shared memory of a launch over La = n_lines active lines, C =
-    n_channels and M = n_entries table entries a channel: [the (state_rows,
-    D+1) state,] [the staged tables: chans (3, C), the per-channel
-    constants (4, C), the entry velocities (M, C), lines (5, La),] each
-    warp group's (K, La) tau and chi^2 partials, the owned proposals
-    (per_cta, D+1) and their stretch factors; [the entry line indices and
-    groups (2, M, C),] per_cta flags and two counters. `stage` None stages
-    the tables where the staged layout fits a CTA, else not."""
-    if stage is None:
-        staged = smem_layout(dtype, ncomp, n_lines, n_channels, n_entries,
-                             state_rows=state_rows, ndim=ndim, per_cta=per_cta, stage=True)
-        return staged if staged.fits else smem_layout(
-            dtype, ncomp, n_lines, n_channels, n_entries, state_rows=state_rows, ndim=ndim,
-            per_cta=per_cta, stage=False)
-    C, MC, D1 = n_channels, n_entries * n_channels, ndim + 1
-    tables = int(stage)
-    values = dict(state=state_rows * D1, chans=tables * _CHAN_ROWS * C,
-                  cc=tables * _CHAN_CONSTS * C, vel=tables * MC,
-                  lines=tables * _LINE_ROWS * n_lines, tau=_GROUPS * ncomp * n_lines,
-                  part=_GROUPS * _GROUP_WARPS, prop=per_cta * D1, zz=per_cta)
-    ints = dict(line_idx=tables * MC, group=tables * MC, flag=per_cta, acc=2)
-    offsets, at = [], 0
-    for names, sizes, item in ((_T_REGIONS, values, _itemsize(dtype)),
-                               (_I_REGIONS, ints, 4)):
-        for name in names:
-            offsets.append(at)
-            at += item * sizes[name]
-    return SmemLayout(tuple(offsets), at, bool(stage))
-
-
-@dataclasses.dataclass(frozen=True)
-class ClusterPlan:
-    """The geometry of one K2 / K5c cluster launch: `cluster` CTAs, each
-    owning a slice of the `proposals` (h = W / 2) of every half-update —
-    at most `per_cta` — evaluated by `warps_per_proposal` warps each, with
-    the shared memory `layout`. `shape` is what the plan was made for
-    (walkers, components, lines, channels, entries, itemsize, whether the
-    state is resident), checked by the wrapper that launches it."""
-
-    cluster: int
-    proposals: int
-    per_cta: int
-    warps_per_proposal: int
-    layout: SmemLayout
-    shape: tuple
-
-    def owned(self, rank: int) -> range:
-        """The proposals CTA `rank` owns (csrc/cluster_step.cuh:owned_slice)."""
-        h, n = self.proposals, self.cluster
-        return range(rank * h // n, (rank + 1) * h // n)
-
-    @property
-    def smem_bytes(self) -> int:
-        return self.layout.bytes
-
-    @property
-    def staged(self) -> bool:
-        return self.layout.staged
-
-    @property
-    def fits(self) -> bool:
-        return self.layout.fits
+    """The shared memory of a K2 / K5c / lnprob launch (cluster.smem_layout
+    with the entries' hfs group table): [the (state_rows, D+1) state,]
+    [the staged tables,] each warp group's (K, La) tau and chi^2 partials,
+    the owned proposals and their stretch factors, [the entry line indices
+    and groups,] flags and counters. `stage` None stages the tables where
+    the staged layout fits a CTA, else not."""
+    return cluster.smem_layout(dtype, ncomp, n_lines, n_channels, n_entries,
+                               state_rows=state_rows, ndim=ndim, per_cta=per_cta, stage=stage)
 
 
 def plan_multi_cluster(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
@@ -209,14 +112,13 @@ def plan_multi_cluster(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
     n_entries table entries a channel: P = ceil(h / cluster) proposals a
     CTA at most, and its smem_layout — the tables staged where that fits
     (`stage` None), so the channel count sets only how fast it runs."""
-    h, D = nwalkers // 2, 3 * ncomp + 2
-    per_cta = -(-h // cluster)
-    layout = smem_layout(dtype, ncomp, n_lines, n_channels, n_entries,
-                         state_rows=nwalkers if resident_state else 0, ndim=D,
-                         per_cta=per_cta, stage=stage)
-    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, _itemsize(dtype),
+    D = 3 * ncomp + 2
+    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype),
              resident_state)
-    return ClusterPlan(cluster, h, per_cta, _GROUP_WARPS, layout, shape)
+    return make_plan(nwalkers, cluster, lambda per_cta: smem_layout(
+        dtype, ncomp, n_lines, n_channels, n_entries,
+        state_rows=nwalkers if resident_state else 0, ndim=D, per_cta=per_cta,
+        stage=stage), shape)
 
 
 def fused_multi_supported(model, spec, dv_max: float, nwalkers: int = 128, *,
@@ -240,7 +142,7 @@ def fused_multi_supported(model, spec, dv_max: float, nwalkers: int = 128, *,
     inside = np.abs(vg - model.mask_center) < VELOCITY_WINDOW_DV * dv_max
     n_entries = max(int(inside.sum(axis=0).max()), 1)
     return plan_multi_cluster(nwalkers, spec.ncomp, active.size, model.n_channels,
-                              n_entries, model.dtype, cluster=min(_CLUSTER_SIZES),
+                              n_entries, model.dtype, cluster=min(CLUSTER_SIZES),
                               resident_state=resident_state).fits
 
 
@@ -449,19 +351,7 @@ def load_kernel_library():
     if _library is None:
         lib, log = bind_kernel_library("multi_step.cu", "k2", (17, 8), (10, 6),
                                        _STATICS, "k5c_half", (15, 7))
-        for sfx in _SUFFIX.values():
-            fn = getattr(lib, f"k2_cluster_occupancy_{sfx}")
-            fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
-            fn.restype = ctypes.c_int
-        geometry = (ctypes.c_int * 5)()
-        lib.k2_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-        lib.k2_geometry.restype = None
-        lib.k2_geometry(geometry)
-        want = (_THREADS, _GROUPS, _GROUP_WARPS, _CHAN_CONSTS, ctypes.sizeof(_SmemLayoutC))
-        if tuple(geometry) != want:
-            raise RuntimeError(f"multi_step.cu: (threads, groups, warps a group, channel "
-                               f"constants, sizeof(SmemLayout)) are {tuple(geometry)} in "
-                               f"the library but {want} in the binding")
+        cluster.bind_cluster_entries(lib, "k2", "multi_step.cu")
         _library = lib, log
     return _library
 
@@ -471,37 +361,24 @@ def cluster_occupancy(entry: str, plan: ClusterPlan, dtype, device) -> int:
     ("steps") or K5c ("half") kernel (cudaOccupancyMaxActiveClusters; 0:
     the card cannot place a cluster of that size)."""
     lib, _ = load_kernel_library()
-    active = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = getattr(lib, f"k2_cluster_occupancy_{_SUFFIX[dtype]}")(
-            0 if entry == "steps" else 1, plan.cluster,
-            ctypes.addressof(plan.layout.packed), ctypes.byref(active))
-    raise_on(err, lib.k2_error_string, "cluster occupancy", "K2")
-    return active.value
+    return cluster.occupancy(getattr(lib, f"k2_cluster_occupancy_{_SUFFIX[dtype]}"),
+                             lib.k2_error_string, f"K2 {entry}", int(entry != "steps"),
+                             plan, device)
 
 
 @functools.lru_cache(maxsize=64)
 def cluster_plan(entry: str, nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
                  n_entries: int, dtype, device: torch.device) -> tuple[ClusterPlan, int]:
     """The geometry a K2 ("steps") or K5c ("half") launch takes on this
-    card: the plan of the largest cluster size that fits shared memory and
-    that the card can place (cluster_occupancy > 0), with that count.
-    Raises where no size can run."""
-    tried = []
-    for n in _CLUSTER_SIZES:
-        plan = plan_multi_cluster(nwalkers, ncomp, n_lines, n_channels, n_entries, dtype,
-                                  cluster=n, resident_state=entry == "steps")
-        if not plan.fits:
-            tried.append(f"{n} CTAs need {plan.smem_bytes} B of shared memory each")
-            continue
-        active = cluster_occupancy(entry, plan, dtype, device)
-        if active > 0:
-            return plan, active
-        tried.append(f"the card places no cluster of {n} CTAs")
-    raise ValueError(f"K2 {entry}: no cluster geometry runs {nwalkers} walkers x {ncomp} "
-                     f"components x {n_lines} lines x {n_channels} channels x "
-                     f"{n_entries} entries "
-                     f"({'; '.join(tried)})")
+    card (cluster.cluster_plan: the largest cluster size that fits shared
+    memory and that the card can place), with cudaOccupancyMaxActiveClusters
+    for it. Raises where no size can run."""
+    return cluster.cluster_plan(
+        f"K2 {entry}: {nwalkers} walkers x {ncomp} components x {n_lines} lines x "
+        f"{n_channels} channels x {n_entries} entries",
+        lambda n: plan_multi_cluster(nwalkers, ncomp, n_lines, n_channels, n_entries, dtype,
+                                     cluster=n, resident_state=entry == "steps"),
+        lambda plan: cluster_occupancy(entry, plan, dtype, device))
 
 
 def checked_plan(entry: str, plan: ClusterPlan | None, nwalkers: int, ncomp: int,
@@ -510,15 +387,10 @@ def checked_plan(entry: str, plan: ClusterPlan | None, nwalkers: int, ncomp: int
     or the caller's `plan` (a geometry chosen with plan_multi_cluster, as
     the card tests choose 8 CTAs or unstaged tables) after checking it was
     made for these sizes and fits a CTA."""
-    if plan is None:
-        return cluster_plan(entry, nwalkers, ncomp, n_lines, n_channels, n_entries, dtype,
-                            device)[0]
-    want = (nwalkers, ncomp, n_lines, n_channels, n_entries, _itemsize(dtype),
-            entry == "steps")
-    if plan.shape != want or not plan.fits:
-        raise ValueError(f"K2 {entry}: a plan for {plan.shape} ({plan.smem_bytes} B a "
-                         f"CTA) cannot launch {want}")
-    return plan
+    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype),
+             entry == "steps")
+    return cluster.checked_plan(f"K2 {entry}", plan, shape, lambda: cluster_plan(
+        entry, nwalkers, ncomp, n_lines, n_channels, n_entries, dtype, device)[0])
 
 
 @functools.lru_cache(maxsize=16)
@@ -610,7 +482,7 @@ def _launch_lnprob(theta, tables, st):
     layout = smem_layout(dtype, st.ncomp, La, C, M)
     if not layout.fits:
         raise ValueError(f"K2 lnprob: {st.ncomp} components x {La} lines need "
-                         f"{layout.bytes} B of shared memory (> {_SMEM_LIMIT})")
+                         f"{layout.bytes} B of shared memory (> {SMEM_LIMIT})")
     packed = _pack_statics(st, dtype)
     out = torch.empty(N, dtype=dtype, device=dev)
     with torch.cuda.device(dev):

@@ -13,27 +13,31 @@ last line):
      (csrc/multi_step.cu), K3 and K5b (csrc/gather_step.cu), K4a/K4b
      (csrc/opacity.cu) and T3 (csrc/construct_probe.cu) with nvcc, one
      process per source, started together; prints each build's registers
-     and spills, K3's launch geometry at the dense size, and the cluster
-     geometry K2 and K5c take on the card at the GOTHAM size (cluster
-     size, proposals per CTA, shared bytes, staged tables or not,
-     cudaOccupancyMaxActiveClusters at 16 and 8 CTAs) with the channel
-     counts up to which the tables are staged; starts the world-1 mesh
-     (make_mesh(1, 1): an NCCL group of one rank), destroyed at the end;
+     and spills, K3's launch geometry at the dense size, K1's entry tables
+     at the flagship size (lines in reach, the most and the mean entries a
+     channel), and the cluster geometry K1 / K5a (flagship) and K2 / K5c
+     (GOTHAM) take on the card (cluster size, proposals per CTA, shared
+     bytes, staged tables or not, cudaOccupancyMaxActiveClusters at 16 and
+     8 CTAs) with the channel counts up to which K2 stages its tables;
+     starts the world-1 mesh (make_mesh(1, 1): an NCCL group of one
+     rank), destroyed at the end;
   3. check   — each kernel against its plain PyTorch version on the card.
      K1 on the synthetic flagship problem (tests/port_problems.py), for
-     analytic, Chebyshev and state-sum Q(T), 4- and 5-dim: the f32 lnprob
-     entry on 512 thetas (rtol 2e-5), the f64 whole-step kernel over 64
-     steps (chain and acceptances bitwise, lnps rtol 1e-12) and the f32
-     whole-step kernel over 1024 steps (acceptance within 0.02). K2 on the
-     full-size synthetic GOTHAM problem (22 multiplets, 66 lines, ~1,133
-     channels) at 128 walkers, K=4 for the three Q kinds and the K=1
-     ordered family: the same three checks, the f32 run over 512 steps;
-     then K2 and K5c off the main path's geometry (f64 64-step chains
-     bitwise vs plain, K5c vs K2, the lnprob entry vs the in-chain lnps):
-     8 CTAs and 16 CTAs with the tables in device memory on the GOTHAM
-     case, and the geometry the card takes on a wide GOTHAM-shaped
-     problem (39 multiplets, ~2,100 channels) whose f64 tables do not fit
-     shared memory.
+     analytic, Chebyshev and state-sum Q(T), 4- and 5-dim, at the main
+     path's geometry: the f32 lnprob entry on 512 thetas (rtol 2e-5), the
+     f64 whole-step kernel over 64 steps (chain and acceptances bitwise,
+     lnps rtol 1e-12) and the f32 whole-step kernel over 1024 steps
+     (acceptance within 0.02). K2 on the full-size synthetic GOTHAM
+     problem (22 multiplets, 66 lines, ~1,133 channels) at 128 walkers,
+     K=4 for the three Q kinds and the K=1 ordered family: the same three
+     checks, the f32 run over 512 steps. Then the cluster kernels off the
+     main path's geometry (f64 64-step chains bitwise vs plain, K5a vs K1
+     and K5c vs K2, the lnprob entry vs the in-chain lnps): 8 CTAs and 16
+     CTAs with the tables in device memory, K1 / K5a on the flagship's
+     analytic 4-dim case and K2 / K5c on the GOTHAM case, and the geometry
+     the card takes for K2 on a wide GOTHAM-shaped problem (39
+     multiplets, ~2,100 channels) whose f64 tables do not fit shared
+     memory.
      K3 on the full-size dense problem (write_dense_problem: ~2,200 lines
      x ~10,900 channels) at 128 walkers, for Chebyshev and state-sum Q on
      the split tables, Chebyshev on the rectangular table and analytic Q
@@ -48,21 +52,27 @@ last line):
      acceptance over 1024 (K5c: 512) steps within 0.02. T3's probes
      against their plain version (A-F bitwise, G rtol 1e-6);
   4. time    — K1, K2 and K3 and their plain versions in us per ensemble
-     step (128 walkers, k=16) and per lnprob call of 128 thetas; K2 at 16
-     CTAs, 8 CTAs and 16 CTAs with the tables in device memory; K3's
-     lnprob with Q replaced by ones and at channel blocks of 128, 256 and
-     512, with their bounds (T2); K4a / K4b per opacity evaluation of 128 walkers; the batched
-     gather lnprob of 128 thetas; each K5 per half-step call against its
-     plain version, and the world-1 sharded runner per ensemble step beside
-     K1 / K2 / K3; T3 per launch. CUDA events after warm-up, in turns
-     (plain, kernel, kernel, plain), median and quartiles;
+     step (128 walkers, k=16) and per lnprob call of 128 thetas; K1 and
+     K2 at 16 CTAs, 8 CTAs and 16 CTAs with the tables in device memory;
+     K3's lnprob with Q replaced by ones and at channel blocks of 128,
+     256 and 512, with their bounds (T2); K4a / K4b per opacity
+     evaluation of 128 walkers; the batched gather lnprob of 128 thetas;
+     each K5 per half-step call against its plain version, and the
+     world-1 sharded runner per ensemble step beside K1 / K2 / K3; T3 per
+     launch. CUDA events after warm-up, in turns (plain, kernel, kernel,
+     plain), median and quartiles;
   5. slice   — SpectralFit(...).run() at 128 walkers x 4096 steps through
      FusedEnsembleSampler (K1), MultiComponentFit(...).run() at 128
-     walkers x 4096 steps through K2, then a torch.profiler window over
+     walkers x 4096 steps through K2, each followed by the time of its
+     checkpoint path (the device-to-host copies, the chain
+     concatenations, np.save of the cumulative chain and the .state.npz
+     sidecars, repeated on the fit's own arrays) beside the fit's wall
+     time less its kernel time, then for K2 a torch.profiler window over
      1024 more steps of its sampler (the device-idle share), and with
-     use_fused_step=False (the general gather path), and SpectralFit(...).run() on the full-size
-     dense problem (the sparse path auto-selected) at 128 walkers x 2048
-     steps through K3 and, for 256 steps, with use_fused_step=False;
+     use_fused_step=False (the general gather path), and
+     SpectralFit(...).run() on the full-size dense problem (the sparse
+     path auto-selected) at 128 walkers x 2048 steps through K3 and, for
+     256 steps, with use_fused_step=False;
      make_sharded_sampler(n_devices=1, use_fused=True) with
      ShardedEnsembleSampler.run_mcmc and a chain file at 128 walkers x 2048
      steps through K5a (flagship), K5c (GOTHAM) and K5b (dense); and T3's
@@ -267,25 +277,17 @@ def check_kernel(label, fns, t32, t64, th, pos0, yerrs, gen, errs, n_f32_steps):
 
 
 def check_case(label, m32, m64, spec, cfg, grid, gen, errs):
-    """K1's checks on one flagship case (see check_kernel)."""
-    import numpy as np
+    """K1's checks on one flagship case (see check_kernel), at the main
+    path's geometry."""
     import torch
     from cha1_mcmc_tpu_torch.sampler.fused import (fused_lnprob, fused_lnprob_plain,
-                                                   fused_step_block,
-                                                   fused_steps_plain,
-                                                   single_statics_tables)
+                                                   fused_step_block, fused_steps_plain)
 
-    ndim = spec.ndim
-    t32, t64 = (single_statics_tables(m, spec, grid.ints, grid.yerrs, cfg.bounds,
-                                      cfg.template_means, cfg.template_stds)
-                for m in (m32, m64))
-    th = in_box_thetas(512, ndim, cfg.bounds, gen).to(torch.float32)
-    center = np.array(([52.0] if ndim == 5 else []) + [3.24e12, 7.5, 4.11, 0.78])
-    rng = np.random.default_rng(0)
-    pos0 = torch.as_tensor(center * (1 + 0.01 * rng.standard_normal((W, ndim))),
-                           dtype=torch.float64, device=DEVICE)
+    t32, t64 = flagship_tables((label, m32, m64, spec, cfg, grid))
+    th = in_box_thetas(512, spec.ndim, cfg.bounds, gen).to(torch.float32)
     fns = (fused_lnprob, fused_lnprob_plain, fused_step_block, fused_steps_plain)
-    return check_kernel(label, fns, t32, t64, th, pos0, grid.yerrs, gen, errs, 1024)
+    return check_kernel(label, fns, t32, t64, th, flagship_pos0(spec.ndim), grid.yerrs, gen,
+                        errs, 1024)
 
 
 def multi_cases(problem_dir, labels=("analytic-4c", "cheb-4c", "states-4c", "analytic-1c")):
@@ -389,67 +391,114 @@ def check_multi_case(label, m32, m64, spec, means, stds, pert, grid, gen, errs):
                         grid.yerrs, gen, errs, 512)
 
 
-def cluster_plans(tb, ncomp, nwalkers, cluster, stage):
-    """K2's and K5c's plans for `nwalkers` walkers on the tables `tb` at
-    `cluster` CTAs, tables staged (True), read from device memory (False)
-    or as they fit (None); (None, None) for cluster=None: cluster_plan's."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+def cluster_family(kind):
+    """What the cluster checks and timings drive for a cluster step kernel
+    and its sharded half-step: "K1" (with K5a, sampler/fused.py) or "K2"
+    (with K5c, sampler/fused_multi.py). `sizes(tb)` is (La, M, C) of its
+    tables, `plan(tb, st, nwalkers, cluster, stage, resident)` a plan of
+    its planner, `lnprob(theta, tb, st, plan)` its lnprob entry (K1's with
+    the plan's staging), `size_arg(st)` the planners' second argument
+    (K1: the dims, K2: the components)."""
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
+    from cha1_mcmc_tpu_torch.sampler import fused, fused_multi as fm
 
+    if kind == "K1":
+        def sizes(tb):
+            return (tb[2].shape[1], *tb[3].shape)
+
+        def plan(tb, st, nwalkers, cluster, stage, resident):
+            La, M, C = sizes(tb)
+            return fused.plan_fused_cluster(nwalkers, len(st.bounds_lo), La, C, M,
+                                            tb[0].dtype, cluster=cluster,
+                                            resident_state=resident, stage=stage)
+
+        return dict(half="K5a", module=fused, steps_key="fused_steps",
+                    half_key="sharded_half", sizes=sizes, plan=plan,
+                    lnprob_plain=fused.fused_lnprob_plain,
+                    steps_plain=fused.fused_steps_plain, step=fused.fused_step_block,
+                    half_fn=sf.sharded_half, half_plain=sf.sharded_half_plain,
+                    lnprob=lambda th, tb, st, p: fused.fused_lnprob(th, tb, st, plan=p),
+                    size_arg=lambda st: len(st.bounds_lo))
+
+    def sizes(tb):
+        return (tb[0].shape[1], *tb[1].shape)
+
+    def plan(tb, st, nwalkers, cluster, stage, resident):
+        La, M, C = sizes(tb)
+        return fm.plan_multi_cluster(nwalkers, st.ncomp, La, C, M, tb[0].dtype,
+                                     cluster=cluster, resident_state=resident, stage=stage)
+
+    return dict(half="K5c", module=fm, steps_key="multi_steps", half_key="sharded_multi_half",
+                sizes=sizes, plan=plan, lnprob_plain=fm.multi_lnprob_plain,
+                steps_plain=fm.multi_steps_plain, step=fm.multi_step_block,
+                half_fn=sf.sharded_multi_half, half_plain=sf.sharded_multi_half_plain,
+                lnprob=lambda th, tb, st, p: fm.multi_lnprob(th, tb, st),
+                size_arg=lambda st: st.ncomp)
+
+
+def cluster_plans(kind, tb, st, nwalkers, cluster, stage):
+    """The step kernel's and the half-step's plans of `kind` (K1 / K2) for
+    `nwalkers` walkers on the tables `tb` at `cluster` CTAs, tables staged
+    (True), read from device memory (False) or as they fit (None); (None,
+    None) for cluster=None: cluster_plan's."""
     if cluster is None:
         return None, None
-    (M, C), La = tb[1].shape, tb[0].shape[1]
-    return tuple(plan_multi_cluster(nwalkers, ncomp, La, C, M, tb[0].dtype, cluster=cluster,
-                                    resident_state=r, stage=stage) for r in (True, False))
+    fam = cluster_family(kind)
+    return tuple(fam["plan"](tb, st, nwalkers, cluster, stage, r) for r in (True, False))
 
 
-def check_cluster_chains(label, tb, st, pos0, seed, geometries, errs):
-    """K2 and K5c at each of `geometries` ((name, K2 plan, K5c plan),
+def check_cluster_chains(kind, label, tb, st, pos0, seed, geometries, errs):
+    """A cluster step kernel (K1 or K2, `kind`) and its sharded half-step
+    (K5a / K5c) at each of `geometries` ((name, step plan, half plan),
     None: cluster_plan's) on f64 tables, from the walkers pos0 over 64
-    steps: K2's chain and acceptances bitwise against the plain version's
-    (lnps rtol 1e-12), its lnprob entry equal to the in-chain lnps of every
-    walker that moved, and K5c's chain at world size 1 bitwise against its
-    plain version and against K2. One plain run of each serves every
-    geometry."""
+    steps: the step kernel's chain and acceptances bitwise against the
+    plain version's (lnps rtol 1e-12), its lnprob entry (K1's at the
+    plan's staging) equal to the in-chain lnps of every walker that moved,
+    and the half-step's chain at world size 1 bitwise against its plain
+    version and against the step kernel. One plain run of each serves
+    every geometry."""
     import functools
 
     import numpy as np
     import torch
     from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
-    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
+    fam = cluster_family(kind)
+    counts = fam["module"].LAUNCHES
     nw, D = pos0.shape
-    lnp0 = fm.multi_lnprob_plain(pos0, tb, st)
+    lnp0 = fam["lnprob_plain"](pos0, tb, st)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     rnd = draw_randomness(64, nw, gen, device=DEVICE, dtype=torch.float64)
     cp, lp, ap = (t.cpu().numpy() for t in
-                  run_blocks(fm.multi_steps_plain, pos0, lnp0, rnd, 4, tb, st))
-    c5p, l5p, a5p, _ = run_k5(sf.sharded_multi_half_plain, (tb, st), pos0, lnp0, rnd)
+                  run_blocks(fam["steps_plain"], pos0, lnp0, rnd, 4, tb, st))
+    c5p, l5p, a5p, _ = run_k5(fam["half_plain"], (tb, st), pos0, lnp0, rnd)
     c5p, l5p, a5p = (t.cpu().numpy() for t in (c5p, l5p, a5p))
     fin = np.isfinite(lp)
     assert 0 < ap.sum() < 64 * nw, f"{label}: the chain should accept some proposals"
-    for name, k2_plan, k5c_plan in geometries:
-        where = f"K2 {label}, {name}"
-        before = fm.LAUNCHES["multi_steps"]
-        step = functools.partial(fm.multi_step_block, plan=k2_plan)
+    for name, step_plan, half_plan in geometries:
+        where = f"{kind} {label}, {name}"
+        before = counts[fam["steps_key"]]
+        step = functools.partial(fam["step"], plan=step_plan)
         ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, 4, tb, st))
-        assert fm.LAUNCHES["multi_steps"] == before + 4, where
+        assert counts[fam["steps_key"]] == before + 4, where
         assert np.array_equal(ck, cp), f"{where}: f64 chains differ"
         assert np.array_equal(ak, ap), f"{where}: f64 acceptances differ"
         assert np.array_equal(np.isfinite(lk), fin), where
         np.testing.assert_allclose(lk[fin], lp[fin], rtol=1e-12, err_msg=f"{where} f64 lnps")
-        errs[name] = max(errs.get(name, 0.0), float(np.max(np.abs(lk[fin] - lp[fin]))))
+        key = f"{kind} {name}"
+        errs[key] = max(errs.get(key, 0.0), float(np.max(np.abs(lk[fin] - lp[fin]))))
         moved = (ck[-nw:] != pos0.cpu().numpy()).any(axis=1)
         assert moved.any(), where
-        entry = fm.multi_lnprob(torch.as_tensor(ck[-nw:], device=DEVICE), tb, st)
+        entry = fam["lnprob"](torch.as_tensor(ck[-nw:], device=DEVICE), tb, st, step_plan)
         assert np.array_equal(entry.cpu().numpy()[moved], lk[-nw:][moved]), \
             f"{where}: the lnprob entry differs from the in-chain lnps"
-        where = f"K5c {label}, {name}"
-        before = sf.LAUNCHES["sharded_multi_half"]
-        half = functools.partial(sf.sharded_multi_half, plan=k5c_plan)
+        where = f"{fam['half']} {label}, {name}"
+        before = sf.LAUNCHES[fam["half_key"]]
+        half = functools.partial(fam["half_fn"], plan=half_plan)
         c5, l5, a5, _ = run_k5(half, (tb, st), pos0, lnp0, rnd)
-        assert sf.LAUNCHES["sharded_multi_half"] == before + 128, where
+        assert sf.LAUNCHES[fam["half_key"]] == before + 128, where
         c5, l5, a5 = (t.cpu().numpy() for t in (c5, l5, a5))
         assert np.array_equal(c5, c5p) and np.array_equal(a5, a5p), \
             f"{where}: f64 chains differ from the plain version's"
@@ -457,24 +506,55 @@ def check_cluster_chains(label, tb, st, pos0, seed, geometries, errs):
         assert np.array_equal(np.isfinite(l5), f5), where
         np.testing.assert_allclose(l5[f5], l5p[f5], rtol=1e-12, err_msg=f"{where} f64 lnps")
         assert np.array_equal(c5.reshape(-1, D), ck) and np.array_equal(a5, ak), \
-            f"{where}: f64 chains differ from K2's at world size 1"
-        assert np.array_equal(l5.reshape(-1), lk), f"{where}: lnps differ from K2's"
+            f"{where}: f64 chains differ from {kind}'s at world size 1"
+        assert np.array_equal(l5.reshape(-1), lk), f"{where}: lnps differ from {kind}'s"
 
 
-def check_geometries(gotham_case, wide_case, errs):
-    """Phase 3: K2 and K5c off the main path's geometry, f64 64-step
-    chains at W walkers (check_cluster_chains). On the GOTHAM case: 8 CTAs
-    (the size taken where a card places no cluster of 16) and 16 CTAs with
-    the tables read from device memory. On the wide GOTHAM-shaped problem
+def flagship_pos0(ndim, nwalkers=W, seed=0, dtype=None):
+    """The flagship's walker ball: 1% around the injected truth (source
+    size 52 in 5 dims), f64 (or `dtype`) on the card."""
+    import numpy as np
+    import torch
+
+    center = np.array(([52.0] if ndim == 5 else []) + [3.24e12, 7.5, 4.11, 0.78])
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(center * (1 + 0.01 * rng.standard_normal((nwalkers, ndim))),
+                           dtype=dtype or torch.float64, device=DEVICE)
+
+
+def flagship_tables(case):
+    """((st32, tb32), (st64, tb64)) of K1 for one flagship case."""
+    from cha1_mcmc_tpu_torch.sampler.fused import single_statics_tables
+
+    label, m32, m64, spec, cfg, grid = case
+    return tuple(single_statics_tables(m, spec, grid.ints, grid.yerrs, cfg.bounds,
+                                       cfg.template_means, cfg.template_stds)
+                 for m in (m32, m64))
+
+
+def check_geometries(flagship_case, gotham_case, wide_case, errs):
+    """Phase 3: the cluster kernels off the main path's geometry, f64
+    64-step chains at W walkers (check_cluster_chains). K1 and K5a on the
+    flagship case, K2 and K5c on the GOTHAM case: 8 CTAs (the size taken
+    where a card places no cluster of 16) and 16 CTAs with the tables read
+    from device memory. On the wide GOTHAM-shaped problem
     (WIDE_MULTIPLETS multiplets), whose f64 tables do not fit a CTA:
-    cluster_plan's own geometry, which must read them from device memory
-    (K2, K5c and the lnprob entry)."""
+    cluster_plan's own geometry for K2, which must read them from device
+    memory (K2, K5c and the lnprob entry)."""
     import torch
     from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
 
-    for case, geometries in (
-            (gotham_case, (("8 CTAs, staged", 8, True), ("16 CTAs, unstaged", 16, False))),
-            (wide_case, (("cluster_plan's", None, None),))):
+    off_main = (("8 CTAs, staged", 8, True), ("16 CTAs, unstaged", 16, False))
+    label = flagship_case[0]
+    _, (st, tb) = flagship_tables(flagship_case)
+    plans = [(name, *cluster_plans("K1", tb, st, W, n, stage)) for name, n, stage in off_main]
+    check_cluster_chains("K1", label, tb, st, flagship_pos0(len(st.bounds_lo)), 5, plans, errs)
+    La, M, C = cluster_family("K1")["sizes"](tb)
+    phase(3, "check", f"K1 and K5a {label} ({La} lines x {C} channels x {M} entries, f64, "
+          f"{W} walkers) at " + ", ".join(n for n, _, _ in plans) + ": 64-step chains "
+          "bitwise vs plain and K5a vs K1, lnprob entry = in-chain lnps")
+    for case, geometries in ((gotham_case, off_main),
+                             (wide_case, (("cluster_plan's", None, None),))):
         label, m32, m64, spec, means, stds, pert, grid = case
         _, (st, tb) = multi_tables(m32, m64, spec, means, stds, grid)
         (M, C), La = tb[1].shape, tb[0].shape[1]
@@ -483,9 +563,9 @@ def check_geometries(gotham_case, wide_case, errs):
                                       tb[0].device)[0].staged for e in ("steps", "half")]
             staged.append(fm.smem_layout(torch.float64, spec.ncomp, La, C, M).staged)
             assert not any(staged), f"{label}: {C} f64 channels should not be staged"
-        plans = [(name, *cluster_plans(tb, spec.ncomp, W, n, stage))
+        plans = [(name, *cluster_plans("K2", tb, st, W, n, stage))
                  for name, n, stage in geometries]
-        check_cluster_chains(label, tb, st, multi_pos0(means, pert), 5, plans, errs)
+        check_cluster_chains("K2", label, tb, st, multi_pos0(means, pert), 5, plans, errs)
         phase(3, "check", f"K2 and K5c {label} ({La} lines x {C} channels x {M} entries, f64, "
               f"{W} walkers) at " + ", ".join(n for n, _, _ in plans) + ": 64-step chains "
               "bitwise vs plain and K5c vs K2, lnprob entry = in-chain lnps")
@@ -517,27 +597,24 @@ def staging_limits(tb, ncomp):
     return out
 
 
-def time_geometries(case, gen, device):
-    """Phase 4: K2's step at GOTHAM's size in f32 at 16 CTAs (the main
-    path's geometry), at 8 CTAs and at 16 CTAs with the tables read from
-    device memory, in turns over 16 launches of 16 steps: (name, median,
-    q1, q3 us/step) per geometry."""
+def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16):
+    """Phase 4: a cluster step kernel (`kind`, K1 or K2) in f32 from the
+    walkers pos0 at 16 CTAs (the main path's geometry), at 8 CTAs and at
+    16 CTAs with the tables read from device memory, in turns over `nb`
+    launches of 16 steps: (name, median, q1, q3 us/step) per geometry."""
     import functools
 
     import torch
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import multi_lnprob_plain, multi_step_block
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
-    label, m32, m64, spec, means, stds, pert, grid = case
-    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
-    pos0 = multi_pos0(means, pert, seed=1).to(torch.float32)
-    lnp0 = multi_lnprob_plain(pos0, tb, st)
-    steps = {name: functools.partial(multi_step_block, plan=cluster_plans(
-        tb, spec.ncomp, W, n, stage)[0]) for name, n, stage in (
+    fam = cluster_family(kind)
+    lnp0 = fam["lnprob_plain"](pos0, tb, st)
+    w = pos0.shape[0]
+    steps = {name: functools.partial(fam["step"], plan=cluster_plans(
+        kind, tb, st, w, n, stage)[0]) for name, n, stage in (
             ("16 CTAs, staged", 16, True), ("8 CTAs, staged", 8, True),
             ("16 CTAs, unstaged", 16, False))}
-    nb = 16
-    rnd = draw_randomness(nb * K_STEPS, W, gen, device=DEVICE)
+    rnd = draw_randomness(nb * K_STEPS, w, gen, device=DEVICE)
     pb, zb, prb, ab = blocks(rnd, nb)
     times = {name: [] for name in steps}
 
@@ -549,7 +626,7 @@ def time_geometries(case, gen, device):
         t0.record()
         for b in range(nb):
             cb, lb, _ = fn(c, l, pb[b], zb[b], prb[b], ab[b], tb, st)
-            c, l = cb[(K_STEPS - 1) * W:], lb[(K_STEPS - 1) * W:]
+            c, l = cb[(K_STEPS - 1) * w:], lb[(K_STEPS - 1) * w:]
         t1.record()
         torch.cuda.synchronize()
         return 1e3 * t0.elapsed_time(t1) / (nb * K_STEPS)
@@ -559,7 +636,7 @@ def time_geometries(case, gen, device):
         for name in order + order[::-1]:
             times[name].append(run(steps[name]))
     out = [(name, *quartiles(ts)) for name, ts in times.items()]
-    phase(4, "time", f"K2 {label} by geometry, {W} walkers, f32, median [q1, q3] of "
+    phase(4, "time", f"{kind} {label} by geometry, {w} walkers, f32, median [q1, q3] of "
           f"{2 * TIMING_PAIRS} runs of {nb} launches: " + "; ".join(
               f"{n} {m:.2f} [{a:.2f}, {b:.2f}] us/step" for n, m, a, b in out) + f"; {device}")
     return out
@@ -615,27 +692,23 @@ def time_kernel(fns, tables, st, pos0, th, gen, kernel_blocks=64, plain_blocks=4
     return kern, plain, lnp_kern, lnp_plain
 
 
-def time_steps(m32, spec, cfg, grid, gen):
-    """K1 and its plain version at 128 walkers, k=16, f32 analytic 4-dim
-    (time_kernel)."""
-    import numpy as np
+def time_steps(case, gen):
+    """K1 and its plain version at 128 walkers, k=16, f32 (time_kernel) on
+    a flagship case. Returns the times, the work of each entry for its
+    bound, and the f32 (statics, tables, walkers) the geometry timing
+    reuses."""
     import torch
     from cha1_mcmc_tpu_torch.sampler.fused import (fused_lnprob, fused_lnprob_plain,
-                                                   fused_step_block,
-                                                   fused_steps_plain,
-                                                   single_statics_tables)
+                                                   fused_step_block, fused_steps_plain)
 
-    st, tb = single_statics_tables(m32, spec, grid.ints, grid.yerrs, cfg.bounds,
-                                   cfg.template_means, cfg.template_stds)
-    rng = np.random.default_rng(1)
-    pos0 = torch.as_tensor(np.array([3.24e12, 7.5, 4.11, 0.78])
-                           * (1 + 0.01 * rng.standard_normal((W, 4))),
-                           dtype=torch.float32, device=DEVICE)
-    th = in_box_thetas(W, 4, cfg.bounds, gen).to(torch.float32)
+    (st, tb), _ = flagship_tables(case)
+    ndim = len(st.bounds_lo)
+    pos0 = flagship_pos0(ndim, seed=1, dtype=torch.float32)
+    th = in_box_thetas(W, ndim, case[4].bounds, gen).to(torch.float32)
     fns = (fused_lnprob, fused_lnprob_plain, fused_step_block, fused_steps_plain)
-    work = {"fused_steps": tuple(K_STEPS * x for x in k1_work(m32, pos0[:, -1])),
-            "fused_lnprob": k1_work(m32, th[:, -1])}
-    return time_kernel(fns, tb, st, pos0, th, gen), work
+    work = {"fused_steps": k1_work(tb, st, pos0[:, -1], evaluations=K_STEPS),
+            "fused_lnprob": k1_work(tb, st, th[:, -1])}
+    return time_kernel(fns, tb, st, pos0, th, gen), work, (st, tb, pos0)
 
 
 def time_multi(case, gen):
@@ -1006,16 +1079,28 @@ def time_dense(case, gen, device):
     return k3, t, work
 
 
-def k1_work(m32, dv):
-    """(special-function results, flops, bytes) of K1's lnprob for thetas
-    with the given dV: per (row, line) tau's 2 exp + 4 divides, per
-    in-window (row, line, channel) one exp2, per (row, channel) 5; the
-    tables once."""
-    L, C = m32.n_lines, m32.n_channels
-    win = in_window(m32.vel_grid, dv, m32.mask_center)
+def k1_work(tables, st, dv, evaluations=1):
+    """The least work of one K1 / K5a call, (special-function results,
+    flops, bytes), where each theta with the given dV is evaluated
+    `evaluations` times (K_STEPS for a k-step call, 1/2 for a half-step of
+    those walkers): per evaluation tau per active line (2 exp + 4 divides,
+    ~20 flops), one exp2 per in-window entry (~6 flops; a line no window
+    reaches costs nothing), per channel J(Tex) (an exp + 2 divides), 1 -
+    exp(-opac) and in 5 dims the dilution's divide (~20 flops); once per
+    call the proposal-independent per-channel constants (h nu / k: a
+    divide; J(Tbg): an exp + 2 divides; ln(1 / sigma^2); the beam: 2
+    divides; in 4 dims the dilution's divide; ~12 flops); the f32 tables
+    once (the active lines, the entries' velocities and line indices,
+    chans). The same count bounds the one-CTA K1 that walked every line."""
+    lines, vel = tables[2], tables[3]
+    La, C = lines.shape[1], vel.shape[1]
+    free = int(st.ss is None)
+    win = in_window(vel, dv, st.mask_center)
     rows = dv.numel()
-    return (6 * rows * L + win + 5 * rows * C, 20 * rows * L + 6 * win + 15 * rows * C,
-            4 * (5 * L + L * C + 3 * C))
+    per = (6 * rows * La + win + rows * C * (4 + free),
+           20 * rows * La + 6 * win + 20 * rows * C)
+    return (evaluations * per[0] + (8 - free) * C, evaluations * per[1] + 12 * C,
+            4 * (5 * La + 2 * vel.numel() + 3 * C))
 
 
 def k2_work(tables, ncomp, dv, mask_center, evaluations=1):
@@ -1050,36 +1135,58 @@ def q_work(st, rows, n_states):
         return 0, 3 * len(st.q_coeffs) * rows
     return (2 * rows if st.q_power is not None else 0), 2 * len(st.q_coeffs) * rows
 
-def cluster_geometry(case, device):
-    """Phase 2: the cluster geometry K2 and K5c take on this card for W
-    walkers of a GOTHAM case in f32 (fused_multi.cluster_plan), with the
-    card's cudaOccupancyMaxActiveClusters answer at 16 and at 8 CTAs; and
-    the channel counts up to which the tables are staged (staging_limits)."""
-    from cha1_mcmc_tpu_torch.sampler import fused_multi
-
-    label, m32, m64, spec, means, stds, pert, grid = case
-    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
-    (M, C), La = tb[1].shape, tb[0].shape[1]
-    for entry, kname in (("steps", "K2"), ("half", "K5c")):
-        plan, active = fused_multi.cluster_plan(entry, W, spec.ncomp, La, C, M, tb[0].dtype,
-                                                tb[0].device)
-        answers = {n: fused_multi.cluster_occupancy(entry, fused_multi.plan_multi_cluster(
-            W, spec.ncomp, La, C, M, tb[0].dtype, cluster=n, resident_state=entry == "steps"),
-            tb[0].dtype, tb[0].device) for n in (16, 8)}
+def cluster_geometry(kind, label, tb, st, device):
+    """Phase 2: the cluster geometry a cluster step kernel (`kind`: K1 or
+    K2) and its sharded half-step take on this card for W walkers on a
+    case's f32 tables (cluster_plan), with the card's
+    cudaOccupancyMaxActiveClusters answer at 16 and at 8 CTAs."""
+    fam = cluster_family(kind)
+    La, M, C = fam["sizes"](tb)
+    dtype, dev = tb[0].dtype, tb[0].device
+    for entry, kname in (("steps", kind), ("half", fam["half"])):
+        plan, _ = fam["module"].cluster_plan(entry, W, fam["size_arg"](st), La, C, M, dtype,
+                                             dev)
+        answers = {n: fam["module"].cluster_occupancy(
+            entry, fam["plan"](tb, st, W, n, None, entry == "steps"), dtype, dev)
+            for n in (16, 8)}
         phase(2, "build", f"{kname} cluster geometry, {label}, {W} walkers, {La} lines x "
               f"{C} channels x {M} entries, f32: one cluster of {plan.cluster} CTAs x 512 "
-              f"threads, "
-              f"{plan.proposals} proposals a half-step, at most {plan.per_cta} per CTA, "
-              f"{plan.warps_per_proposal} warps a proposal, {plan.smem_bytes} B shared "
-              f"memory a CTA, tables {'staged' if plan.staged else 'in device memory'}; "
+              f"threads, {plan.proposals} proposals a half-step, at most {plan.per_cta} "
+              f"per CTA, {plan.warps_per_proposal} warps a proposal, {plan.smem_bytes} B "
+              f"shared memory a CTA, tables "
+              f"{'staged' if plan.staged else 'in device memory'}; "
               f"cudaOccupancyMaxActiveClusters: 16 CTAs {answers[16]}, "
               f"8 CTAs {answers[8]} ({device})")
+
+
+def k1_entries(case, device):
+    """Phase 2: K1's entry tables on a flagship case (f32): the lines any
+    window at the widened dV bound reaches, and the most and the mean
+    entries a channel walks, against the lines the one-CTA kernel walked.
+    Returns the f32 (statics, tables)."""
+    (st, tb), _ = flagship_tables(case)
+    La, M, C = cluster_family("K1")["sizes"](tb)
+    L = tb[0].shape[1]
+    mean = float((tb[3] < 1e29).sum()) / C
+    phase(2, "build", f"K1 entry tables, {case[0]}: {La} of {L} lines in reach at dV < "
+          f"{st.bounds_hi[-1]:g}, M = {M} entries a channel at most, {mean:.3f} on average "
+          f"over {C} channels (the one-CTA kernel walked all {L} lines a channel); {device}")
+    return st, tb
+
+
+def k2_staging(case):
+    """Phase 2: the channel counts up to which K2 stages a GOTHAM case's
+    tables, and the lines its unstaged layout holds (staging_limits).
+    Returns the f32 (statics, tables)."""
+    label, m32, m64, spec, means, stds, pert, grid = case
+    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
     limits = staging_limits(tb, spec.ncomp)
     phase(2, "build", f"K2 at {W} walkers, 8 CTAs, {spec.ncomp} components, lines and "
           f"entries in {label}'s proportion: tables staged up to " + ", ".join(
               f"{c} channels in {dt}" for dt, (c, _) in limits.items()) + "; above, read "
           "from device memory with no channel limit, up to " + ", ".join(
               f"{la} active lines in {dt}" for dt, (_, la) in limits.items()))
+    return st, tb
 
 
 def device_idle(sampler, pos, nsteps, device):
@@ -1194,8 +1301,65 @@ def read_launches():
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
-def slice_flagship(prob, tmp, device):
-    """SpectralFit.run() through K1: returns the launch counts of the run."""
+def checkpoint_split(fit, kernel_s, tmp, device, reps=3):
+    """Phase 5: the checkpoint path of a finished fit
+    (sampler/stretch.py:EnsembleSampler.run_mcmc), each part repeated on
+    the fit's own arrays at the sizes the fit wrote them, median of `reps`
+    on the host clock: per block the device-to-host copy and transpose of
+    the block's chain and lnps (:243-244); per checkpoint the
+    concatenation of the cumulative chain (`chain`, :184-189), its
+    np.save (:251) and the .state.npz sidecar (:252-256). Prints their sums
+    beside the fit's sampling wall time less `kernel_s`, the time of its
+    kernel launches at phase 4's rate; returns ({part: s}, wall s)."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.stretch import PACKAGE_TAG
+
+    sampler = fit.sampler
+    blocks, lnp_blocks = sampler._chain_blocks, sampler._lnp_blocks
+    path = os.path.join(tmp, "checkpoint_probe.npy")
+
+    def median_s(fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return float(np.median(ts))
+
+    on_card = [(torch.as_tensor(np.ascontiguousarray(c.transpose(1, 0, 2)), device=DEVICE),
+                torch.as_tensor(np.ascontiguousarray(lp.T), device=DEVICE))
+               for c, lp in zip(blocks, lnp_blocks)]
+    cumulative = [np.concatenate(blocks[:i + 1], axis=1) for i in range(len(blocks))]
+    gen = torch.Generator(device=DEVICE)
+    pos, lnp = on_card[-1][0][-1], on_card[-1][1][-1]
+    parts = {
+        "device-to-host copies": sum(median_s(lambda c=c, lp=lp: (
+            c.cpu().numpy().transpose(1, 0, 2), lp.cpu().numpy().T)) for c, lp in on_card),
+        "chain concatenations": sum(median_s(lambda i=i: np.concatenate(blocks[:i + 1],
+                                                                          axis=1))
+                                    for i in range(len(blocks))),
+        "np.save of the chain": sum(median_s(lambda c=c: np.save(path, c))
+                                    for c in cumulative),
+        "state sidecars": len(blocks) * median_s(lambda: np.savez(
+            path[:-4] + ".state.npz", pos=pos.cpu().numpy(), lnp=lnp.cpu().numpy(),
+            accepted=sampler.accepted, total_proposals=sampler.total_proposals,
+            package=PACKAGE_TAG, rng_state=gen.get_state().numpy()))}
+    total = sum(parts.values())
+    wall = fit.throughput.elapsed
+    phase(5, "slice", f"checkpoint path of {type(fit).__name__}.run() ({len(blocks)} blocks, "
+          f"chain {cumulative[-1].shape} {cumulative[-1].dtype}), median of {reps}: " + ", ".join(
+              f"{k} {v * 1e3:.3f} ms" for k, v in parts.items()) + f"; sum {total * 1e3:.3f} ms "
+          f"against the fit's sampling wall time {wall * 1e3:.3f} ms less its kernel time "
+          f"{kernel_s * 1e3:.3f} ms = {(wall - kernel_s) * 1e3:.3f} ms ({device})")
+    return parts, wall
+
+
+def slice_flagship(prob, tmp, device, k1_times):
+    """SpectralFit.run() through K1, then its checkpoint path
+    (checkpoint_split, the kernel time from K1's phase-4 medians
+    `k1_times`): returns the launch counts of the run."""
     import numpy as np
     import cha1_mcmc_tpu_torch as port
     from cha1_mcmc_tpu_torch.reduce import load_datagrid
@@ -1228,12 +1392,25 @@ def slice_flagship(prob, tmp, device):
     phase(5, "slice", "posterior medians vs injected truth: " + ", ".join(
         f"{lbl} {m:.4g} ({t:.4g})" for lbl, m, t in
         zip(("Ncol", "Tex", "vlsr", "dV"), med, TRUTH)))
+    checkpoint_split(fit, kernel_seconds(launches, "fused", k1_times), tmp, device)
     return launches
 
 
-def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096):
+def kernel_seconds(launches, prefix, times):
+    """The kernel time of a fit's launches of <prefix>_steps and
+    <prefix>_lnprob at phase 4's medians (times = (us per step, _, ms per
+    lnprob call, _))."""
+    k_us, _, lk_ms, _ = times
+    return (launches[f"{prefix}_steps"] * K_STEPS * k_us * 1e-6
+            + launches[f"{prefix}_lnprob"] * lk_ms * 1e-3)
+
+
+def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096, k2_times=None):
     """MultiComponentFit.run() on the card, through K2 (fused_step) or
-    the general gather path: returns the launch counts of the run."""
+    the general gather path: returns the launch counts of the run. Through
+    K2 also the device-idle share of a window of its sampler and the
+    fit's checkpoint path (checkpoint_split, the kernel time from K2's
+    phase-4 medians `k2_times`)."""
     import numpy as np
     import cha1_mcmc_tpu_torch as port
     from cha1_mcmc_tpu_torch.reduce import load_datagrid
@@ -1274,6 +1451,7 @@ def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096):
         phase(5, "slice", "posterior medians vs injected truth: " + ", ".join(
             f"{lbl.split(' [')[0]} {m:.4g} ({t:.4g})" for lbl, m, t in
             zip(fit.spec.labels, med, GOTHAM_TRUTH)))
+        checkpoint_split(fit, kernel_seconds(launches, "multi", k2_times), tmp, device)
         device_idle(fit.sampler, chain[:, -1, :], 1024, device)
     return launches
 
@@ -1377,27 +1555,20 @@ def k5_cases(flagship, gotham, dense_case):
     trailing (tables, statics) per dtype, `step` the whole-step kernel
     over the same args, `lnprob` the plain lnprob for the entry lnp, and
     `work` the (special-function results, flops, bytes) of one half-step
-    call: half of K1 / K3's step, and K2's work for half the walkers plus
-    its per-call constants (k2_work)."""
+    call: K1's and K2's work for half the walkers plus their per-call
+    constants (k1_work, k2_work), half of K3's step."""
     import functools
 
-    import numpy as np
     import torch
     from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
-    from cha1_mcmc_tpu_torch.sampler.fused import (fused_lnprob_plain, fused_step_block,
-                                                   single_statics_tables)
+    from cha1_mcmc_tpu_torch.sampler.fused import fused_lnprob_plain, fused_step_block
     from cha1_mcmc_tpu_torch.sampler.fused_multi import (multi_lnprob_plain,
                                                          multi_step_block)
 
-    label, m32, m64, spec, cfg, grid = flagship
-    t1 = [single_statics_tables(m, spec, grid.ints, grid.yerrs, cfg.bounds,
-                                cfg.template_means, cfg.template_stds)[::-1]
-          for m in (m32, m64)]
-    rng = np.random.default_rng(0)
-    pos1 = torch.as_tensor(np.array([3.24e12, 7.5, 4.11, 0.78])
-                           * (1 + 0.01 * rng.standard_normal((W, 4))),
-                           dtype=torch.float64, device=DEVICE)
-    k1w = k1_work(m32, pos1[:, -1].to(torch.float32))
+    label = flagship[0]
+    t1 = [x[::-1] for x in flagship_tables(flagship)]
+    pos1 = flagship_pos0(flagship[3].ndim)
+    k1w = k1_work(t1[0][0], t1[0][1], pos1[:, -1].to(torch.float32), evaluations=0.5)
 
     glabel, g32, g64, gspec, means, stds, pert, ggrid = gotham
     t2 = [tuple(x)[::-1] for x in multi_tables(g32, g64, gspec, means, stds, ggrid)]
@@ -1417,8 +1588,7 @@ def k5_cases(flagship, gotham, dense_case):
         dict(name="sharded_half", label=f"K5a flagship {label}", kernel=sf.sharded_half,
              plain=sf.sharded_half_plain, args32=t1[0], args64=t1[1],
              step=fused_step_block, lnprob=fused_lnprob_plain, pos0=pos1,
-             work=tuple(x / 2 for x in k1w),
-             n_f32=1024, whole="K1"),
+             work=k1w, n_f32=1024, whole="K1"),
         dict(name="sharded_multi_half", label=f"K5c GOTHAM {glabel}",
              kernel=sf.sharded_multi_half, plain=sf.sharded_multi_half_plain,
              args32=t2[0], args64=t2[1], step=multi_step_block, lnprob=multi_lnprob_plain,
@@ -1703,10 +1873,13 @@ def main() -> int:
               f"({geom.cblock} channels per block), prepare {-(-W // 2 // 4)} CTAs, "
               f"accept 1 CTA; 3 kernels per half-step")
 
-        gotham = multi_cases(prob9)
-        cluster_geometry(gotham[0], device)
-
         all_cases = cases(prob)
+        st1, tb1 = k1_entries(all_cases[0], device)
+        cluster_geometry("K1", all_cases[0][0], tb1, st1, device)
+        gotham = multi_cases(prob9)
+        st2, tb2 = k2_staging(gotham[0])
+        cluster_geometry("K2", gotham[0][0], tb2, st2, device)
+
         for label, m32, m64, spec, cfg, grid in all_cases:
             fracs = check_case(label, m32, m64, spec, cfg, grid, gen, errs)
             phase(3, "check", f"K1 {label}: f32 lnprob ok, f64 64-step chain "
@@ -1722,9 +1895,10 @@ def main() -> int:
         phase(3, "check", f"K2 max |kernel - plain|: f32 lnprob {errs2['lnprob']:.3e}, "
               f"f64 step lnps {errs2['steps']:.3e} ({device})")
         errs_g = {}
-        check_geometries(gotham[0], multi_cases(prob_w, labels=("analytic-4c",))[0], errs_g)
-        phase(3, "check", "K2 max |kernel - plain| f64 step lnps by geometry: " + ", ".join(
-            f"{k} {v:.3e}" for k, v in errs_g.items()) + f" ({device})")
+        check_geometries(all_cases[0], gotham[0],
+                         multi_cases(prob_w, labels=("analytic-4c",))[0], errs_g)
+        phase(3, "check", "K1 / K2 max |kernel - plain| f64 step lnps by geometry: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs_g.items()) + f" ({device})")
         for case in dense:
             fracs, g = check_dense_case(case, gen, errs3)
             phase(3, "check", f"K3 {case[0]} ({g.n_blk} blocks, cb0 {g.cb0}): f32 "
@@ -1751,14 +1925,17 @@ def main() -> int:
               f"|kernel - plain| {errs5['construct_probe']:.3e} ({device})")
 
         label, m32, m64, spec, cfg, grid = all_cases[0]
-        t1, w1 = time_steps(m32, spec, cfg, grid, gen)
+        t1, w1, (st1, tb1, pos1) = time_steps(all_cases[0], gen)
         t1 = report_times("K1", t1, f"{m32.n_lines} lines x {m32.n_channels} channels",
                           "64 launches a run", device)
+        time_geometries("K1", label, tb1, st1, pos1, gen, device, nb=64)
         m9 = gotham[0][1]
         t2, w2 = time_multi(gotham[0], gen)
         t2 = report_times("K2", t2, f"K=4, {m9.n_lines} lines x {m9.n_channels} channels",
                           "16 launches a run", device)
-        time_geometries(gotham[0], gen, device)
+        glabel, _, _, _, gmeans, _, gpert, _ = gotham[0]
+        time_geometries("K2", glabel, tb2, st2,
+                        multi_pos0(gmeans, gpert, seed=1).to(torch.float32), gen, device)
         t3, t4, w3 = time_dense(dense[0], gen, device)
         t5 = {}
         for case, whole_us in zip(k5, (t1[0], t2[0], t3[0])):
@@ -1776,8 +1953,9 @@ def main() -> int:
 
         t5["construct_probe"] = time_probe(probe_in, device)
 
-        launches = slice_flagship(prob, tmp, device)
-        launches.update((k, v) for k, v in slice_gotham(prob9, tmp, device).items()
+        launches = slice_flagship(prob, tmp, device, t1)
+        launches.update((k, v) for k, v in slice_gotham(prob9, tmp, device,
+                                                        k2_times=t2).items()
                         if k.startswith("multi"))
         slice_gotham(prob9, tmp, device, fused_step=False, nruns=512)
         launches.update((k, v) for k, v in slice_dense(prob_d, tmp, device).items()

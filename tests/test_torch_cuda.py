@@ -13,14 +13,16 @@ bitwise, lnps rtol 1e-12) and the f32 whole-step kernel over 1024 (K1) /
 512 (K2) / 1024 (K3) steps (acceptance fraction within 0.02); K4a / K4b's
 opacity on the dense problem in both formulas, masked and unmasked; the
 sharded half-steps K5a / K5c / K5b at world size 1, against their plain
-versions and against K1 / K2 / K3; T3's probes. Beyond chip_smoke, K2's
-cluster launch over walker counts whose proposals split raggedly over its
-CTAs, at 16 CTAs, 8 CTAs and 16 CTAs with the tables in device memory:
-f64 64-step chains bitwise against the plain version at W = 64, 96, 100
-and 256 for K = 1, 2 and 4 (lnps rtol 1e-12; the lnprob entry equal to
-the in-chain lnps; K5c at the same W), and K5c at W_l = 32, 40 and 64
-bitwise against its plain version and against K2; and both on a problem
-too wide for their f64 tables to be staged. Every test here needs a CUDA device and nvcc, and
+versions and against K1 / K2 / K3; T3's probes. Beyond chip_smoke, the
+cluster launches of K1 and K2 over walker counts whose proposals split
+raggedly over their CTAs, at 16 CTAs, 8 CTAs and 16 CTAs with the tables
+in device memory: f64 64-step chains bitwise against the plain version —
+K1 at W = 64, 96, 100, 256 and 2048 in analytic 4 dims and state-sum 5
+dims, K2 at W = 64, 96, 100 and 256 for K = 1, 2 and 4 (lnps rtol 1e-12;
+the lnprob entry equal to the in-chain lnps; K5a / K5c at the same W) —
+and K5a / K5c at W_l = 32, 40 and 64 bitwise against their plain versions
+and against K1 / K2; and K2 and K5c on a problem too wide for their f64
+tables to be staged. Every test here needs a CUDA device and nvcc, and
 skips without them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -110,11 +112,50 @@ def _k2_case(gotham_cases, ncomp):
             grid)
 
 
-#: The cluster geometries the card tests run K2 and K5c at: the size the
-#: H100 takes, the portable size taken where a card places no cluster of
-#: 16, and 16 CTAs with the tables read from device memory (the layout of
-#: problems too wide to stage).
+#: The cluster geometries the card tests run K1 / K5a and K2 / K5c at: the
+#: size the H100 takes, the portable size taken where a card places no
+#: cluster of 16, and 16 CTAs with the tables read from device memory (the
+#: layout of problems too wide to stage).
 GEOMETRIES = {"16": (16, True), "8": (8, True), "16-unstaged": (16, False)}
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@pytest.mark.parametrize("label", ["analytic-4d", "states-5d"])
+@pytest.mark.parametrize("nwalkers", [64, 96, 100, 256, 2048])
+def test_k1_cluster_chains_bitwise(cuda_cases, k5_cases, nwalkers, label, geometry):
+    """K1's cluster launch against the plain version, f64, 64 steps, at
+    walker counts whose h = W / 2 proposals split over 16 CTAs as 2, 3,
+    3 or 4 (W = 100: ragged), 8 (W = 256: two rounds of four a CTA) and 64
+    (W = 2048: sixteen rounds), over 8 CTAs as 4, 6, 6 or 7, 16 and 128:
+    chains and acceptances bitwise, lnps rtol 1e-12; the lnprob entry (at
+    the plan's staging) gives the in-chain lnps of every walker that
+    moved bitwise (one device lnprob); K5a at the same walker count and
+    geometry bitwise against its plain version and K1
+    (chip_smoke.check_cluster_chains)."""
+    import chip_smoke
+
+    case = cuda_cases[label]
+    _, (st, tb) = chip_smoke.flagship_tables(case)
+    pos0 = chip_smoke.flagship_pos0(case[3].ndim, nwalkers=nwalkers, seed=nwalkers)
+    plans = chip_smoke.cluster_plans("K1", tb, st, nwalkers, *GEOMETRIES[geometry])
+    chip_smoke.check_cluster_chains("K1", label, tb, st, pos0, 11, [(geometry, *plans)], {})
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@pytest.mark.parametrize("w_local", [32, 40, 64])
+def test_k5a_cluster_chains_bitwise(k5_cases, w_local, geometry):
+    """K5a's cluster launch at W_l = 32, 40 (20 proposals over 16 CTAs:
+    ragged) and 64 on the world-1 mesh, at each geometry: f64 64-step
+    chains bitwise against its plain version and against K1 at the same
+    walker count (lnps too: one device lnprob)."""
+    import chip_smoke
+
+    case = k5_cases["sharded_half"]
+    tb, st = case["args64"]
+    pos0 = case["pos0"][:w_local].contiguous()
+    plans = chip_smoke.cluster_plans("K1", tb, st, w_local, *GEOMETRIES[geometry])
+    chip_smoke.check_cluster_chains("K1", case["label"], tb, st, pos0, 13,
+                                    [(geometry, *plans)], {})
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
@@ -136,8 +177,8 @@ def test_k2_cluster_chains_bitwise(gotham_cases, k5_cases, nwalkers, ncomp, geom
     rng = np.random.default_rng(nwalkers + ncomp)
     pos0 = torch.as_tensor(means + pert * rng.standard_normal((nwalkers, means.size)),
                            dtype=torch.float64, device="cuda")
-    plans = chip_smoke.cluster_plans(tb, ncomp, nwalkers, *GEOMETRIES[geometry])
-    chip_smoke.check_cluster_chains(label, tb, st, pos0, 11, [(geometry, *plans)], {})
+    plans = chip_smoke.cluster_plans("K2", tb, st, nwalkers, *GEOMETRIES[geometry])
+    chip_smoke.check_cluster_chains("K2", label, tb, st, pos0, 11, [(geometry, *plans)], {})
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
@@ -152,8 +193,9 @@ def test_k5c_cluster_chains_bitwise(k5_cases, w_local, geometry):
     case = k5_cases["sharded_multi_half"]
     tb, st = case["args64"]
     pos0 = case["pos0"][:w_local].contiguous()
-    plans = chip_smoke.cluster_plans(tb, st.ncomp, w_local, *GEOMETRIES[geometry])
-    chip_smoke.check_cluster_chains(case["label"], tb, st, pos0, 13, [(geometry, *plans)], {})
+    plans = chip_smoke.cluster_plans("K2", tb, st, w_local, *GEOMETRIES[geometry])
+    chip_smoke.check_cluster_chains("K2", case["label"], tb, st, pos0, 13,
+                                    [(geometry, *plans)], {})
 
 
 @pytest.fixture(scope="module")
@@ -168,17 +210,20 @@ def wide_case(tmp_path_factory):
 
 
 def test_k2_k5c_read_the_tables_from_device_memory_past_the_staging_limit(
-        gotham_cases, k5_cases, wide_case):
+        cuda_cases, gotham_cases, k5_cases, wide_case):
     """On a GOTHAM-shaped problem of ~2,100 channels, whose f64 tables do
     not fit a CTA's shared memory, the geometry the card takes for K2, K5c
     and the lnprob entry reads them from device memory, and the chains
-    stay bitwise (chip_smoke.check_geometries, the GOTHAM case's 8-CTA and
-    unstaged geometries included)."""
+    stay bitwise (chip_smoke.check_geometries, as phase 3 runs it: the
+    flagship's and the GOTHAM case's 8-CTA and unstaged geometries
+    included)."""
     import chip_smoke
 
     errs = {}
-    chip_smoke.check_geometries(gotham_cases["analytic-4c"], wide_case, errs)
-    assert set(errs) == {"8 CTAs, staged", "16 CTAs, unstaged", "cluster_plan's"}
+    chip_smoke.check_geometries(cuda_cases["analytic-4d"], gotham_cases["analytic-4c"],
+                                wide_case, errs)
+    assert set(errs) == {"K1 8 CTAs, staged", "K1 16 CTAs, unstaged", "K2 8 CTAs, staged",
+                         "K2 16 CTAs, unstaged", "K2 cluster_plan's"}
 
 
 @pytest.fixture(scope="module")

@@ -535,12 +535,13 @@ def test_k2_cluster_plan_fits_gotham(dtype, cluster):
 @pytest.mark.parametrize("resident", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k2_smem_layout_regions_tile_the_bytes(dtype, resident, stage):
-    """The layout the kernels apply (csrc/multi_step.cu:carve): regions in
-    order, each the size of what it holds, the values aligned to their
+    """The layout the kernels apply (csrc/cluster_step.cuh:carve): regions
+    in order, each the size of what it holds, the values aligned to their
     dtype and the int32 regions after them, ending at `bytes`; without
     staging no region grows with the channels."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import (_I_REGIONS, _T_REGIONS,
-                                                         plan_multi_cluster)
+    from cha1_mcmc_tpu_torch.sampler.cluster import I_REGIONS as _I_REGIONS
+    from cha1_mcmc_tpu_torch.sampler.cluster import T_REGIONS as _T_REGIONS
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
 
     item = torch.empty((), dtype=dtype).element_size()
     W, K, La, C, M, n = 96, 4, 66, 1138, 3, 16
