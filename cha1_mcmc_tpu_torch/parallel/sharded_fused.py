@@ -15,8 +15,8 @@ communication. Per ensemble step, per half:
 The half-step is K5a (csrc/fused_step.cu: K1's lnprob over its entry
 tables), K5c (csrc/multi_step.cu: K2's multi-component lnprob), each K1's
 or K2's cluster half-update on one cluster of 16 or 8 CTAs, or
-K5b (csrc/gather_step.cu: K3's prepare / evaluate / accept kernels over
-the channel-major gather tables, spread over the card). The runners are
+K5b (csrc/gather_step.cu: K3's persistent cooperative half-step over the
+channel-major gather tables, spread over the card). The runners are
 ShardedRunner's (parallel/sharded.py): the same split, pairing,
 randomness and global outputs as the general sharded runner; only the
 half-update differs.
@@ -26,8 +26,8 @@ updates the (W_l, D+1) state (coordinates || lnp) in place and returns
 the half's accepted count, (1,) float32: for a CUDA tensor it launches
 the kernel, for a CPU tensor it takes the plain version beside it
 (`*_plain`: stretch.half_step over the whole-step kernel's plain lnprob,
-the kernels' order of operations). `LAUNCHES` counts one per C call (K5b's
-call launches its three kernels).
+the kernels' order of operations). `LAUNCHES` counts one per C call, each
+one kernel launch.
 
 Entry lnps: K5a and K5c start from the general formulation
 (sharded.shard_lnprob, as the JAX runners start from forward_from_lines),
@@ -208,22 +208,17 @@ def _launch_gather_half(state, active, comp, z_u, pair, acc_u, tables, st, geom)
     if W > fused_gather._MAX_WALKERS:
         raise ValueError(f"K5b: {W} local walkers (takes up to "
                          f"{fused_gather._MAX_WALKERS})")
-    M1, M2, C, S = fused_gather._check_tables(tables, geom, dtype, dev)
-    h = W // 2
-    scratch = (torch.empty((h, D), dtype=dtype, device=dev),           # proposals
-               torch.empty(h, dtype=dtype, device=dev),                # stretch factors
-               torch.empty((h, fused_gather._SCALARS), dtype=dtype, device=dev),
-               torch.empty((h, geom.n_blk), dtype=dtype, device=dev),  # chi^2 partials
-               torch.empty(1, dtype=torch.int32, device=dev))          # accepted count
+    ptrs, buf, scratch, ints = fused_gather.kernel_operands(tables, geom, dtype, dev,
+                                                            W // 2, D, 1)
+    out_acc = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k5b_half_{_SUFFIX[dtype]}")(
-            *_operands(state, active, comp, z_u, pair, acc_u),
-            *(t.data_ptr() for t in tables), *(t.data_ptr() for t in scratch),
-            ctypes.addressof(fused._pack_statics(st, dtype)), W, D, M1, M2, C, geom.cb0,
-            S, geom.cblock, geom.n_blk, torch.cuda.current_stream(dev).cuda_stream)
+            *_operands(state, active, comp, z_u, pair, acc_u), *ptrs, *scratch,
+            out_acc.data_ptr(), ctypes.addressof(fused._pack_statics(st, dtype)), W, D,
+            *ints, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k3_error_string, "sharded_gather_half", "K5b")
     LAUNCHES["sharded_gather_half"] += 1
-    return scratch[-1].to(torch.float32)
+    return out_acc
 
 
 def sharded_half(state, active, comp, z_u, pair, acc_u, tables, st, plan=None):
@@ -247,8 +242,8 @@ def sharded_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan=N
 
 
 def sharded_gather_half(state, active, comp, z_u, pair, acc_u, tables, st, geom):
-    """K5b: sharded_half over K3's tables, statics and geometry (one call
-    of three kernels for CUDA tensors)."""
+    """K5b: sharded_half over K3's tables, statics and GatherPlan (one
+    cooperative kernel launch for CUDA tensors)."""
     if route(state, "K5b") == "cuda":
         return _launch_gather_half(state, active, comp, z_u, pair, acc_u, tables, st,
                                    geom)

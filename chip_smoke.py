@@ -19,8 +19,11 @@ last line):
      (GOTHAM) take on the card (cluster size, proposals per CTA, shared
      bytes, staged tables or not, cudaOccupancyMaxActiveClusters at 16 and
      8 CTAs) with the channel counts up to which K2 stages its tables;
-     starts the world-1 mesh (make_mesh(1, 1): an NCCL group of one
-     rank), destroyed at the end;
+     prints K3 / K5b's launch at channel blocks of 128, 256 and 512
+     (tiles a half-step, the grid, the CTAs the card keeps resident, the
+     most lines a block references and their shared taus); starts the
+     world-1 mesh (make_mesh(1, 1): an NCCL group of one rank), destroyed
+     at the end;
   3. check   — each kernel against its plain PyTorch version on the card.
      K1 on the synthetic flagship problem (tests/port_problems.py), for
      analytic, Chebyshev and state-sum Q(T), 4- and 5-dim, at the main
@@ -42,7 +45,11 @@ last line):
      x ~10,900 channels) at 128 walkers, for Chebyshev and state-sum Q on
      the split tables, Chebyshev on the rectangular table and analytic Q
      in 5 dims: the same three checks (the f32 run over 1024 steps), the
-     lnprob entry also against the port's plain batched gather lnprob.
+     lnprob entry also against the port's plain batched gather lnprob;
+     then each case at channel blocks of 128, 256 and 512, each at the
+     card's grid, at 37 CTAs and with the taus in device memory: f64
+     64-step chains bitwise vs plain, the lnprob entry equal to the
+     in-chain lnps, K5b bitwise vs K3 off the card's grid.
      K4a / K4b on the same problem: the opacity of 128 walkers in both
      formulas, masked and unmasked, against the plain versions. K5a, K5c
      and K5b (the sharded half-steps) on the flagship, GOTHAM and dense
@@ -54,9 +61,12 @@ last line):
   4. time    — K1, K2 and K3 and their plain versions in us per ensemble
      step (128 walkers, k=16) and per lnprob call of 128 thetas; K1 and
      K2 at 16 CTAs, 8 CTAs and 16 CTAs with the tables in device memory;
-     K3's lnprob with Q replaced by ones and at channel blocks of 128,
-     256 and 512, with their bounds (T2); K4a / K4b per opacity
-     evaluation of 128 walkers; the batched gather lnprob of 128 thetas;
+     K3's lnprob with Q replaced by ones, on thetas outside the prior box
+     (the floor: no channel walk) and at channel blocks of 128, 256 and
+     512, with their bounds (T2); K3 per step at channel blocks of 128
+     (the card's grid, 37 and 132 CTAs, taus in device memory), 256 and
+     512; K4a / K4b per opacity evaluation of 128 walkers; the batched
+     gather lnprob of 128 thetas;
      each K5 per half-step call against its plain version, and the
      world-1 sharded runner per ensemble step beside K1 / K2 / K3; T3 per
      launch. CUDA events after warm-up, in turns (plain, kernel, kernel,
@@ -815,27 +825,33 @@ def dense_thetas(n, ndim, ncol, gen):
 
 
 def dense_tables(case, cblock=128):
-    """(fns, (st32, tb32), (st64, tb64), geometry) of K3 for one dense
-    case; fns = (lnprob, lnprob_plain, step_block, steps_plain) with the
-    geometry bound, as check_kernel / time_kernel call them."""
-    import functools
-
+    """(fns, (st32, tb32), (st64, tb64), plans) of K3 for one dense case
+    at channel blocks of `cblock`: plans = {dtype: GatherPlan}, and fns =
+    (lnprob, lnprob_plain, step_block, steps_plain), each taking the plan
+    of its tables' dtype, as check_kernel / time_kernel call them."""
     from cha1_mcmc_tpu_torch.sampler.fused_gather import (
         gather_lnprob, gather_lnprob_plain, gather_statics_tables, gather_step_block,
         gather_steps_plain, plan_fused_gather)
 
     label, m32, m64, spec, bounds, means, stds, grid, min_saving = case
-    out = []
+    out, plans = [], {}
     for m in (m32, m64):
         plan = plan_fused_gather(m, spec, DENSE_DV_MAX, W, min_saving=min_saving,
                                  cblock=cblock)
-        st, tb, geom = gather_statics_tables(m, spec, grid.ints, grid.yerrs, bounds,
-                                             means, stds, plan)
+        st, tb, plans[m.dtype] = gather_statics_tables(m, spec, grid.ints, grid.yerrs,
+                                                       bounds, means, stds, plan)
         out.append((st, tb))
-    fns = tuple(functools.partial(f, geom=geom) for f in
-                (gather_lnprob, gather_lnprob_plain, gather_step_block,
-                 gather_steps_plain))
-    return fns, out[0], out[1], geom
+    fns = tuple(by_dtype(f, plans) for f in (gather_lnprob, gather_lnprob_plain,
+                                             gather_step_block, gather_steps_plain))
+    return fns, out[0], out[1], plans
+
+
+def by_dtype(fn, plans):
+    """fn(*args, tables, st, geom=plan) with `plans`' GatherPlan of the
+    tables' dtype (K3's and K5b's wrappers and plain versions)."""
+    def call(*args):
+        return fn(*args, geom=plans[args[-2][1].dtype])
+    return call
 
 
 def dense_pos0(case, seed=0):
@@ -866,7 +882,7 @@ def check_dense_case(case, gen, errs):
                                                single_component_lnprior)
 
     label, m32, m64, spec, bounds, means, stds, grid, _ = case
-    fns, t32, t64, geom = dense_tables(case)
+    fns, t32, t64, plans = dense_tables(case)
     th = dense_thetas(512, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
     fracs = check_kernel(label, fns, t32, t64, th, dense_pos0(case), grid.yerrs, gen,
                          errs, 1024)
@@ -881,7 +897,99 @@ def check_dense_case(case, gen, errs):
     np.testing.assert_allclose(k[fin], g[fin], rtol=2e-5, atol=scale,
                                err_msg=f"{label} K3 vs batched gather lnprob")
     errs["general"] = max(errs.get("general", 0.0), float(np.max(np.abs(k[fin] - g[fin]))))
-    return fracs, geom
+    return fracs, plans[torch.float32]
+
+
+#: The channel blocks K3 is checked and timed at (T2), and the second grid
+#: size of its checks: a few CTAs, so each walks many tiles.
+CBLOCKS = (128, 256, 512)
+SMALL_GRID = 37
+
+
+def k3_plans(geom):
+    """(name, GatherPlan) of K3's checks at one channel block: the grid
+    launch_grid takes, SMALL_GRID CTAs, and the taus in device memory (the
+    path of a problem whose block lines do not fit a CTA's shared
+    memory)."""
+    import dataclasses
+
+    assert geom.tau_shared, "the dense problem's taus should fit shared memory"
+    return (("card's grid", geom), (f"{SMALL_GRID} CTAs", dataclasses.replace(
+        geom, grid=SMALL_GRID)), ("taus in device memory", dataclasses.replace(
+            geom, tau_shared=False)))
+
+
+def check_dense_geometries(case, errs, cblocks=CBLOCKS):
+    """Phase 3: K3 on one dense case at each of `cblocks` (channel blocks
+    of 128, 256 and 512), each at k3_plans' three plans, f64, 64 steps
+    from the dense walker ball: chains and acceptances bitwise against
+    gather_steps_plain at the same block (lnps rtol 1e-12), the lnprob
+    entry equal to the in-chain lnps of every walker that moved (also
+    beside a row group outside the prior box), one launch per call; and
+    K5b at world size 1 at the small grid and with the taus in device
+    memory, bitwise against K3. One plain run per channel block serves
+    its plans."""
+    import functools
+
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
+    from cha1_mcmc_tpu_torch.sampler import fused_gather as fg
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    label = case[0]
+    pos0 = dense_pos0(case, seed=3)
+    D = pos0.shape[1]
+    for cb in cblocks:
+        fns, _, (st, tb), plans = dense_tables(case, cblock=cb)
+        geom = plans[torch.float64]
+        lnp0 = fns[1](pos0, tb, st)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(cb)
+        rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=torch.float64)
+        cp, lp, ap = (t.cpu().numpy() for t in run_blocks(fns[3], pos0, lnp0, rnd, 4, tb, st))
+        fin = np.isfinite(lp)
+        assert 0 < ap.sum() < 64 * W, f"{label}: the chain should accept some proposals"
+        for name, plan in k3_plans(geom):
+            where = f"K3 {label}, cblock {cb}, {name}"
+            before = fg.LAUNCHES["gather_steps"]
+            step = functools.partial(fg.gather_step_block, geom=plan)
+            ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, 4, tb, st))
+            assert fg.LAUNCHES["gather_steps"] == before + 4, where
+            assert np.array_equal(ck, cp), f"{where}: f64 chains differ"
+            assert np.array_equal(ak, ap), f"{where}: f64 acceptances differ"
+            assert np.array_equal(np.isfinite(lk), fin), where
+            np.testing.assert_allclose(lk[fin], lp[fin], rtol=1e-12, err_msg=f"{where} lnps")
+            errs[f"cblock {cb}"] = max(errs.get(f"cblock {cb}", 0.0),
+                                       float(np.max(np.abs(lk[fin] - lp[fin]))))
+            moved = (ck[-W:] != pos0.cpu().numpy()).any(axis=1)
+            assert moved.any(), where
+            entry = fg.gather_lnprob(torch.as_tensor(ck[-W:], device=DEVICE), tb, st, plan)
+            assert np.array_equal(entry.cpu().numpy()[moved], lk[-W:][moved]), \
+                f"{where}: the lnprob entry differs from the in-chain lnps"
+            # one row group wholly outside the prior box (dV twice its
+            # bound), whose tiles skip the channel walk, beside the others
+            mixed = torch.as_tensor(ck[-W:], device=DEVICE).clone()
+            mixed[:fg.ROWS, -1] = 2.0 * case[4]["dV"][1]
+            got = fg.gather_lnprob(mixed, tb, st, plan).cpu().numpy()
+            rest = moved[fg.ROWS:]
+            assert np.isneginf(got[:fg.ROWS]).all() and np.array_equal(
+                got[fg.ROWS:][rest], lk[-W:][fg.ROWS:][rest]), \
+                f"{where}: the lnprob entry beside thetas outside the box"
+            if plan is geom:
+                continue
+            before = sf.LAUNCHES["sharded_gather_half"]
+            half = functools.partial(sf.sharded_gather_half, geom=plan)
+            c5, l5, a5, _ = run_k5(half, (tb, st), pos0, lnp0, rnd)
+            assert sf.LAUNCHES["sharded_gather_half"] == before + 128, where
+            assert np.array_equal(c5.cpu().numpy().reshape(-1, D), ck) and np.array_equal(
+                a5.cpu().numpy(), ak), f"K5b {label}, cblock {cb}, {name}: differs from K3"
+            assert np.array_equal(l5.cpu().numpy().reshape(-1), lk), \
+                f"K5b {label}, cblock {cb}, {name}: lnps differ from K3's"
+        phase(3, "check", f"K3 {label} at channel blocks of {cb} ({geom.n_blk} blocks, "
+              f"u_max {geom.u_max}), f64: 64-step chains bitwise vs plain at " + ", ".join(
+                  n for n, _ in k3_plans(geom)) + "; lnprob entry = in-chain "
+              "lnps; K5b = K3 at world size 1 off the card's grid")
 
 
 def opacity_inputs(case, gen, dtype):
@@ -982,6 +1090,103 @@ def time_calls(calls, reps=20):
     return {k: quartiles(v) for k, v in times.items()}
 
 
+def time_k3_geometries(case, pos0, gen, device, nb=16):
+    """Phase 4 (T2): K3 in f32 from the walkers pos0 at channel blocks of
+    128 (the card's grid, SMALL_GRID CTAs, 132 CTAs, the taus in device
+    memory), 256 and 512, and the step's floor (channel blocks of 128,
+    every walker and so every proposal outside the prior box, dV twice
+    its bound: the launch runs prepare, the barriers, tiles that walk no
+    channel and accept), in turns over `nb` calls of K_STEPS steps. Returns ({name:
+    (median, q1, q3) us/step}, {name: (plan, tables, statics)})."""
+    import dataclasses
+    import functools
+
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import gather_step_block
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    FLOOR = "cblock 128, walkers outside the prior box (floor)"
+    plans = {}
+    for cb in CBLOCKS:
+        fns, (st, tb), _, by = dense_tables(case, cblock=cb)
+        geom = by[torch.float32]
+        plans[f"cblock {cb}"] = (geom, tb, st)
+        if cb == CBLOCKS[0]:
+            lnp0 = fns[1](pos0, tb, st)
+            for name, plan in k3_plans(geom)[1:] + (
+                    ("132 CTAs", dataclasses.replace(geom, grid=132)),):
+                plans[f"cblock {cb}, {name}"] = (plan, tb, st)
+            plans[FLOOR] = (geom, tb, st)
+            out_of_box = pos0.clone()
+            out_of_box[:, -1] = 2.0 * case[4]["dV"][1] * (1.0 + 0.01 * torch.rand(
+                W, generator=gen, device=DEVICE, dtype=pos0.dtype))
+            lnp_out = fns[1](out_of_box, tb, st)
+            assert not torch.isfinite(lnp_out).any()
+    rnd = draw_randomness(nb * K_STEPS, W, gen, device=DEVICE)
+    pb, zb, prb, ab = blocks(rnd, nb)
+    times = {name: [] for name in plans}
+
+    def run(name, plan, tb, st):
+        step = functools.partial(gather_step_block, geom=plan)
+        c, l = (out_of_box, lnp_out) if name == FLOOR else (pos0, lnp0)
+        step(c, l, pb[0], zb[0], prb[0], ab[0], tb, st)   # warm-up
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for b in range(nb):
+            cb_, lb, acc = step(c, l, pb[b], zb[b], prb[b], ab[b], tb, st)
+            c, l = cb_[(K_STEPS - 1) * W:], lb[(K_STEPS - 1) * W:]
+        t1.record()
+        torch.cuda.synchronize()
+        assert name != FLOOR or not bool(acc.any()), "the floor's walkers should not move"
+        return 1e3 * t0.elapsed_time(t1) / (nb * K_STEPS)
+
+    order = list(plans)
+    for _ in range(TIMING_PAIRS):   # in turns, forwards then backwards
+        for name in order + order[::-1]:
+            times[name].append(run(name, *plans[name]))
+    out = {name: quartiles(ts) for name, ts in times.items()}
+    phase(4, "time", f"K3 by geometry, dense {case[0]}, {W} walkers, f32, median [q1, q3] "
+          f"of {2 * TIMING_PAIRS} runs of {nb} calls: " + "; ".join(
+              f"{n} (grid {launch_grid_of(plans[n][0])}, u_max {plans[n][0].u_max}) "
+              f"{m:.2f} [{a:.2f}, {b:.2f}] us/step" for n, (m, a, b) in out.items())
+          + f"; {device}")
+    return out, plans
+
+
+def launch_grid_of(plan, rows=W // 2):
+    """The CTAs of a K3 launch over `rows` rows at `plan` (f32)."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import launch_grid
+
+    return launch_grid(plan, rows, torch.float32, plan.lines.device)
+
+
+def k3_work(plan, tables, st, dv, evaluations=1):
+    """The least work of one K3 / K5b call, (special-function results,
+    flops, bytes), where each theta with the given dV is evaluated
+    `evaluations` times (K_STEPS for a k-step call, 1/2 for a half-step of
+    those walkers), counted as k1_work counts K1's: per evaluation tau per
+    (row, active line) (2 exp + 4 divides, ~20 flops), one exp2 per
+    in-window entry (~6 flops), per (row, channel) J(Tex) (an exp + 2
+    divides), 1 - exp(-opac) and in 5 dims the dilution's divide (~20
+    flops); once per call the proposal-independent per-channel constants
+    (h nu / k: a divide; J(Tbg): an exp + 2 divides; ln(1 / sigma^2); the
+    beam: 2 divides; in 4 dims the dilution's divide; ~12 flops); the
+    tables the kernel reads, once: the active lines' constants, the
+    entries' velocities and int16 slots, the block line lists, chans."""
+    vel1, vel2 = tables[1], tables[3]
+    La, C = plan.lines.shape[1], vel1.shape[1]
+    free = int(st.ss is None)
+    win = in_window(vel1, dv, st.mask_center) + in_window(vel2, dv, st.mask_center)
+    rows = dv.numel()
+    per = (6 * rows * La + win + rows * C * (4 + free),
+           20 * rows * La + 6 * win + 20 * rows * C)
+    nbytes = (vel1.element_size() * (5 * La + vel1.numel() + vel2.numel() + 3 * C)
+              + 2 * (vel1.numel() + vel2.numel()) + 4 * plan.block_lines.numel())
+    return (evaluations * per[0] + (8 - free) * C, evaluations * per[1] + 12 * C, nbytes)
+
+
 def time_dense(case, gen, device):
     """Phase 4 for K3 and K4 (T2): K3 and its plain version per step and
     per lnprob of W thetas (time_kernel), K3's lnprob with Q replaced by
@@ -996,20 +1201,29 @@ def time_dense(case, gen, device):
     from cha1_mcmc_tpu_torch.sampler.fused_gather import gather_lnprob
 
     label, m32, m64, spec, bounds, means, stds, grid, _ = case
-    fns, (st, tb), _, geom = dense_tables(case)
+    fns, (st, tb), _, plans = dense_tables(case)
+    geom = plans[torch.float32]
     pos0 = dense_pos0(case, seed=1).to(torch.float32)
     th = dense_thetas(W, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
     k3 = report_times("K3", time_kernel(fns, tb, st, pos0, th, gen, kernel_blocks=16,
                                         plain_blocks=2),
                       f"{m32.n_lines} lines x {m32.n_channels} channels", "16 calls a run",
                       device, plain_blocks=2)
+    steps, steps_plans = time_k3_geometries(case, pos0, gen, device)
     ones = dataclasses.replace(st, q_kind="analytic", q_coeffs=(1.0,), q_power=None,
                                q_scale=1.0)
+    # the floor: every theta outside the prior box (dV twice its bound), so
+    # the launch runs prepare, the barriers and combine but no channel walk
+    out_of_box = th.clone()
+    out_of_box[:, -1] = 2.0 * bounds["dV"][1]
     calls = {"Q(T)": lambda: gather_lnprob(th, tb, st, geom),
-             "Q = 1": lambda: gather_lnprob(th, tb, ones, geom)}
-    for cb in (256, 512):
+             "Q = 1": lambda: gather_lnprob(th, tb, ones, geom),
+             "floor (thetas outside the prior box)":
+                 lambda: gather_lnprob(out_of_box, tb, st, geom)}
+    for cb in CBLOCKS[1:]:
         _, (st_c, tb_c), _, g_c = dense_tables(case, cblock=cb)
-        calls[f"cblock {cb}"] = (lambda s=st_c, t=tb_c, g=g_c: gather_lnprob(th, t, s, g))
+        calls[f"cblock {cb}"] = (lambda s=st_c, t=tb_c, g=g_c[torch.float32]:
+                                 gather_lnprob(th, t, s, g))
     prior = single_component_lnprior(spec, bounds, means, stds, dtype=torch.float32)
     general = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
                                    use_pallas=True, dv_max=DENSE_DV_MAX)
@@ -1032,22 +1246,31 @@ def time_dense(case, gen, device):
     phase(4, "time", "no single PyTorch call computes K3's step or lnprob, or K4a / "
           "K4b's opacity: library_ms is null")
 
-    # the work this run's inputs need, for the bounds: (special-function
-    # results, other float operations, bytes). Per in-window entry: tau's
-    # 2 exp + 4 divides and the Gaussian's exp2, ~20 flops; per (row,
-    # channel): J_T's exp + 2 divides, the dilution's divide and
-    # 1 - exp(-opac), ~15 flops; the tables read once.
-    C, M1, M2, cb0 = m32.n_channels, tb[1].shape[0], tb[3].shape[0], geom.cb0
-    table_bytes = 4 * (6 * M1 * C + 6 * M2 * max(cb0, 1) + 3 * C)
-
-    def k3_work(dv):
-        win = (in_window(tb[1], dv, st.mask_center)
-               + in_window(tb[3], dv, st.mask_center))
-        rows = dv.numel()
-        return 7 * win + 5 * rows * C, 20 * win + 15 * rows * C, table_bytes
-
-    work = {"gather_steps": tuple(K_STEPS * x for x in k3_work(pos0[:, -1])),
-            "gather_lnprob": k3_work(th[:, -1])}
+    # the work this run's inputs need, for the bounds (k3_work); the same
+    # count bounds a three-kernel K3 (prepare / evaluate / accept launches,
+    # tau per in-window entry), which computes the same function
+    C = m32.n_channels
+    work = {"gather_steps": k3_work(geom, tb, st, pos0[:, -1], evaluations=K_STEPS),
+            "gather_lnprob": k3_work(geom, tb, st, th[:, -1])}
+    old_count = (7 * (in_window(tb[1], pos0[:, -1], st.mask_center)
+                      + in_window(tb[3], pos0[:, -1], st.mask_center)) + 5 * W * C) * K_STEPS
+    phase(4, "time", "K3 bound per ensemble step (k3_work: tau per (row, active line), "
+          "an exp2 per in-window entry, per (row, channel) J(Tex), 1 - exp(-opac) [and the "
+          "5-dim dilution], the per-channel constants once per call, the tables read "
+          "once): {:.4f} us ({}); the three-kernel K3's count (tau per in-window "
+          "entry, 7 special functions, 5 per (row, channel)): {:.4f} us ({} "
+          "special-function results a step); K3 at {} us/step is {:.2%} of the new "
+          "bound; {}".format(
+              bound(*work["gather_steps"])[0] * 1e3 / K_STEPS,
+              bound(*work["gather_steps"])[1], old_count / SFU_RATE * 1e6 / K_STEPS,
+              old_count // K_STEPS, round(k3[0], 2),
+              bound(*work["gather_steps"])[0] * 1e3 / K_STEPS / k3[0], device))
+    for name, (med, q1, q3) in steps.items():
+        if "floor" in name:      # no channel work to bound
+            continue
+        work_c = k3_work(*steps_plans[name], pos0[:, -1], evaluations=K_STEPS)
+        phase(4, "time", f"K3 step bound at {name}: {bound(*work_c)[0] * 1e3 / K_STEPS:.4f} "
+              f"us/step ({bound(*work_c)[1]}); measured {med:.2f} us/step; {device}")
     # T2: K3's lnprob at its inputs with Q(T) (its series or state sum on
     # top of the channel work) and with Q = 1 (none); the channel-block
     # ablations do the Q(T) call's work.
@@ -1076,7 +1299,7 @@ def time_dense(case, gen, device):
                              io + 4 * int(mask.sum()) * 512 * 128)
     work["opacity_csr"] = (win, 2 * W * int(counts.sum()) * 128 + 4 * win,
                            io + 4 * int(counts.sum()) * 129)
-    return k3, t, work
+    return k3, t, work, steps
 
 
 def k1_work(tables, st, dv, evaluations=1):
@@ -1555,10 +1778,8 @@ def k5_cases(flagship, gotham, dense_case):
     trailing (tables, statics) per dtype, `step` the whole-step kernel
     over the same args, `lnprob` the plain lnprob for the entry lnp, and
     `work` the (special-function results, flops, bytes) of one half-step
-    call: K1's and K2's work for half the walkers plus their per-call
-    constants (k1_work, k2_work), half of K3's step."""
-    import functools
-
+    call: K1's, K2's and K3's work for half the walkers plus their
+    per-call constants (k1_work, k2_work, k3_work)."""
     import torch
     from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
     from cha1_mcmc_tpu_torch.sampler.fused import fused_lnprob_plain, fused_step_block
@@ -1576,14 +1797,10 @@ def k5_cases(flagship, gotham, dense_case):
     k2w = k2_work(t2[0][0], gspec.ncomp, pos2[:, -1].to(torch.float32), t2[0][1].mask_center,
                   evaluations=0.5)
 
-    fns, (st3, tb3), (st3d, tb3d), geom = dense_tables(dense_case)
+    fns, (st3, tb3), (st3d, tb3d), plans = dense_tables(dense_case)
     pos3 = dense_pos0(dense_case)
-    C, M1, M2 = dense_case[1].n_channels, tb3[1].shape[0], tb3[3].shape[0]
-    win = (in_window(tb3[1], pos3[:, -1].to(torch.float32), st3.mask_center)
-           + in_window(tb3[3], pos3[:, -1].to(torch.float32), st3.mask_center))
-    k3w = (7 * win + 5 * W * C, 20 * win + 15 * W * C,
-           4 * (6 * M1 * C + 6 * M2 * max(geom.cb0, 1) + 3 * C))
-    g = functools.partial
+    k3w = k3_work(plans[torch.float32], tb3, st3, pos3[:, -1].to(torch.float32),
+                  evaluations=0.5)
     return [
         dict(name="sharded_half", label=f"K5a flagship {label}", kernel=sf.sharded_half,
              plain=sf.sharded_half_plain, args32=t1[0], args64=t1[1],
@@ -1594,10 +1811,10 @@ def k5_cases(flagship, gotham, dense_case):
              args32=t2[0], args64=t2[1], step=multi_step_block, lnprob=multi_lnprob_plain,
              pos0=pos2, work=k2w, n_f32=512, whole="K2"),
         dict(name="sharded_gather_half", label=f"K5b dense {dense_case[0]}",
-             kernel=g(sf.sharded_gather_half, geom=geom),
-             plain=g(sf.sharded_gather_half_plain, geom=geom), args32=(tb3, st3),
+             kernel=by_dtype(sf.sharded_gather_half, plans),
+             plain=by_dtype(sf.sharded_gather_half_plain, plans), args32=(tb3, st3),
              args64=(tb3d, st3d), step=fns[2], lnprob=fns[1], pos0=pos3,
-             work=tuple(x / 2 for x in k3w),
+             work=k3w,
              n_f32=1024, whole="K3")]
 
 
@@ -1817,7 +2034,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from cha1_mcmc_tpu_torch.sampler.fused_gather import ROWS
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import ROWS, resident_ctas
     from tests.port_problems import (write_dense_problem, write_hc5n_problem,
                                      write_hc9n_problem)
 
@@ -1860,18 +2077,26 @@ def main() -> int:
         prob_d = write_dense_problem(os.path.join(tmp, "dense"), scale="full")
         dense = dense_cases(prob_d)
         m_d = dense[0][1]
-        _, (_, tb_d), _, geom = dense_tables(dense[0])
+        _, (_, tb_d), _, plans = dense_tables(dense[0])
+        geom = plans[torch.float32]
         phase(2, "build", f"dense problem: {m_d.n_lines} lines x {m_d.n_channels} "
               f"channels (n_lines x n_channels {m_d.n_lines * m_d.n_channels:,}), "
               f"M1 {tb_d[1].shape[0]}, M2 {tb_d[3].shape[0]} on cb0 {geom.cb0} "
               f"heavy-first channels, {dense[1][1].q_model.g.size} partition states, "
               f"injected Ncol {prob_d['truth'][0]:.4e}")
-        groups = -(-W // 2 // ROWS)
-        phase(2, "build", f"K3 launch geometry at {W} walkers: evaluate grid "
-              f"({geom.n_blk} channel blocks x {groups} groups of {ROWS} proposals) = "
-              f"{geom.n_blk * groups} CTAs of {geom.cblock} threads "
-              f"({geom.cblock} channels per block), prepare {-(-W // 2 // 4)} CTAs, "
-              f"accept 1 CTA; 3 kernels per half-step")
+        for cb in CBLOCKS:
+            g = dense_tables(dense[0], cblock=cb)[-1][torch.float32]
+            tiles = g.n_blk * -(-W // 2 // ROWS)
+            grid = launch_grid_of(g)
+            resident = resident_ctas(g, torch.float32, g.lines.device)
+            phase(2, "build", f"K3 / K5b launch at {W} walkers, channel blocks of {cb}: "
+                  f"one cooperative launch a call, {tiles} tiles a half-step ({g.n_blk} "
+                  f"blocks x {-(-W // 2 // ROWS)} groups of {ROWS} proposals) over "
+                  f"{grid} CTAs of {cb} threads ({-(-tiles // grid)} rounds; "
+                  f"{resident} resident at most), u_max {g.u_max} lines a block, "
+                  f"taus in shared memory ({g.tau_smem_bytes(torch.float32)} B f32, "
+                  f"{g.tau_smem_bytes(torch.float64)} B f64), 3 grid barriers a "
+                  f"half-step; {device}")
 
         all_cases = cases(prob)
         st1, tb1 = k1_entries(all_cases[0], device)
@@ -1905,9 +2130,13 @@ def main() -> int:
                   f"lnprob ok (also vs the batched gather lnprob), f64 64-step chain "
                   f"bitwise, f32 1024-step acceptance kernel {fracs['kernel']:.4f} vs "
                   f"plain {fracs['plain']:.4f}")
+        errs_k3 = {}
+        for case in dense:
+            check_dense_geometries(case, errs_k3)
         phase(3, "check", f"K3 max |kernel - plain|: f32 lnprob {errs3['lnprob']:.3e} "
               f"(vs batched gather {errs3['general']:.3e}), f64 step lnps "
-              f"{errs3['steps']:.3e} ({device})")
+              f"{errs3['steps']:.3e}; by channel block " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs_k3.items()) + f" ({device})")
         check_opacity(dense[0], gen, errs4)
         phase(3, "check", f"K4 max |kernel - plain|: block {errs4['block']:.3e}, csr "
               f"{errs4['csr']:.3e} ({device})")
@@ -1936,18 +2165,17 @@ def main() -> int:
         glabel, _, _, _, gmeans, _, gpert, _ = gotham[0]
         time_geometries("K2", glabel, tb2, st2,
                         multi_pos0(gmeans, gpert, seed=1).to(torch.float32), gen, device)
-        t3, t4, w3 = time_dense(dense[0], gen, device)
+        t3, t4, w3, _ = time_dense(dense[0], gen, device)
         t5 = {}
         for case, whole_us in zip(k5, (t1[0], t2[0], t3[0])):
             per_call, (r_us, r1, r3) = time_sharded(case, gen, device)
             t5[case["name"]] = per_call
             (k_ms, k1, k3), (p_ms, p1, p3) = per_call["kernel"], per_call["plain"]
-            n_kern = 6 if case["name"] == "sharded_gather_half" else 2
             phase(4, "time", f"{case['label']}, {W} walkers, f32: one half-step "
                   f"call median [q1, q3] of {2 * TIMING_PAIRS} runs of 20: kernel "
                   f"{k_ms * 1e3:.2f} [{k1 * 1e3:.2f}, {k3 * 1e3:.2f}] us, plain torch "
                   f"{p_ms * 1e3:.2f} [{p1 * 1e3:.2f}, {p3 * 1e3:.2f}] us; the world-1 "
-                  f"sharded runner {r_us:.2f} [{r1:.2f}, {r3:.2f}] us/step ({n_kern} "
+                  f"sharded runner {r_us:.2f} [{r1:.2f}, {r3:.2f}] us/step (2 "
                   f"kernel launches, 2 gathers and 2 NCCL all_gathers a step) vs "
                   f"{case['whole']} {whole_us:.2f} us/step; {device}")
 

@@ -13,7 +13,10 @@ bitwise, lnps rtol 1e-12) and the f32 whole-step kernel over 1024 (K1) /
 512 (K2) / 1024 (K3) steps (acceptance fraction within 0.02); K4a / K4b's
 opacity on the dense problem in both formulas, masked and unmasked; the
 sharded half-steps K5a / K5c / K5b at world size 1, against their plain
-versions and against K1 / K2 / K3; T3's probes. Beyond chip_smoke, the
+versions and against K1 / K2 / K3; T3's probes. K3 also at channel blocks
+of 128, 256 and 512, each at the card's grid, at a grid of a few CTAs and
+with its taus in device memory (K5b at world size 1 against it), and one
+kernel launch per K3 / K5b call. Beyond chip_smoke, the
 cluster launches of K1 and K2 over walker counts whose proposals split
 raggedly over their CTAs, at 16 CTAs, 8 CTAs and 16 CTAs with the tables
 in device memory: f64 64-step chains bitwise against the plain version —
@@ -248,6 +251,65 @@ def test_k3_kernel_matches_plain(dense_cases, label):
     fracs, geom = chip_smoke.check_dense_case(dense_cases[label], gen, {})
     assert fused_gather.LAUNCHES["gather_steps"] > before
     assert geom.n_blk > 1 and 0.1 < fracs["kernel"] < 0.9
+
+
+@pytest.mark.parametrize("cblock", [128, 256, 512])
+@pytest.mark.parametrize("label", ["cheb-split-4d", "states-split-4d", "cheb-rect-4d",
+                                   "analytic-split-5d"])
+def test_k3_chains_bitwise_at_every_block_and_grid(dense_cases, k5_cases, label, cblock):
+    """K3's one cooperative launch at channel blocks of 128, 256 and 512,
+    each at the grid the card takes, at a grid of a few CTAs and with the
+    taus in device memory (the path past the shared-memory limit): f64
+    64-step chains and acceptances bitwise against gather_steps_plain,
+    lnps rtol 1e-12, the lnprob entry equal to the in-chain lnps, and K5b
+    at world size 1 bitwise against K3 (chip_smoke.check_dense_geometries)."""
+    import chip_smoke
+
+    errs = {}
+    chip_smoke.check_dense_geometries(dense_cases[label], errs, cblocks=(cblock,))
+    assert set(errs) == {f"cblock {cblock}"}
+
+
+def test_k3_k5b_one_launch_per_call(dense_cases, k5_cases):
+    """Each C call of K3's steps, its lnprob entry and K5b launches exactly
+    one kernel on the card (torch.profiler's device events named after the
+    kernel), whatever the steps in the call."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
+    from cha1_mcmc_tpu_torch.sampler import fused_gather as fg
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    case = dense_cases["cheb-split-4d"]
+    _, (st, tb), _, plans = chip_smoke.dense_tables(case)
+    geom = plans[torch.float32]
+    pos = chip_smoke.dense_pos0(case).to(torch.float32)
+    lnp = fg.gather_lnprob(pos, tb, st, geom)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    pb, zb, prb, ab = chip_smoke.blocks(draw_randomness(16, 128, gen, device="cuda"), 1)
+    h = 64
+    ops = (pb[0][:h].contiguous(), pos[pb[0][h:].long()].contiguous(), zb[0][0].contiguous(),
+           prb[0][0].contiguous(), ab[0][0].contiguous())
+    state = torch.cat([pos, lnp[:, None]], dim=1).contiguous()
+    calls = {"gather_steps": functools.partial(fg.gather_step_block, pos, lnp, pb[0], zb[0],
+                                               prb[0], ab[0], tb, st, geom),
+             "gather_lnprob": functools.partial(fg.gather_lnprob, pos, tb, st, geom),
+             "sharded_gather_half": functools.partial(sf.sharded_gather_half, state, *ops,
+                                                      tb, st, geom)}
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "gather_kernel" in e.name]
+        assert len(kernels) == 1, (name, kernels)
 
 
 def test_k4_kernels_match_plain(dense_cases):
