@@ -23,7 +23,7 @@ import torch.distributed as dist
 
 from cha1_mcmc_tpu_torch.models.forward import SpectralModel
 from cha1_mcmc_tpu_torch.models.opacity_kernels import (
-    opacity_pallas_csr, opacity_pallas_mxu, unmasked_is_exact)
+    opacity_planned, plan_opacity_block, plan_opacity_csr, unmasked_is_exact)
 from cha1_mcmc_tpu_torch.models.sparse_opacity import (
     block_activity_mask, build_opacity_csr, build_opacity_gather,
     build_opacity_gather_split, opacity_gather, opacity_gather_split)
@@ -32,7 +32,7 @@ from cha1_mcmc_tpu_torch.inference.params import ParamSpec
 
 __all__ = ["build_lnlike", "build_lnprob", "build_lnlike_batched",
            "build_lnprob_batched", "batched_model_pallas",
-           "batched_model_pallas_csr", "batched_model_gather",
+           "batched_model_gather",
            "batched_model_gather_split"]
 
 
@@ -72,41 +72,22 @@ def _batched_opacity_model(opacity_fn, line_freq, line_elower, line_aij,
 
 
 def batched_model_pallas(line_freq, line_elower, line_aij, line_gup, line_glow,
-                         vel_grid, q_fn, grid_freq, mask_center, dish_size, Tbg,
-                         spec, thetas, block_mask, *, unmasked: bool = False,
-                         group=None):
-    """(N, C) walker-batched forward model with the block-sparse opacity
-    kernel K4a in the exp2 form (models/opacity_kernels.py:
-    opacity_pallas_mxu) over the (L, C) velocity grid. unmasked must only
-    be set when unmasked_is_exact() holds for the parameter box. The line
-    arrays may be a rank's line shard (with the block mask of its
-    velocity rows): `group` then sums the partial opacities over the
-    line shards."""
+                         q_fn, grid_freq, dish_size, Tbg, spec, thetas, plan, *,
+                         unmasked: bool = False, group=None):
+    """(N, C) walker-batched forward model with the opacity of an
+    OpacityPlan (models/opacity_kernels.py), in the exp2 form: the
+    block-sparse kernel K4a over the (L, C) velocity grid
+    (plan_opacity_block) or the compacted kernel K4b (plan_opacity_csr).
+    The plan, built once by the caller, holds every table. unmasked must
+    only be set when unmasked_is_exact() holds for the parameter box. The
+    line arrays may be a rank's line shard (with a K4a plan over its
+    velocity rows): `group` then sums the partial opacities over the line
+    shards."""
     return _batched_opacity_model(
-        lambda t, v, d: opacity_pallas_mxu(t, v.contiguous(), d.contiguous(),
-                                           vel_grid, block_mask,
-                                           mask_center=mask_center,
-                                           unmasked=unmasked),
+        lambda t, v, d: opacity_planned(plan, t, v.contiguous(), d.contiguous(),
+                                        masked=not unmasked),
         line_freq, line_elower, line_aij, line_gup, line_glow, q_fn,
         grid_freq, dish_size, Tbg, spec, thetas, group=group)
-
-
-def batched_model_pallas_csr(line_freq, line_elower, line_aij, line_gup,
-                             line_glow, q_fn, grid_freq, mask_center,
-                             dish_size, Tbg, spec, thetas, line_table,
-                             vel_compact, tile_counts, n_channels: int, *,
-                             unmasked: bool = False):
-    """(N, C) walker-batched forward model with the compacted (CSR)
-    opacity kernel K4b (models/opacity_kernels.py:opacity_pallas_csr).
-    unmasked as in batched_model_pallas."""
-    return _batched_opacity_model(
-        lambda t, v, d: opacity_pallas_csr(t, v.contiguous(), d.contiguous(),
-                                           line_table, vel_compact, tile_counts,
-                                           mask_center=mask_center,
-                                           n_channels=n_channels,
-                                           unmasked=unmasked),
-        line_freq, line_elower, line_aij, line_gup, line_glow, q_fn,
-        grid_freq, dish_size, Tbg, spec, thetas)
 
 
 def batched_model_gather(line_freq, line_elower, line_aij, line_gup,
@@ -215,19 +196,23 @@ def _build_batched_model(model: SpectralModel, spec: ParamSpec, *,
                  model.line_gup, model.line_glow)
     common = (model.q, model.grid_freq, model.mask_center, model.dish_size,
               model.Tbg, spec)
-    if pallas_kernel == "csr":
-        line_table, vel_compact, tile_counts = build_opacity_csr(
-            vel_grid, model.mask_center, dv_max)
-        csr = (index(line_table, torch.int32), vel(vel_compact),
-               index(tile_counts, torch.int32), model.n_channels)
-        return lambda thetas: batched_model_pallas_csr(
-            *all_lines, *common, thetas, *csr, unmasked=unmasked)
-    if pallas_kernel == "block":
-        block_mask = index(block_activity_mask(vel_grid, model.mask_center, dv_max),
-                           torch.int32)
+    # the K4 tables are checked and packed once, into a plan per model
+    if pallas_kernel in ("csr", "block"):
+        if pallas_kernel == "csr":
+            line_table, vel_compact, tile_counts = build_opacity_csr(
+                vel_grid, model.mask_center, dv_max)
+            plan = plan_opacity_csr(index(line_table, torch.int32), vel(vel_compact),
+                                    index(tile_counts, torch.int32),
+                                    mask_center=model.mask_center,
+                                    n_channels=model.n_channels)
+        else:
+            block_mask = index(block_activity_mask(vel_grid, model.mask_center, dv_max),
+                               torch.int32)
+            plan = plan_opacity_block(model.vel_grid, block_mask,
+                                      mask_center=model.mask_center)
         return lambda thetas: batched_model_pallas(
-            *all_lines, model.vel_grid, *common, thetas, block_mask,
-            unmasked=unmasked)
+            *all_lines, model.q, model.grid_freq, model.dish_size, model.Tbg, spec,
+            thetas, plan, unmasked=unmasked)
 
     split = build_opacity_gather_split(vel_grid, model.mask_center, dv_max)
     if split is not None:

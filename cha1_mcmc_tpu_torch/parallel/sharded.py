@@ -50,6 +50,7 @@ from cha1_mcmc_tpu_torch.constants import GRAY, RESET
 from cha1_mcmc_tpu_torch.inference.likelihood import batched_model_pallas
 from cha1_mcmc_tpu_torch.inference.params import ParamSpec
 from cha1_mcmc_tpu_torch.models.forward import SpectralModel, forward_from_lines
+from cha1_mcmc_tpu_torch.models.opacity_kernels import plan_opacity_block
 from cha1_mcmc_tpu_torch.models.sparse_opacity import block_activity_mask_traced
 from cha1_mcmc_tpu_torch.parallel.multihost import local_rank
 from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_randomness,
@@ -317,13 +318,13 @@ def shard_lnprob(model: SpectralModel, spec: ParamSpec, grid_ints, grid_yerrs,
     inv_sigma2 = 1.0 / torch.as_tensor(grid_yerrs, dtype=dt, device=dev) ** 2
 
     if use_pallas:
-        # static per run: the shard's block mask is built once
+        # static per run: the shard's block mask and K4a's plan are built once
         block_mask = block_activity_mask_traced(vel, model.mask_center, dv_max)
+        plan = plan_opacity_block(vel, block_mask, mask_center=model.mask_center)
 
         def model_batch(thetas):
-            return batched_model_pallas(*lines, vel, model.q, model.grid_freq,
-                                        model.mask_center, model.dish_size, model.Tbg,
-                                        spec, thetas, block_mask, group=group)
+            return batched_model_pallas(*lines, model.q, model.grid_freq, model.dish_size,
+                                        model.Tbg, spec, thetas, plan, group=group)
     else:
         def model_batch(thetas):
             ss, Ncol, Tex, vlsr, dV = spec.unpack(thetas)

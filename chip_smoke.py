@@ -50,8 +50,13 @@ last line):
      card's grid, at 37 CTAs and with the taus in device memory: f64
      64-step chains bitwise vs plain, the lnprob entry equal to the
      in-chain lnps, K5b bitwise vs K3 off the card's grid.
-     K4a / K4b on the same problem: the opacity of 128 walkers in both
-     formulas, masked and unmasked, against the plain versions. K5a, K5c
+     K4a / K4b on the same problem, through their plans: K4a in the exp
+     form and the exp2 form masked and unmasked, K4b masked and unmasked,
+     against the plain versions (f64 rtol 1e-12, f32 1e-5) at 64, 100,
+     128 and 256 in-box walkers, every walker at the prior's dV bound,
+     narrow windows (channel tiles with no candidate) and walkers outside
+     the prior box; two calls bitwise, and the two geometries (32 and 64
+     channels a CTA) bitwise. K5a, K5c
      and K5b (the sharded half-steps) on the flagship, GOTHAM and dense
      cases at world size 1: the f64 64-step chain of the sharded runner
      bitwise against its plain version and against K1 / K2 / K3 on the
@@ -65,8 +70,11 @@ last line):
      (the floor: no channel walk) and at channel blocks of 128, 256 and
      512, with their bounds (T2); K3 per step at channel blocks of 128
      (the card's grid, 37 and 132 CTAs, taus in device memory), 256 and
-     512; K4a / K4b per opacity evaluation of 128 walkers; the batched
-     gather lnprob of 128 thetas;
+     512; the batched gather lnprob of 128 thetas; K4a / K4b per opacity
+     evaluation of 128 walkers in each form and geometry, K4a at the dV
+     bound and in f64 at 64 walkers, per call (host time included) and in
+     device time (torch.profiler), with their bounds (the least work,
+     beside the old count);
      each K5 per half-step call against its plain version, and the
      world-1 sharded runner per ensemble step beside K1 / K2 / K3; T3 per
      launch. CUDA events after warm-up, in turns (plain, kernel, kernel,
@@ -85,8 +93,12 @@ last line):
      256 steps, with use_fused_step=False;
      make_sharded_sampler(n_devices=1, use_fused=True) with
      ShardedEnsembleSampler.run_mcmc and a chain file at 128 walkers x 2048
-     steps through K5a (flagship), K5c (GOTHAM) and K5b (dense); and T3's
-     run_probes — each with the launch counts of that run;
+     steps through K5a (flagship), K5c (GOTHAM) and K5b (dense); the
+     general sharded runner (make_sharded_sampler(n_devices=1,
+     use_pallas=True) in float64, which leaves K5b out) on the dense
+     problem for 256 steps through K4a (2 launches a step + 1), with its
+     us/step and K4a's share; and T3's run_probes — each with the launch
+     counts of that run;
 then one JSON line of per-kernel results, the card's name and power
 limit, and, last, the device JSON line.
 """
@@ -101,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CU_SOURCE = "cha1_mcmc_tpu_torch/csrc/fused_step.cu"
@@ -992,77 +1005,192 @@ def check_dense_geometries(case, errs, cblocks=CBLOCKS):
               "lnps; K5b = K3 at world size 1 off the card's grid")
 
 
-def opacity_inputs(case, gen, dtype):
-    """(taus (W, L), vlsr, dV) of W in-box dense thetas, and the model, for
-    the opacity kernels."""
+def opacity_inputs(case, gen, dtype, n=W, vlsr=None, dV=None):
+    """(taus (n, L), vlsr, dV) of n in-box dense thetas, and the model, for
+    the opacity kernels; `vlsr` / `dV` (tensors of n) replace the thetas'
+    before the taus are computed."""
     import torch
     from cha1_mcmc_tpu_torch.ops.lte import tau_sticks
 
     label, m32, m64, spec, bounds, means, stds, grid, _ = case
     m = m32 if dtype == torch.float32 else m64
-    th = dense_thetas(W, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(dtype)
-    ss, Ncol, Tex, vlsr, dV = spec.unpack(th)
+    th = dense_thetas(n, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(dtype)
+    if vlsr is not None:
+        th[:, -2] = vlsr.to(dtype)
+    if dV is not None:
+        th[:, -1] = dV.to(dtype)
+    ss, Ncol, Tex, v, d = spec.unpack(th)
     taus = tau_sticks(torch, m.line_freq, m.line_elower, m.line_aij, m.line_gup,
-                      m.line_glow, m.q(Tex)[:, None], Ncol, Tex[:, None], dV[:, None])
-    return taus.contiguous(), vlsr[:, 0].contiguous(), dV.contiguous(), m
+                      m.line_glow, m.q(Tex)[:, None], Ncol, Tex[:, None], d[:, None])
+    return taus.contiguous(), v[:, 0].contiguous(), d.contiguous(), m
+
+
+_OPACITY_TABLES = {}
+
+
+def opacity_tables(m, dtype):
+    """(block_mask, (line_table, vel_compact, tile_counts)) of the dense
+    model's velocity grid at the prior's dV bound, on the card (built once
+    a model)."""
+    import torch
+    from cha1_mcmc_tpu_torch.models.sparse_opacity import (block_activity_mask,
+                                                           build_opacity_csr)
+
+    key = (id(m), dtype)
+    if key not in _OPACITY_TABLES:
+        vg = m.vel_grid.cpu().numpy()
+        mask = torch.as_tensor(block_activity_mask(vg, m.mask_center, DENSE_DV_MAX),
+                               device=DEVICE)
+        lt, vc, tc = build_opacity_csr(vg, m.mask_center, DENSE_DV_MAX)
+        _OPACITY_TABLES[key] = (m, mask, (torch.as_tensor(lt, device=DEVICE),
+                                          torch.as_tensor(vc, dtype=dtype, device=DEVICE),
+                                          torch.as_tensor(tc, device=DEVICE)))
+    return _OPACITY_TABLES[key][1:]
+
+
+#: K4's forms: (kernel, form, masked) — K4a in the exp form (always
+#: masked) and the exp2 form masked and unmasked, K4b masked and unmasked.
+K4_FORMS = {"block-exp-masked": ("block", "exp", True),
+            "block-exp2-masked": ("block", "exp2", True),
+            "block-exp2-unmasked": ("block", "exp2", False),
+            "csr-exp2-masked": ("csr", "exp2", True),
+            "csr-exp2-unmasked": ("csr", "exp2", False)}
 
 
 def opacity_calls(m, dtype):
     """{name: (kernel call, plain call, masked)} over the dense model's
-    tables: K4a in the exp form and the exp2 form masked and unmasked,
-    K4b masked and unmasked; each call takes (taus, vlsr, dV)."""
-    import torch
+    tables for each of K4_FORMS: the kernel through its plan
+    (opacity_planned, as the lnprob paths call it), the plain version on
+    the same tables; each call takes (taus, vlsr, dV)."""
     from cha1_mcmc_tpu_torch.models import opacity_kernels as ok
-    from cha1_mcmc_tpu_torch.models.sparse_opacity import (block_activity_mask,
-                                                           build_opacity_csr)
 
-    vg = m.vel_grid.cpu().numpy()
-    mc = m.mask_center
-    mask = torch.as_tensor(block_activity_mask(vg, mc, DENSE_DV_MAX), device=DEVICE)
-    lt, vc, tc = build_opacity_csr(vg, mc, DENSE_DV_MAX)
-    lt, tc = (torch.as_tensor(x, device=DEVICE) for x in (lt, tc))
-    vc = torch.as_tensor(vc, dtype=dtype, device=DEVICE)
-    C = m.n_channels
+    mask, csr = opacity_tables(m, dtype)
+    plans = {"block": ok.plan_opacity_block(m.vel_grid, mask, mask_center=m.mask_center),
+             "csr": ok.plan_opacity_csr(*csr, mask_center=m.mask_center,
+                                        n_channels=m.n_channels)}
     out = {}
-    out["block-exp-masked"] = (
-        lambda t, v, d: ok.opacity_pallas(t, v, d, m.vel_grid, mask, mask_center=mc),
-        lambda t, v, d: ok.opacity_block_plain(t, v, d, m.vel_grid, mask,
-                                               mask_center=mc, form="exp"), True)
-    for masked in (True, False):
-        out[f"block-exp2-{'masked' if masked else 'unmasked'}"] = (
-            (lambda t, v, d, k=masked: ok.opacity_pallas_mxu(
-                t, v, d, m.vel_grid, mask, mask_center=mc, unmasked=not k)),
-            (lambda t, v, d, k=masked: ok.opacity_block_plain(
-                t, v, d, m.vel_grid, mask, mask_center=mc, form="exp2", masked=k)), masked)
-    for masked in (True, False):
-        out[f"csr-exp2-{'masked' if masked else 'unmasked'}"] = (
-            (lambda t, v, d, k=masked: ok.opacity_pallas_csr(
-                t, v, d, lt, vc, tc, mask_center=mc, n_channels=C, unmasked=not k)),
-            (lambda t, v, d, k=masked: ok.opacity_csr_plain(
-                t, v, d, lt, vc, tc, mask_center=mc, n_channels=C, masked=k)), masked)
+    for name, (kind, form, masked) in K4_FORMS.items():
+        plan = plans[kind]
+
+        def kern(t, v, d, plan=plan, form=form, masked=masked):
+            return ok.opacity_planned(plan, t, v, d, form=form, masked=masked)
+
+        if kind == "block":
+            def plain(t, v, d, form=form, masked=masked):
+                return ok.opacity_block_plain(t, v, d, m.vel_grid, mask,
+                                              mask_center=m.mask_center, form=form,
+                                              masked=masked)
+        else:
+            def plain(t, v, d, masked=masked):
+                return ok.opacity_csr_plain(t, v, d, *csr, mask_center=m.mask_center,
+                                            n_channels=m.n_channels, masked=masked)
+        out[name] = (kern, plain, masked)
     return out
 
 
-def check_opacity(case, gen, errs):
-    """K4a / K4b against their plain versions on W = 128 in-box walkers:
-    f64 rtol 1e-12, f32 rtol 1e-5 (sums of positive terms in another
-    order), each with atol 1e-30 for terms deep in the Gaussians' tails,
-    where the kernels keep subnormals."""
-    import numpy as np
+#: K4's walker counts besides the main path's 128 (64: a half-step of the
+#: sharded runner; 100: a walker group cut short; 256: two groups).
+K4_WALKERS = (64, 100, 128, 256)
+
+
+def k4_cases(case, gen, dtype):
+    """{label: (taus, vlsr, dV)} of K4's checks on the dense problem: in-box
+    walkers at each of K4_WALKERS; every walker at the prior's dV bound
+    (the widest window of any call); narrow windows (dV 0.0005-0.001 and
+    vlsr within 0.002 km/s of the centre: windows of 0.005-0.01 km/s leave
+    ~25-40 of the 86 channel tiles with no candidate); walkers outside the
+    prior box (vlsr up to 40 km/s off the centre, dV from 0.005 to 6),
+    which the unmasked forms must still sum as the plain version does."""
     import torch
 
+    def uniform():
+        return torch.rand(W, generator=gen, device=DEVICE, dtype=torch.float64)
+
+    out = {f"W={n}": opacity_inputs(case, gen, dtype, n=n)[:3] for n in K4_WALKERS}
+    out["dV at the bound"] = opacity_inputs(
+        case, gen, dtype, dV=torch.full((W,), DENSE_DV_MAX, device=DEVICE))[:3]
+    mc = case[1].mask_center
+    out["narrow windows"] = opacity_inputs(case, gen, dtype,
+                                           vlsr=mc + 0.002 * (2.0 * uniform() - 1.0),
+                                           dV=0.0005 + 0.0005 * uniform())[:3]
+    vlsr = mc + 40.0 * (2.0 * uniform() - 1.0)
+    dv = 0.005 * torch.exp(torch.log(torch.tensor(1200.0)) * uniform())
+    out["outside the prior box"] = opacity_inputs(case, gen, dtype, vlsr=vlsr, dV=dv)[:3]
+    out[CUT] = opacity_inputs(case, gen, dtype)[:3]
+    return out
+
+
+#: k4_cases' label of the in-box walkers over cut_model's grid.
+CUT = "C - 1 channels"
+
+#: The labels of k4_cases.
+K4_CASES = tuple(f"W={n}" for n in K4_WALKERS) + ("dV at the bound", "narrow windows",
+                                                  "outside the prior box", CUT)
+
+_CUT_MODELS = {}
+
+
+def cut_model(m):
+    """The dense model's velocity grid less its last channel (10,923
+    channels): its rows (43,692 bytes in f32, 87,384 in f64) are no
+    multiple of 16 bytes, so K4a's plan copies them to a padded pitch
+    (opacity_kernels.kernel_rows), and K4b's output ends inside a tile.
+    Built once a model; opacity_tables builds its tables."""
+    if id(m) not in _CUT_MODELS:
+        C = m.n_channels - 1
+        _CUT_MODELS[id(m)] = (m, types.SimpleNamespace(
+            vel_grid=m.vel_grid[:, :C].contiguous(), mask_center=m.mask_center,
+            n_channels=C))
+    return _CUT_MODELS[id(m)][1]
+
+
+def check_opacity(case, gen, errs, labels=K4_CASES):
+    """K4a / K4b against their plain versions on the dense problem, for
+    each of K4_FORMS on each of k4_cases (those of `labels`): f64 rtol
+    1e-12, f32 rtol 1e-5 (sums of positive terms in another order), each
+    with atol 1e-30 for terms deep in the Gaussians' tails, where the
+    kernels keep subnormals. Also: a second call gives the same bits. The
+    narrow windows must leave some channel tile with no candidate (its
+    output all 0, as the plain version's); the case CUT runs over
+    cut_model's grid, whose rows the plan pads. Returns the most channel
+    tiles without a candidate."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.models import opacity_kernels as ok
+
+    empty_tiles = 0
     for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
-        taus, vlsr, dV, m = opacity_inputs(case, gen, dtype)
-        for name, (kern, plain, _) in opacity_calls(m, dtype).items():
-            k = kern(taus, vlsr, dV).cpu().numpy()
-            p = plain(taus, vlsr, dV).cpu().numpy()
-            assert np.isfinite(k).all() and p.max() > 0, name
-            np.testing.assert_allclose(k, p, rtol=rtol, atol=1e-30,
-                                       err_msg=f"{name} {dtype}")
-            key = "block" if name.startswith("block") else "csr"
-            errs[key] = max(errs.get(key, 0.0), float(np.max(np.abs(k - p))))
-        phase(3, "check", f"K4a/K4b {dtype}: block exp, exp2 masked/unmasked and csr "
-              f"exp2 masked/unmasked match the plain versions (rtol {rtol:g})")
+        m_full = case[1] if dtype == torch.float32 else case[2]
+        cases = {k: v for k, v in k4_cases(case, gen, dtype).items() if k in labels}
+        for label, (taus, vlsr, dV) in cases.items():
+            m = cut_model(m_full) if label == CUT else m_full
+            C = m.n_channels
+            if label == CUT:
+                assert ok.kernel_rows(m.vel_grid)[1] > C, "the cut grid's rows are not padded"
+            for name, (kern, plain, masked) in opacity_calls(m, dtype).items():
+                where = f"{name} {dtype} {label}"
+                k = kern(taus, vlsr, dV)
+                assert torch.equal(kern(taus, vlsr, dV), k), f"{where}: two calls differ"
+                p = plain(taus, vlsr, dV)
+                if label == "narrow windows":
+                    cand = ok.candidates(m.vel_grid, vlsr, dV, m.mask_center,
+                                         masked=masked).any(dim=0)
+                    cand = torch.nn.functional.pad(cand, (0, -C % 128)).reshape(-1, 128)
+                    empty = ~cand.any(dim=1)
+                    assert empty.any() and not empty.all(), where
+                    tiles = torch.nn.functional.pad(k, (0, -C % 128)).reshape(
+                        k.shape[0], -1, 128)
+                    assert not tiles[:, empty].any(), f"{where}: a tile with no candidate"
+                    empty_tiles = max(empty_tiles, int(empty.sum()))
+                k, p = k.cpu().numpy(), p.cpu().numpy()
+                assert k.shape == p.shape == (taus.shape[0], C), where
+                assert np.array_equal(np.isfinite(k), np.isfinite(p)) and p.max() > 0, where
+                np.testing.assert_allclose(k, p, rtol=rtol, atol=1e-30, err_msg=where)
+                key = name.split("-")[0]
+                errs[key] = max(errs.get(key, 0.0), float(np.max(np.abs(k - p))))
+        phase(3, "check", f"K4a/K4b {dtype}: {', '.join(K4_FORMS)} match the plain versions "
+              f"(rtol {rtol:g}, atol 1e-30) on {', '.join(cases)}; two calls bitwise")
+    return empty_tiles
 
 
 def time_calls(calls, reps=20):
@@ -1188,11 +1316,10 @@ def k3_work(plan, tables, st, dv, evaluations=1):
 
 
 def time_dense(case, gen, device):
-    """Phase 4 for K3 and K4 (T2): K3 and its plain version per step and
-    per lnprob of W thetas (time_kernel), K3's lnprob with Q replaced by
-    ones and at channel blocks of 128, 256 and 512, K4a / K4b per opacity
-    evaluation of W walkers against their plain versions, and the batched
-    gather lnprob of W thetas. Returns ({name: ms}, bound inputs)."""
+    """Phase 4 for K3 (T2): K3 and its plain version per step and per
+    lnprob of W thetas (time_kernel), K3's lnprob with Q replaced by ones
+    and at channel blocks of 128, 256 and 512, and the batched gather
+    lnprob of W thetas. Returns ({name: ms}, bound inputs)."""
     import dataclasses
 
     import torch
@@ -1228,12 +1355,6 @@ def time_dense(case, gen, device):
     general = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
                                    use_pallas=True, dv_max=DENSE_DV_MAX)
     calls["batched gather lnprob"] = lambda: general(th)
-    taus, vlsr, dV, _ = opacity_inputs(case, gen, torch.float32)
-    k4 = opacity_calls(m32, torch.float32)
-    for name in ("block-exp2-masked", "csr-exp2-masked"):
-        kern, plain, _ = k4[name]
-        calls[f"{name} kernel"] = lambda f=kern: f(taus, vlsr, dV)
-        calls[f"{name} plain"] = lambda f=plain: f(taus, vlsr, dV)
     t = time_calls(calls)
     for name, (med, q1, q3) in t.items():
         phase(4, "time", f"{name}, {W} thetas / walkers, f32, median [q1, q3] of "
@@ -1243,8 +1364,8 @@ def time_dense(case, gen, device):
           "512: {:.2f} / {:.2f} / {:.2f} us (K3 lnprob of {} thetas; {})".format(
               t["Q(T)"][0] * 1e3, t["Q = 1"][0] * 1e3, t["Q(T)"][0] * 1e3,
               t["cblock 256"][0] * 1e3, t["cblock 512"][0] * 1e3, W, device))
-    phase(4, "time", "no single PyTorch call computes K3's step or lnprob, or K4a / "
-          "K4b's opacity: library_ms is null")
+    phase(4, "time", "no single PyTorch call computes K3's step or lnprob: library_ms "
+          "is null")
 
     # the work this run's inputs need, for the bounds (k3_work); the same
     # count bounds a three-kernel K3 (prepare / evaluate / accept launches,
@@ -1282,24 +1403,230 @@ def time_dense(case, gen, device):
           "blocks 128 / 256 / 512 as Q(T) (K3 lnprob of {} thetas, Q kind {!r})".format(
               t2_bounds["Q(T)"][0] * 1e3, t2_bounds["Q(T)"][1], t2_bounds["Q = 1"][0] * 1e3,
               t2_bounds["Q = 1"][1], W, st.q_kind))
-    # K4: per in-window term one exp2; every term of an active tile pays
-    # the window compare; taus, the velocities of the active tiles (K4a)
-    # or the compacted lines (K4b) and the output move once.
-    from cha1_mcmc_tpu_torch.models.sparse_opacity import (block_activity_mask,
-                                                           build_opacity_csr)
-    vg = m32.vel_grid
-    mask = block_activity_mask(vg.cpu().numpy(), st.mask_center, DENSE_DV_MAX)
-    _, _, counts = build_opacity_csr(vg.cpu().numpy(), st.mask_center, DENSE_DV_MAX)
-    L = m32.n_lines
-    active = torch.as_tensor(mask, device=DEVICE).bool()[
-        torch.arange(L, device=DEVICE) // 512][:, torch.arange(C, device=DEVICE) // 128]
-    win = in_window(torch.where(active, vg, torch.full_like(vg, 1e30)), dV, st.mask_center)
-    io = 4 * (W * L + 2 * W + W * C)
-    work["opacity_block"] = (win, 2 * W * int(active.sum()) + 4 * win,
-                             io + 4 * int(mask.sum()) * 512 * 128)
-    work["opacity_csr"] = (win, 2 * W * int(counts.sum()) * 128 + 4 * win,
-                           io + 4 * int(counts.sum()) * 129)
     return k3, t, work, steps
+
+
+def kernel_events(fn, kernel, calls, tries=3, lead=8):
+    """Durations (us) of the CUDA kernel events whose name holds `kernel`
+    in a torch.profiler window over `calls` calls of fn, each of which
+    must launch one such kernel. On the H100 a window's first kernel
+    records can go missing once other windows have run in the process (a
+    window of one K4 call held only the host's cudaLaunchKernel; with two
+    torch kernels ahead of the call, those two were missing and the K4
+    kernel was there). So each window opens with `lead` small torch
+    kernels to take that loss, and a window with another count is taken
+    again, up to `tries` windows; then it raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    lead_in = torch.zeros(1, device=DEVICE)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                lead_in.add_(1.0)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+        if len(us) == calls:
+            return us
+    raise RuntimeError(f"torch.profiler shows {len(us)} {kernel} events for {calls} calls "
+                       f"in each of {tries} windows")
+
+
+def device_ms(fn, kernel, reps=20):
+    """Device time (ms) a call of fn takes: its `reps` calls' kernel events
+    (kernel_events), summed and divided by `reps`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    return sum(kernel_events(fn, kernel, reps)) / reps / 1e3
+
+
+def k4_work(m, taus, vlsr, dV):
+    """The least work of one K4a / K4b masked exp2 call on these inputs,
+    {kernel: (special-function results, flops, bytes)}, and the count of
+    the pre-redesign kernels (tiles of 8 walkers, every walker testing
+    every element) under "<kernel> old". Least: the active tiles'
+    velocities (K4a) or the compacted rows and their lines (K4b) read once,
+    the taus, vlsr, dV and the output once; one compare per element
+    against the widest window; per walker, a compare per candidate (the
+    prefilter's elements, opacity_kernels.candidates) and, per in-window
+    term, an exp2 and ~4 flops."""
+    import torch
+    from cha1_mcmc_tpu_torch.models import opacity_kernels as ok
+
+    n, L = taus.shape
+    C, mc, size = m.n_channels, m.mask_center, taus.element_size()
+    mask, (lt, vc, tc) = opacity_tables(m, taus.dtype)
+    vg = m.vel_grid
+    active = mask.bool()[torch.arange(L, device=DEVICE) // 512][
+        :, torch.arange(C, device=DEVICE) // 128]
+    n_act = int(active.sum())
+    cand = int((ok.candidates(vg, vlsr, dV, mc, masked=True) & active).sum())
+    win = in_window(torch.where(active, vg, torch.full_like(vg, 1e30)), dV, mc)
+    nC, K = lt.shape
+    rows = (torch.arange(K, device=DEVICE)[None, :] < tc[:, None]).reshape(-1)
+    n_rows = int(rows.sum())
+    vcr = torch.where(rows[:, None], vc, torch.full_like(vc, 1e30))
+    cand_c = int(ok.candidates(vcr, vlsr, dV, mc, masked=True).sum())
+    win_c = in_window(vcr, dV, mc)
+    io = size * (n * L + 2 * n + n * C)
+    return {"opacity_block": (win, n_act + n * cand + 4 * win, io + size * n_act),
+            "opacity_block old": (win, 2 * n * n_act + 4 * win,
+                                  io + size * int(mask.sum()) * 512 * 128),
+            "opacity_csr": (win_c, n_rows * 128 + n * cand_c + 4 * win_c,
+                            io + size * n_rows * 128 + 4 * n_rows),
+            "opacity_csr old": (win_c, 2 * n * n_rows * 128 + 4 * win_c,
+                                io + 4 * n_rows * 129)}, {
+        "active elements": n_act, "candidates": cand, "in-window terms": win,
+        "compacted rows": n_rows, "csr candidates": cand_c}
+
+
+def time_opacity(case, gen, device):
+    """Phase 4 for K4a / K4b, f32, W in-box walkers unless named: each of
+    K4_FORMS through its plan (as the lnprob paths call it), the plain
+    versions of the masked exp2 forms, K4a masked exp2 with every walker
+    at the prior's dV bound,
+    the floor of both (dV 1e-6: the rows streamed and filtered, no
+    candidate), and K4a masked exp2 in f64 at W/2 walkers with its plain
+    version (the
+    general sharded runner's half-step call). Per call, host time
+    included (time_calls, in turns), and each kernel call's device time
+    (device_ms: the kernel's torch.profiler events), median of 3 rounds
+    in turns.
+    Returns ({name: (median, q1, q3) ms per call}, {name: device ms},
+    K4's work)."""
+    import numpy as np
+    import torch
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    taus, vlsr, dV, _ = opacity_inputs(case, gen, torch.float32)
+    wide = opacity_inputs(case, gen, torch.float32,
+                          dV=torch.full((W,), DENSE_DV_MAX, device=DEVICE))[:3]
+    half64 = opacity_inputs(case, gen, torch.float64, n=W // 2)[:3]
+    floor = opacity_inputs(case, gen, torch.float32,
+                           dV=torch.full((W,), 1e-6, device=DEVICE))[:3]
+    k4 = opacity_calls(m32, torch.float32)
+    k64 = opacity_calls(m64, torch.float64)["block-exp2-masked"]
+    calls = {f"{name} kernel": (lambda f=kern: f(taus, vlsr, dV))
+             for name, (kern, _, _) in k4.items()}
+    for name in ("block-exp2-masked", "csr-exp2-masked"):
+        calls[f"{name} plain"] = lambda f=k4[name][1]: f(taus, vlsr, dV)
+    calls["block-exp2-masked kernel, dV at the bound"] = (
+        lambda f=k4["block-exp2-masked"][0]: f(*wide))
+    calls["block-exp2-masked kernel, floor (dV 1e-6: no candidate)"] = (
+        lambda f=k4["block-exp2-masked"][0]: f(*floor))
+    calls["csr-exp2-masked kernel, floor (dV 1e-6: no candidate)"] = (
+        lambda f=k4["csr-exp2-masked"][0]: f(*floor))
+    calls["block-exp2-masked kernel, f64, W/2"] = lambda f=k64[0]: f(*half64)
+    calls["block-exp2-masked plain, f64, W/2"] = lambda f=k64[1]: f(*half64)
+    t = time_calls(calls)
+    kernels = [k for k in calls if "plain" not in k]
+    dev = {k: [] for k in kernels}
+    for _ in range(3):
+        for name in kernels + kernels[::-1]:
+            dev[name].append(device_ms(calls[name], "opacity_kernel"))
+    dev = {k: float(np.median(v)) for k, v in dev.items()}
+    for name, (med, q1, q3) in t.items():
+        phase(4, "time", f"K4 {name}: call (host time included) median [q1, q3] of "
+              f"{2 * TIMING_PAIRS} runs of 20 calls {med * 1e3:.2f} [{q1 * 1e3:.2f}, "
+              f"{q3 * 1e3:.2f}] us" + (f", device {dev[name] * 1e3:.2f} us" if name in dev
+                                       else "") + f"; {device}")
+    phase(4, "time", "K4 device times by torch.profiler; no single PyTorch call "
+          "computes K4a / K4b's opacity: library_ms is null")
+
+    work, counts = k4_work(m32, taus, vlsr, dV)
+    for kname, key in (("opacity_block", "block-exp2-masked"),
+                       ("opacity_csr", "csr-exp2-masked")):
+        new, old = bound(*work[kname]), bound(*work[f"{kname} old"])
+        phase(4, "time", f"{kname} bound (least work: the rows read once, a compare per "
+              f"element, per walker a compare per candidate and an exp2 per in-window "
+              f"term) {new[0] * 1e3:.4f} us ({new[1]}); the old count (every walker "
+              f"testing every element) {old[0] * 1e3:.4f} us ({old[1]}); device time "
+              f"{dev[key + ' kernel'] * 1e3:.2f} us is {new[0] / dev[key + ' kernel']:.2%} "
+              f"of the new bound; {counts}; {device}")
+    return t, dev, work
+
+
+def slice_general_sharded(case, gen, k4a_ms, device, nruns=256):
+    """Phase 5: the general sharded runner on the full-size dense problem
+    at world size 1 in float64 — make_sharded_sampler(n_devices=1,
+    use_pallas=True, use_fused=True): float64 leaves K5b out, so each
+    half-step evaluates its W/2 proposals through K4a (shard_lnprob) —
+    ShardedEnsembleSampler.run_mcmc for `nruns` steps: K4a launches 2 a
+    step + 1 (the entry lnp), no other kernel; then the runner itself per
+    step (CUDA events, 3 runs of 64 steps) and K4a's share of it at
+    `k4a_ms` (its f64 W/2 device time). Returns the launch counts."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.inference import single_component_lnprior
+    from cha1_mcmc_tpu_torch.parallel import make_sharded_runner, make_sharded_sampler
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    label, m32, m64, spec, bounds, means, stds, grid, _ = case
+    f64 = torch.float64
+    prior = single_component_lnprior(spec, bounds, means, stds, dtype=f64)
+    pos0 = dense_pos0(case)
+    zero_launches()
+    sampler = make_sharded_sampler(
+        n_devices=1, n_line_shards=1, nwalkers=W, ndim=spec.ndim, a=2.0, dtype=f64,
+        model=m64, spec=spec, grid_ints=grid.ints, grid_yerrs=grid.yerrs,
+        lnprior_fn=prior, use_pallas=True, dv_max=DENSE_DV_MAX, use_fused=True,
+        bounds=bounds, prior_means=means, prior_stds=stds, verbose=False)
+    assert not (sampler.use_fused or sampler.use_fused_gather or sampler.use_fused_multi)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(5)
+    t0 = time.perf_counter()
+    sampler.run_mcmc(pos0, nruns, g, checkpoint_every=1024)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    assert launches["opacity_block"] == 2 * nruns + 1, launches
+    assert sum(launches.values()) == launches["opacity_block"], launches
+    chain = sampler.chain
+    assert chain.shape == (W, nruns, spec.ndim) and np.isfinite(chain).all(), label
+    acc = sampler.acceptance_fraction
+    assert 0.1 < acc < 0.9, (label, acc)
+
+    runner = make_sharded_runner(m64, spec, grid.ints, grid.yerrs, prior, MESH, 64,
+                                 use_pallas=True, dv_max=DENSE_DV_MAX)
+    pos = torch.as_tensor(chain[:, -1], device=DEVICE)
+    lnp = runner.entry_lnprob(pos)
+    rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=f64)
+    runner(pos, lnp0=lnp, randomness=rnd)   # warm-up
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        runner(pos, lnp0=lnp, randomness=rnd)
+        e1.record()
+        torch.cuda.synchronize()
+        runs.append(1e3 * e0.elapsed_time(e1) / 64)
+    us = float(np.median(runs))
+    # where a step goes: one torch.profiler window over the 64 steps
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner(pos, lnp0=lnp, randomness=rnd)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 64
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    phase(5, "slice", f"general sharded runner, f64: device busy {busy:.2f} us of "
+          f"{us:.2f} us a step (idle share {1 - busy / us:.4f}); by kernel: " + "; ".join(
+              f"{n[:60]} {t:.2f} us" for n, t in top) + f"; {device}")
+    phase(5, "slice", f"general sharded runner, dense {label}, f64, world size 1: "
+          f"ShardedEnsembleSampler.run_mcmc {nruns} steps, launches {launches} (K4a: 2 a "
+          f"step + 1), acceptance {acc:.3f}, {W * nruns / secs:,.0f} walker-steps/s; the "
+          f"runner {us:.2f} us/step (median of 3 runs of 64), of which K4a's 2 calls at "
+          f"{k4a_ms * 1e3:.2f} us device time each are {2e3 * k4a_ms / us:.2%}; {device}")
+    return launches
 
 
 def k1_work(tables, st, dv, evaluations=1):
@@ -2137,9 +2464,9 @@ def main() -> int:
               f"(vs batched gather {errs3['general']:.3e}), f64 step lnps "
               f"{errs3['steps']:.3e}; by channel block " + ", ".join(
                   f"{k} {v:.3e}" for k, v in errs_k3.items()) + f" ({device})")
-        check_opacity(dense[0], gen, errs4)
+        empty = check_opacity(dense[0], gen, errs4)
         phase(3, "check", f"K4 max |kernel - plain|: block {errs4['block']:.3e}, csr "
-              f"{errs4['csr']:.3e} ({device})")
+              f"{errs4['csr']:.3e}; up to {empty} channel tiles with no candidate ({device})")
         k5 = k5_cases(all_cases[0], gotham[0], dense[0])
         for case in k5:
             fracs = check_sharded(case, gen, errs5)
@@ -2165,7 +2492,8 @@ def main() -> int:
         glabel, _, _, _, gmeans, _, gpert, _ = gotham[0]
         time_geometries("K2", glabel, tb2, st2,
                         multi_pos0(gmeans, gpert, seed=1).to(torch.float32), gen, device)
-        t3, t4, w3, _ = time_dense(dense[0], gen, device)
+        t3, _, w3, _ = time_dense(dense[0], gen, device)
+        t4, d4, w4 = time_opacity(dense[0], gen, device)
         t5 = {}
         for case, whole_us in zip(k5, (t1[0], t2[0], t3[0])):
             per_call, (r_us, r1, r3) = time_sharded(case, gen, device)
@@ -2190,8 +2518,12 @@ def main() -> int:
                         if k.startswith("gather"))
         slice_dense(prob_d, tmp, device, fused_step=False, nruns=256)
         # the opacity kernels run on the "csr" / "block" formulations of the
-        # batched lnprob: drive each once through build_lnprob_batched
-        launches.update(slice_opacity(dense[0], gen))
+        # batched lnprob: drive each once through build_lnprob_batched; K4a's
+        # launches are those of the general sharded runner, where a fit
+        # reaches it (float64, world size 1)
+        launches["opacity_csr"] = slice_opacity(dense[0], gen)["opacity_csr"]
+        launches["opacity_block"] = slice_general_sharded(
+            dense[0], gen, d4["block-exp2-masked kernel, f64, W/2"], device)["opacity_block"]
         # the sharded path at world size 1, through each K5
         f32 = torch.float32
         _, m32, _, spec, cfg, grid = all_cases[0]
@@ -2214,7 +2546,7 @@ def main() -> int:
                         if k == "construct_probe")
     dist.destroy_process_group()
 
-    work = {**w1, **w2, **w3}
+    work = {**w1, **w2, **w3, **w4}
     entries = []
     for (k_us, p_us, lk_ms, lp_ms), e, src, (steps_name, steps_tpu), (lnp_name, lnp_tpu) in (
             (t1, errs, CU_SOURCE, ("fused_steps", STEP_KERNEL_TPU),
@@ -2235,7 +2567,8 @@ def main() -> int:
         entries.append({"name": kname, "route": "cuda", "source": CU_SOURCE_K4,
                         "replaces": tpu, "launches": launches[kname],
                         "max_abs_err": errs4[kname.split("_")[1]],
-                        "ms": t4[f"{key} kernel"][0], "plain_ms": t4[f"{key} plain"][0]})
+                        "ms": t4[f"{key} kernel"][0], "plain_ms": t4[f"{key} plain"][0],
+                        "device_ms": d4[f"{key} kernel"]})
     for case in k5:   # per half-step call
         kname = case["name"]
         work[kname] = case["work"]

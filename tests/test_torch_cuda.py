@@ -11,7 +11,9 @@ rectangular table, analytic Q in 5 dims): the f32 lnprob entry (rtol
 2e-5), the f64 whole-step kernel over 64 steps (chain and acceptances
 bitwise, lnps rtol 1e-12) and the f32 whole-step kernel over 1024 (K1) /
 512 (K2) / 1024 (K3) steps (acceptance fraction within 0.02); K4a / K4b's
-opacity on the dense problem in both formulas, masked and unmasked; the
+opacity on the dense problem in both formulas, masked and unmasked, at
+64, 100, 128 and 256 walkers, at the prior's dV bound, with narrow
+windows and outside the prior box, and one launch per K4 call; the
 sharded half-steps K5a / K5c / K5b at world size 1, against their plain
 versions and against K1 / K2 / K3; T3's probes. K3 also at channel blocks
 of 128, 256 and 512, each at the card's grid, at a grid of a few CTAs and
@@ -312,7 +314,15 @@ def test_k3_k5b_one_launch_per_call(dense_cases, k5_cases):
         assert len(kernels) == 1, (name, kernels)
 
 
-def test_k4_kernels_match_plain(dense_cases):
+@pytest.mark.parametrize("label", ["W=64", "W=100", "W=128", "W=256", "dV at the bound",
+                                   "narrow windows", "outside the prior box",
+                                   "C - 1 channels"])
+def test_k4_kernels_match_plain(dense_cases, label):
+    """K4a (exp; exp2 masked and unmasked) and K4b (masked and unmasked)
+    against their plain versions on the dense problem, f64 rtol 1e-12 and
+    f32 rtol 1e-5, on one of chip_smoke.k4_cases (the last over the grid
+    less a channel, whose rows K4a's plan pads); two calls bitwise
+    (chip_smoke.check_opacity)."""
     import chip_smoke
     from cha1_mcmc_tpu_torch.models import opacity_kernels
 
@@ -320,9 +330,27 @@ def test_k4_kernels_match_plain(dense_cases):
     gen.manual_seed(7)
     before = dict(opacity_kernels.LAUNCHES)
     errs = {}
-    chip_smoke.check_opacity(dense_cases["cheb-split-4d"], gen, errs)
+    empty = chip_smoke.check_opacity(dense_cases["cheb-split-4d"], gen, errs, labels=(label,))
     assert all(opacity_kernels.LAUNCHES[k] > before[k] for k in before)
     assert set(errs) == {"block", "csr"}
+    assert (empty > 0) == (label == "narrow windows")
+
+
+def test_k4_one_launch_per_call(dense_cases):
+    """Each K4 call, in every form, launches exactly one kernel on the card
+    (torch.profiler's device events named after it: chip_smoke.
+    kernel_events raises unless a window of one call shows exactly one)."""
+    import chip_smoke
+
+    case = dense_cases["cheb-split-4d"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    taus, vlsr, dV, m = chip_smoke.opacity_inputs(case, gen, torch.float32)
+    for name, (kern, _, _) in chip_smoke.opacity_calls(m, torch.float32).items():
+        kern(taus, vlsr, dV)
+        torch.cuda.synchronize()
+        assert len(chip_smoke.kernel_events(lambda: kern(taus, vlsr, dV),
+                                            "opacity_kernel", 1)) == 1, name
 
 
 @pytest.fixture(scope="module")
