@@ -1,7 +1,11 @@
 // Device code of the port's cluster step kernels — K1 and its sharded
 // half-step K5a (fused_step.cu), K2 and its sharded half-step K5c
 // (multi_step.cu): one ensemble spread over a thread-block cluster of up
-// to 16 CTAs.
+// to 16 CTAs. A K1 or K2 launch runs K independent ensembles, one
+// cluster each: its grid is (n, K) with clusters of (n, 1), and each
+// cluster reads its chain from blockIdx.y (chain_offsets). No barrier
+// crosses clusters, so K may exceed the clusters the card holds at once;
+// the rest run in later waves. K5a and K5c launch one cluster (K = 1).
 //
 //  * CTA `rank` of n owns proposals [rank h / n, (rank + 1) h / n) of a
 //    half-update (owned_slice): a balanced, possibly ragged split in which
@@ -218,14 +222,30 @@ __device__ void cluster_half_update(const T* state, int D, int h, const int32_t*
   cluster.sync();
 }
 
-// The launch configuration of one cluster of n CTAs of kThreads threads
-// with `smem` bytes of dynamic shared memory each; sets the kernel's
-// attributes for it (sizes above 8 are non-portable). `attr` backs
-// cfg.attrs. Returns a CUDA error code.
+// The offsets of chain blockIdx.y in a step launch's (K, ...) arrays:
+// walkers (K, W, D) and lnp (K, W); permutations (K, k W) and uniforms /
+// partners (K, 2k, W / 2), k W each; outputs chain (K, k W, D), lnps
+// (K, k W) and acceptances (K, k). The tables and statics are every
+// chain's.
+struct ChainOffsets {
+  size_t walkers, lnp, steps, chain, acc;
+};
+
+__device__ __forceinline__ ChainOffsets chain_offsets(int W, int D, int k) {
+  const size_t c = blockIdx.y, kW = (size_t)k * W;
+  return {c * W * D, c * W, c * kW, c * kW * D, c * k};
+}
+
+// The launch configuration of `chains` clusters of n CTAs of kThreads
+// threads (grid (n, chains), clusters (n, 1)) with `smem` bytes of
+// dynamic shared memory each; sets the kernel's attributes for it (sizes
+// above 8 are non-portable). `attr` backs cfg.attrs. Returns a CUDA error
+// code.
 template <typename Kernel>
-int cluster_config(Kernel kernel, int n, size_t smem, void* stream,
+int cluster_config(Kernel kernel, int n, int chains, size_t smem, void* stream,
                    cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  if (n < 1 || n > kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxCluster || chains < 1 || chains > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess && n > 8)
@@ -236,7 +256,7 @@ int cluster_config(Kernel kernel, int n, size_t smem, void* stream,
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(n, 1, 1);
+  cfg->gridDim = dim3(n, chains, 1);
   cfg->blockDim = dim3(kThreads, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = static_cast<cudaStream_t>(stream);
@@ -251,18 +271,19 @@ template <typename Kernel>
 int cluster_occupancy(Kernel kernel, int n, size_t smem, int* out_clusters) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  const int err = cluster_config(kernel, n, smem, nullptr, &attr, &cfg);
+  const int err = cluster_config(kernel, n, 1, smem, nullptr, &attr, &cfg);
   if (err != (int)cudaSuccess) return err;
   return (int)cudaOccupancyMaxActiveClusters(out_clusters, kernel, &cfg);
 }
 
-// Launch `kernel` as one cluster of n CTAs. Returns a CUDA error code,
-// cudaGetLastError() after the launch.
+// Launch `kernel` as `chains` clusters of n CTAs. Returns a CUDA error
+// code, cudaGetLastError() after the launch.
 template <typename Kernel, typename... Args>
-int cluster_launch(Kernel kernel, int n, size_t smem, void* stream, Args... args) {
+int cluster_launch(Kernel kernel, int n, int chains, size_t smem, void* stream,
+                   Args... args) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  const int err = cluster_config(kernel, n, smem, stream, &attr, &cfg);
+  const int err = cluster_config(kernel, n, chains, smem, stream, &attr, &cfg);
   if (err != (int)cudaSuccess) return err;
   const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (launched != cudaSuccess) return (int)launched;

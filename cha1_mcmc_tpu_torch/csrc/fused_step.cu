@@ -32,6 +32,13 @@
 //    (cluster_step.cuh), each with a full copy of the (W, D+1) state in
 //    shared memory; CTA r owns proposals [r h / n, (r + 1) h / n) of every
 //    half — at 128 walkers 4 proposals, one round of its 4 warp groups;
+//  * K independent ensembles (MultiChainSampler, the JAX package's vmap
+//    over chains) run in one launch, one cluster each (grid (n, K);
+//    cluster_step.cuh: chain_offsets): each cluster offsets its walkers,
+//    randomness and outputs by its chain and reads the shared tables, so
+//    K chains pay one launch per k steps, and a chain's trajectory is the
+//    one it takes launched alone, bitwise; clusters past those the card
+//    holds at once run in later waves;
 //  * four warps per proposal, 128 lanes striding the channels (~4-5 a lane
 //    at the flagship); their chi^2 partials are reduced per warp and added
 //    in warp order (no float atomics: a theta's lnprob is one function of
@@ -82,7 +89,8 @@
 //
 // C entries (all return a CUDA error code, cudaGetLastError() after the
 // launch):
-//   k1_fused_steps_{f32,f64}: k whole steps of one ensemble, one cluster;
+//   k1_fused_steps_{f32,f64}: k whole steps of K ensembles, one cluster
+//                             each (grid (n, K));
 //   k1_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch,
 //                             kGroups thetas per CTA, no cluster;
 //   k5a_half_{f32,f64}:       one sharded half-step (K5a), state in place;
@@ -227,7 +235,8 @@ __device__ K1Tables<T> stage_tables(const Statics<T>& st, const K1Tables<T>& g,
   return K1Tables<T>{s.lines, s.vel, s.line_idx, s.chans, g.qst, g.La, g.M, g.C, g.S};
 }
 
-// K1: k whole steps of one ensemble on one cluster.
+// K1: k whole steps of K independent ensembles, one cluster each: this
+// cluster runs chain blockIdx.y.
 template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 k1_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
@@ -240,6 +249,16 @@ k1_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, h = W / 2, D1 = D + 1;
   const int rank = (int)cluster.block_rank();
+  const ChainOffsets at = chain_offsets(W, D, k);
+  coords += at.walkers;
+  lnp0 += at.lnp;
+  perm += at.steps;
+  zu += at.steps;
+  pair += at.steps;
+  au += at.steps;
+  out_chain += at.chain;
+  out_lnps += at.steps;
+  out_acc += at.acc;
   const Carve<T> s = carve<T>(smem, L);
   for (int i = tid; i < W * D; i += kThreads) s.state[(i / D) * D1 + i % D] = coords[i];
   for (int w = tid; w < W; w += kThreads) s.state[w * D1 + D] = lnp0[w];
@@ -332,10 +351,11 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm, const v
                  const void* pair, const void* au, const void* lines, const void* vel,
                  const void* line_idx, const void* chans, const void* qst, void* out_chain,
                  void* out_lnps, void* out_acc, const void* statics, const void* layout,
-                 int W, int D, int La, int M, int C, int S, int k, int n, void* stream) {
+                 int W, int D, int La, int M, int C, int S, int k, int chains, int n,
+                 void* stream) {
   const Statics<T> st = *static_cast<const Statics<T>*>(statics);
   const SmemLayout L = *static_cast<const SmemLayout*>(layout);
-  return cluster_launch(steps_kernel<T>(L), n, (size_t)L.bytes, stream,
+  return cluster_launch(steps_kernel<T>(L), n, chains, (size_t)L.bytes, stream,
                         static_cast<const T*>(coords), static_cast<const T*>(lnp0),
                         static_cast<const int32_t*>(perm), static_cast<const T*>(zu),
                         static_cast<const int32_t*>(pair), static_cast<const T*>(au),
@@ -352,7 +372,7 @@ int launch_half(void* state, const void* act, const void* comp, const void* zu,
                 int S, int n, void* stream) {
   const Statics<T> st = *static_cast<const Statics<T>*>(statics);
   const SmemLayout L = *static_cast<const SmemLayout*>(layout);
-  return cluster_launch(half_kernel<T>(L), n, (size_t)L.bytes, stream,
+  return cluster_launch(half_kernel<T>(L), n, 1, (size_t)L.bytes, stream,
                         static_cast<T*>(state), static_cast<const int32_t*>(act),
                         static_cast<const T*>(comp), static_cast<const T*>(zu),
                         static_cast<const int32_t*>(pair), static_cast<const T*>(au),
@@ -405,10 +425,10 @@ void k1_geometry(int* out) { layout_geometry(out); }
                            const void* chans, const void* qst, void* out_chain,         \
                            void* out_lnps, void* out_acc, const void* statics,          \
                            const void* layout, int W, int D, int La, int M, int C,      \
-                           int S, int k, int cluster, void* stream) {                   \
+                           int S, int k, int chains, int cluster, void* stream) {       \
     return launch_steps<T>(coords, lnp0, perm, zu, pair, au, lines, vel, line_idx,      \
                            chans, qst, out_chain, out_lnps, out_acc, statics, layout,   \
-                           W, D, La, M, C, S, k, cluster, stream);                      \
+                           W, D, La, M, C, S, k, chains, cluster, stream);              \
   }                                                                                     \
   int k1_lnprob_##SFX(const void* theta, void* out, const void* lines, const void* vel, \
                       const void* line_idx, const void* chans, const void* qst,         \

@@ -382,9 +382,9 @@ class ShardedEnsembleSampler(EnsembleSampler):
     with every rank running the same calls (SPMD). Rank 0 writes the
     files; the sidecar holds every rank's shard generator state
     (`rng_states`, in rank order), and load_state gives each rank its own
-    back. What `FitConfig.n_devices` routes to — the replacement for the
-    reference's multiprocessing pool fan-out (reference
-    inference.py:456-463).
+    back. A device error is raised, not retried (run_mcmc). What
+    `FitConfig.n_devices` routes to — the replacement for the reference's
+    multiprocessing pool fan-out (reference inference.py:456-463).
 
     Runners by flag: use_fused_multi K5c, use_fused_gather K5b (with
     gather_plan), use_fused K5a (parallel/sharded_fused.py), else the
@@ -486,6 +486,14 @@ class ShardedEnsembleSampler(EnsembleSampler):
         self._generator = torch.Generator(device=self.mesh.device)
         self._generator.set_state(rng)
         return rng
+
+    def run_mcmc(self, pos, nsteps: int, generator: torch.Generator, **kwargs):
+        """EnsembleSampler.run_mcmc with no retry: a device error is raised
+        on the rank that meets it. That rank has left the block's
+        collectives midway, so the ranks cannot run the block again
+        together; the other ranks' pending collective fails once its
+        process group goes down."""
+        return super().run_mcmc(pos, nsteps, generator, **{**kwargs, "max_retries": 0})
 
 
 def make_sharded_sampler(*, n_devices: int, n_line_shards: int, nwalkers: int,

@@ -80,8 +80,9 @@ class FitConfig:
     use_fused_step: bool = True      # fused whole-step kernel (K1, or K3
                                      # on the sparse path) when applicable
     resume: bool = False             # continue an existing chain file
-    profile_dir: str | None = None   # trace of sampling (ROADMAP P13; not
-                                     # in the port yet)
+    profile_dir: str | None = None   # write a torch.profiler trace of the
+                                     # sampling here (utils/metrics.py:
+                                     # trace_profile)
 
     def __post_init__(self):
         if self.fixed_source_size is not None and len(self.template_means) == 5:

@@ -15,7 +15,13 @@ single-component fit, the dense whole-step kernel K3
 (FusedEnsembleSampler over sampler/fused_gather.py). Otherwise on a CUDA
 device a single-component float32 fit runs through the fused whole-step
 kernel K1. Elsewhere, or with use_fused_step=False, the general
-EnsembleSampler over the batched lnprob. With n_devices > 1 the fit runs
+EnsembleSampler over the batched lnprob. With n_chains = K > 1 the fit
+runs K independent ensembles of nwalkers / K walkers
+(MultiChainSampler): on a CUDA device, for a float32 fit K1 takes at the
+per-chain walker count, all K chains in one K1 launch per k steps;
+otherwise the general sampler chain by chain (the sparse path included,
+as in the JAX package); the cross-chain R-hat is printed after sampling.
+With n_devices > 1 the fit runs
 on a mesh of torch.distributed ranks (parallel/sharded.py:
 make_sharded_sampler, through the half-step kernels K5a / K5b where they
 apply): every rank runs SpectralFit.run() on the same config, the
@@ -46,6 +52,7 @@ from cha1_mcmc_tpu_torch.inference import (
 from cha1_mcmc_tpu_torch.sampler import (
     EnsembleSampler,
     FusedEnsembleSampler,
+    MultiChainSampler,
     chain_to_priors,
     initialize_walkers,
     load_chain,
@@ -62,8 +69,8 @@ from cha1_mcmc_tpu_torch.reduce.datagrid import (
     save_datagrid,
 )
 from cha1_mcmc_tpu_torch.pipeline.config import FitConfig
-from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results
-from cha1_mcmc_tpu_torch.utils import Throughput
+from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results, report_convergence
+from cha1_mcmc_tpu_torch.utils import Throughput, trace_profile
 
 __all__ = ["SpectralFit"]
 
@@ -88,12 +95,6 @@ class SpectralFit:
         self.sharded = config.n_devices is not None and config.n_devices > 1
         if self.sharded:
             self.device = sharded_device(self.device)
-        if config.n_chains > 1:
-            raise NotImplementedError("multi-chain fits (n_chains > 1) are "
-                                      "ROADMAP P15, not ported yet")
-        if config.profile_dir is not None:
-            raise NotImplementedError("sampling traces (profile_dir) are "
-                                      "ROADMAP P13, not ported yet")
         self.spec = ParamSpec(ncomp=1, fixed_source_size=config.fixed_source_size)
         self.dtype = _DTYPES[config.dtype]
         self.catalog = None
@@ -153,14 +154,15 @@ class SpectralFit:
         return all(b[k][0] < v < b[k][1] for k, v in zip(keys, theta))
 
     def _use_fused(self, model: SpectralModel) -> bool:
-        """The K1 selection rule (JAX fit.py:319-339): CUDA, one
-        component, float32, and K1's cluster plan at 8 CTAs within a CTA's
+        """The K1 selection rule (JAX fit.py:319-339, and :275-281 for K
+        chains): CUDA, one component, float32, and K1's cluster plan for
+        one ensemble (nwalkers / n_chains walkers) at 8 CTAs within a CTA's
         shared memory (fused_fits: no channel limit)."""
         cfg = self.config
         return (cfg.use_fused_step and self.device.type == "cuda"
                 and self.spec.ncomp == 1 and self.dtype == torch.float32
-                and fused_fits(cfg.nwalkers, self.spec.ndim, model.n_lines,
-                               self.dtype))
+                and fused_fits(cfg.nwalkers // cfg.n_chains, self.spec.ndim,
+                               model.n_lines, self.dtype))
 
     def _use_fused_gather(self, model: SpectralModel) -> bool:
         """The K3 selection rule (JAX fit.py:292-296), for the sparse
@@ -245,9 +247,21 @@ class SpectralFit:
                 nwalkers=cfg.nwalkers, ndim=self.spec.ndim, a=cfg.stretch_a,
                 dtype=self.dtype, model=model, spec=self.spec, grid_ints=grid.ints,
                 grid_yerrs=grid.yerrs, lnprior_fn=lnprior, use_pallas=use_pallas,
-                dv_max=cfg.bounds["dV"][1], use_fused=cfg.use_fused_step,
-                bounds=cfg.bounds, prior_means=prior_means, prior_stds=prior_stds,
-                device=self.device)
+                dv_max=cfg.bounds["dV"][1], n_chains=cfg.n_chains,
+                use_fused=cfg.use_fused_step, bounds=cfg.bounds, prior_means=prior_means,
+                prior_stds=prior_stds, device=self.device)
+        elif cfg.n_chains > 1:
+            # K independent ensembles; all K through one K1 launch per k
+            # steps where K1 takes the per-chain ensemble (JAX fit.py:271-291).
+            run_fn = None
+            if not use_pallas and self._use_fused(model):
+                run_fn = make_fused_ensemble(
+                    model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
+                    prior_means, prior_stds, a=cfg.stretch_a)
+            self.sampler = MultiChainSampler(
+                lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
+                a=cfg.stretch_a, dtype=self.dtype, device=self.device,
+                n_chains=cfg.n_chains, run_fn=run_fn)
         elif use_pallas and self._use_fused_gather(model):
             # K3: the dense whole-step kernel over the channel-major tables,
             # one call per k ensemble steps spread over the card
@@ -301,7 +315,7 @@ class SpectralFit:
             lnp0 = None
 
         throughput = Throughput()
-        with throughput:
+        with trace_profile(cfg.profile_dir), throughput:
             self.sampler.run_mcmc(
                 pos, cfg.nruns, generator, lnp0=lnp0,
                 checkpoint_every=cfg.checkpoint_every,
@@ -319,6 +333,9 @@ class SpectralFit:
               f"{self.sampler.acceptance_fraction:.3f}  |  "
               f"{throughput.walker_steps_per_sec:,.0f} walker-steps/s on "
               f"{device_name} (wall, incl. checkpoints){RESET}")
+        if cfg.n_chains > 1:
+            self.convergence = report_convergence(self.sampler.chain, self.spec.labels,
+                                                  cfg.n_chains)
         return self.sampler.chain
 
     # -- full run ----------------------------------------------------------

@@ -12,6 +12,10 @@ whose problem K2 supports (sampler/fused_multi.py:fused_multi_supported)
 runs through the fused whole-step kernel K2 (FusedEnsembleSampler);
 elsewhere, or with use_fused_step=False, the general EnsembleSampler over
 the batched gather lnprob (use_sparse_opacity=True) or the dense lnprob.
+With n_chains = K > 1 the fit runs K independent ensembles of nwalkers /
+K walkers (MultiChainSampler) over the batched gather lnprob, all K
+through one K2 launch per k steps where K2 takes the per-chain ensemble
+(JAX multifit.py:264-287), and prints the cross-chain R-hat.
 With n_devices > 1 the fit runs on a mesh of torch.distributed ranks
 (parallel/sharded.py: make_sharded_sampler, through the half-step kernel
 K5c where it applies); every rank runs the fit, only rank 0 writes files.
@@ -33,14 +37,14 @@ from cha1_mcmc_tpu_torch.inference import (ParamSpec, build_lnprob,
                                            build_lnprob_batched,
                                            ordered_velocity_lnprior)
 from cha1_mcmc_tpu_torch.sampler import (EnsembleSampler, FusedEnsembleSampler,
-                                         chain_to_priors, load_chain)
+                                         MultiChainSampler, chain_to_priors, load_chain)
 from cha1_mcmc_tpu_torch.sampler.fused_multi import (fused_multi_supported,
                                                      make_fused_ensemble_multi)
 from cha1_mcmc_tpu_torch.parallel.sharded import (make_sharded_sampler, sharded_device,
                                                   writes_files)
 from cha1_mcmc_tpu_torch.reduce.datagrid import (Datagrid, read_spectrum_gotham,
                                                  save_datagrid)
-from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results
+from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results, report_convergence
 from cha1_mcmc_tpu_torch.utils import Throughput
 
 __all__ = ["MultiFitConfig", "MultiComponentFit"]
@@ -106,8 +110,8 @@ class MultiFitConfig:
                                      # size, one rank per device, each
                                      # running the fit (rank 0 writes)
     n_line_shards: int = 1           # of which, this many shard the line axis
-    n_chains: int = 1                # independent ensembles (ROADMAP P15;
-                                     # not in the port yet)
+    n_chains: int = 1                # independent ensembles (nwalkers is the
+                                     # total; enables cross-chain R-hat)
 
     @property
     def ndim(self) -> int:
@@ -145,9 +149,6 @@ class MultiComponentFit:
         self.sharded = config.n_devices is not None and config.n_devices > 1
         if self.sharded:
             self.device = sharded_device(self.device)
-        if config.n_chains > 1:
-            raise NotImplementedError("multi-chain fits (n_chains > 1) are "
-                                      "ROADMAP P15, not ported yet")
         self.spec = ParamSpec(ncomp=config.ncomp)
         self.dtype = _DTYPES[config.dtype]
         self.catalog = None
@@ -177,13 +178,14 @@ class MultiComponentFit:
         return grid
 
     def _fused_eligible(self, model: SpectralModel) -> bool:
-        """The K2 selection rule (JAX multifit.py:151-165): CUDA, float32,
-        and a problem K2 supports at this walker count."""
+        """The K2 selection rule (JAX multifit.py:151-165, and :275-286 for
+        K chains): CUDA, float32, and a problem K2 supports at one
+        ensemble's walker count, nwalkers / n_chains."""
         cfg = self.config
         return (cfg.use_fused_step and self.device.type == "cuda"
                 and self.dtype == torch.float32
                 and fused_multi_supported(model, self.spec, cfg.dv_bound,
-                                          nwalkers=cfg.nwalkers))
+                                          nwalkers=cfg.nwalkers // cfg.n_chains))
 
     def build_model(self, grid: Datagrid) -> SpectralModel:
         cfg = self.config
@@ -262,8 +264,22 @@ class MultiComponentFit:
                 nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
                 dtype=self.dtype, model=model, spec=self.spec, grid_ints=grid.ints,
                 grid_yerrs=grid.yerrs, lnprior_fn=lnprior,
-                use_fused=cfg.use_fused_step, dv_max=cfg.dv_bound,
+                n_chains=cfg.n_chains, use_fused=cfg.use_fused_step, dv_max=cfg.dv_bound,
                 prior_means=prior_means, prior_stds=prior_stds, device=self.device)
+        elif cfg.n_chains > 1:
+            # K independent ensembles over the batched gather lnprob; all K
+            # through one K2 launch per k steps where K2 takes the per-chain
+            # ensemble.
+            lnprob = build_lnprob_batched(
+                model, self.spec, grid.ints, grid.yerrs, lnprior,
+                use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
+            run_fn = None
+            if self._fused_eligible(model):
+                run_fn = make_fused_ensemble_multi(
+                    model, self.spec, grid.ints, grid.yerrs, prior_means,
+                    prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
+            self.sampler = MultiChainSampler(lnprob_fn=lnprob, n_chains=cfg.n_chains,
+                                             run_fn=run_fn, **common)
         elif self._fused_eligible(model):
             # K2: one CUDA kernel launch per k ensemble steps
             # (sampler/fused_multi.py, csrc/multi_step.cu).
@@ -309,6 +325,9 @@ class MultiComponentFit:
               f"{self.sampler.acceptance_fraction:.3f}  |  "
               f"{throughput.walker_steps_per_sec:,.0f} walker-steps/s on "
               f"{device_name} (wall, incl. checkpoints){RESET}")
+        if cfg.n_chains > 1:
+            self.convergence = report_convergence(self.sampler.chain, self.spec.labels,
+                                                  cfg.n_chains)
         return self.sampler.chain
 
     def run(self) -> np.ndarray:

@@ -17,8 +17,9 @@ from __future__ import annotations
 import numpy as np
 
 from cha1_mcmc_tpu_torch.constants import GRAY, RESET
+from cha1_mcmc_tpu_torch.sampler.diagnostics import summarize_convergence
 
-__all__ = ["plot_results", "summarize_posterior", "corner_plot"]
+__all__ = ["plot_results", "summarize_posterior", "corner_plot", "report_convergence"]
 
 
 def _mpl():
@@ -80,6 +81,16 @@ def summarize_posterior(chain: np.ndarray, param_labels: list[str],
             for label, med, lo, up in rows:
                 print(f"{label}: {med:.6g} -{lo:.3g} +{up:.3g}")
     return rows
+
+
+def report_convergence(chain: np.ndarray, param_labels: list[str], n_chains: int) -> dict:
+    """summarize_convergence of a multi-chain fit's pooled (K*W, S, D)
+    chain, with its cross-chain R-hat printed per parameter (JAX
+    fit.py:379-385)."""
+    conv = summarize_convergence(chain)
+    rhat = ", ".join(f"{lbl}={r:.3f}" for lbl, r in zip(param_labels, conv["r_hat"]))
+    print(f"{GRAY}Cross-chain R-hat ({n_chains} chains): {rhat}{RESET}")
+    return conv
 
 
 def corner_plot(samples: np.ndarray, labels_latex: list[str], bins: int = 40):

@@ -20,6 +20,8 @@ import functools
 
 import torch
 
+from cha1_mcmc_tpu_torch.utils.device import DeviceError
+
 __all__ = ["THREADS", "GROUPS", "GROUP_WARPS", "CHAN_CONSTS", "CHAN_ROWS", "LINE_ROWS",
            "CLUSTER_SIZES", "SMEM_LIMIT", "REGIONS", "itemsize", "SmemLayout",
            "smem_layout", "ClusterPlan", "make_plan", "bind_cluster_entries", "occupancy",
@@ -170,13 +172,14 @@ def bind_cluster_entries(lib, prefix: str, source: str) -> None:
 def occupancy(fn, error_string, what: str, entry: int, plan: ClusterPlan, device) -> int:
     """cudaOccupancyMaxActiveClusters of kernel `entry` of a library's
     occupancy entry `fn` for `plan` (0: the card cannot place a cluster of
-    that size). Raises with `error_string`'s message on a CUDA error."""
+    that size). Raises DeviceError with `error_string`'s message on a CUDA
+    error."""
     active = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = fn(entry, plan.cluster, ctypes.addressof(plan.layout.packed),
                  ctypes.byref(active))
     if err:
-        raise RuntimeError(f"{what} cluster occupancy failed: CUDA error {err} "
+        raise DeviceError(f"{what} cluster occupancy failed: CUDA error {err} "
                            f"({error_string(err).decode()})")
     return active.value
 

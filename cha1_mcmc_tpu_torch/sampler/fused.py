@@ -40,15 +40,17 @@ from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.sampler import cluster
 from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, ClusterPlan, SmemLayout,
                                                  itemsize, make_plan)
-from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_randomness,
-                                                 half_step)
+from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_chain_randomness,
+                                                 draw_randomness, half_step)
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
+from cha1_mcmc_tpu_torch.utils.device import DeviceError
 
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
            "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
            "FusedEnsemble", "make_fused_ensemble", "FusedEnsembleSampler",
            "fused_fits", "smem_layout", "plan_fused_cluster", "cluster_occupancy",
            "cluster_plan", "checked_plan", "kernel_tables", "load_kernel_library",
+           "block_randomness", "check_step_block", "chain_batched",
            "LAUNCHES"]
 
 # Limits of the kernel's Statics struct (csrc/single_statics.cuh).
@@ -240,13 +242,19 @@ def prior_box(theta, st: FusedStatics):
 
 
 def steps_plain(lnprob, a: float, coords, lnp, perm, z_u, pair, acc_u):
-    """k = z_u.shape[0] // 2 whole stretch-move steps of a step kernel's
+    """k = z_u.shape[-2] // 2 whole stretch-move steps of a step kernel's
     plain version, around the batched `lnprob` (N, D) -> (N,).
 
     coords (W, D), lnp (W,); per block randomness in the kernels' layout:
     perm (k*W,) the per-step permutations, z_u / pair / acc_u (2k, h) with
     row r = 2*step + half. Returns chain (k*W, D), lnps (k*W,) and the
-    accepted count per step, acc (k,) float32."""
+    accepted count per step, acc (k,) float32. With a leading chain axis
+    (coords (K, W, D), ..., as the kernels take K ensembles) each chain
+    runs on its own, and the results are stacked on that axis."""
+    if coords.dim() == 3:
+        runs = [steps_plain(lnprob, a, *args)
+                for args in zip(coords, lnp, perm, z_u, pair, acc_u)]
+        return tuple(torch.stack(t) for t in zip(*runs))
     W, D = coords.shape
     h = W // 2
     k = z_u.shape[0] // 2
@@ -269,7 +277,8 @@ def steps_plain(lnprob, a: float, coords, lnp, perm, z_u, pair, acc_u):
 
 def fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
                       st: FusedStatics):
-    """K1's k whole steps with torch ops (layout as in steps_plain)."""
+    """K1's k whole steps with torch ops (layout as in steps_plain; with a
+    leading chain axis, chain by chain)."""
     lnprob = functools.partial(fused_lnprob_plain, tables=tables, st=st)
     return steps_plain(lnprob, st.a, coords, lnp, perm, z_u, pair, acc_u)
 
@@ -334,7 +343,7 @@ def load_kernel_library():
     library, nvcc build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
-        lib, log = bind_kernel_library("fused_step.cu", "k1", (16, 8), (9, 6), _STATICS,
+        lib, log = bind_kernel_library("fused_step.cu", "k1", (16, 9), (9, 6), _STATICS,
                                        "k5a_half", (14, 7))
         cluster.bind_cluster_entries(lib, "k1", "fused_step.cu")
         _library = lib, log
@@ -492,42 +501,59 @@ def kernel_tables(tables, dtype, device, kernel: str = "K1"):
 
 
 def raise_on(err: int, error_string, entry: str, kernel: str = "K1"):
-    """Raise if a C entry returned a CUDA error (`error_string` maps the
-    code to its message)."""
+    """Raise DeviceError if a C entry returned a CUDA error (`error_string`
+    maps the code to its message)."""
     if err:
-        raise RuntimeError(f"{kernel} {entry} launch failed: CUDA error {err} "
+        raise DeviceError(f"{kernel} {entry} launch failed: CUDA error {err} "
                            f"({error_string(err).decode()})")
 
 
-def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
-    lib, _ = load_kernel_library()
+def check_step_block(coords, lnp, perm, z_u, pair, acc_u, kernel: str):
+    """(K, W, D, k) of a step kernel's block of K chains — coords (K, W,
+    D), lnp (K, W), perm (K, k*W) int32, z_u / pair (int32) / acc_u (K, 2k,
+    W/2), each contiguous on coords' device in its dtype — after checking
+    it."""
     dtype, dev = coords.dtype, coords.device
     if dtype not in _SUFFIX:
-        raise ValueError(f"K1 takes float32 or float64 walkers, not {dtype}")
-    W, D = coords.shape
-    h, k = W // 2, z_u.shape[0] // 2
-    if W % 2 or D != len(st.bounds_lo):
-        raise ValueError(f"K1: {W} walkers x {D} dims for a "
-                         f"{len(st.bounds_lo)}-dim problem")
-    check_tensor(coords, "coords", dtype, (W, D), dev)
-    check_tensor(lnp, "lnp", dtype, (W,), dev)
-    check_tensor(perm, "perm", torch.int32, (k * W,), dev)
-    check_tensor(z_u, "z_u", dtype, (2 * k, h), dev)
-    check_tensor(pair, "pair", torch.int32, (2 * k, h), dev)
-    check_tensor(acc_u, "acc_u", dtype, (2 * k, h), dev)
+        raise ValueError(f"{kernel} takes float32 or float64 walkers, not {dtype}")
+    if coords.dim() != 3:
+        raise ValueError(f"{kernel}: coords {tuple(coords.shape)} is not (K, W, D)")
+    K, W, D = coords.shape
+    h, k = W // 2, z_u.shape[-2] // 2
+    if W % 2 or not 1 <= K <= 65535:
+        raise ValueError(f"{kernel}: {K} chains of {W} walkers (an even count, "
+                         "1 to 65535 chains)")
+    check_tensor(coords, "coords", dtype, (K, W, D), dev, kernel)
+    check_tensor(lnp, "lnp", dtype, (K, W), dev, kernel)
+    check_tensor(perm, "perm", torch.int32, (K, k * W), dev, kernel)
+    check_tensor(z_u, "z_u", dtype, (K, 2 * k, h), dev, kernel)
+    check_tensor(pair, "pair", torch.int32, (K, 2 * k, h), dev, kernel)
+    check_tensor(acc_u, "acc_u", dtype, (K, 2 * k, h), dev, kernel)
+    return K, W, D, k
+
+
+def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
+    """One K1 launch of K chains, one cluster each (check_step_block's
+    layout): chain (K, k*W, D), lnps (K, k*W), acc (K, k)."""
+    lib, _ = load_kernel_library()
+    dtype, dev = coords.dtype, coords.device
+    K, W, D, k = check_step_block(coords, lnp, perm, z_u, pair, acc_u, "K1")
+    if D != len(st.bounds_lo):
+        raise ValueError(f"K1: {D}-dim walkers for a {len(st.bounds_lo)}-dim problem")
     tb, (La, M, C, S) = kernel_tables(tables, dtype, dev)
     plan = checked_plan("steps", plan, W, D, La, C, M, dtype, dev)
     packed = _pack_statics(st, dtype)
-    out_chain = torch.empty((k * W, D), dtype=dtype, device=dev)
-    out_lnps = torch.empty(k * W, dtype=dtype, device=dev)
-    out_acc = torch.empty(k, dtype=torch.float32, device=dev)
+    out_chain = torch.empty((K, k * W, D), dtype=dtype, device=dev)
+    out_lnps = torch.empty((K, k * W), dtype=dtype, device=dev)
+    out_acc = torch.empty((K, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k1_fused_steps_{_SUFFIX[dtype]}")(
             coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
             pair.data_ptr(), acc_u.data_ptr(), *(t.data_ptr() for t in tb),
             out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
             ctypes.addressof(packed), ctypes.addressof(plan.layout.packed),
-            W, D, La, M, C, S, k, plan.cluster, torch.cuda.current_stream(dev).cuda_stream)
+            W, D, La, M, C, S, k, K, plan.cluster,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k1_error_string, "fused_steps")
     LAUNCHES["fused_steps"] += 1
     return out_chain, out_lnps, out_acc
@@ -578,22 +604,35 @@ def fused_lnprob(theta, tables, st: FusedStatics, plan: ClusterPlan | None = Non
     return fused_lnprob_plain(theta, tables, st)
 
 
+def chain_batched(launch, coords, lnp, perm, z_u, pair, acc_u, *args):
+    """`launch` (a step kernel's launch over a leading chain axis) on one
+    chain's block, (W, D) coords and the rest unbatched, or on K chains'."""
+    if coords.dim() == 3:
+        return launch(coords, lnp, perm, z_u, pair, acc_u, *args)
+    out = launch(*(t.unsqueeze(0) for t in (coords, lnp, perm, z_u, pair, acc_u)), *args)
+    return tuple(t[0] for t in out)
+
+
 def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: FusedStatics, plan: ClusterPlan | None = None):
-    """k whole steps (see fused_steps_plain for the layout): one CUDA
-    kernel launch for CUDA tensors — with cluster_plan's geometry, or
+    """k whole steps (see fused_steps_plain for the layout) of one
+    ensemble, or of K with a leading chain axis: one CUDA kernel launch for
+    CUDA tensors, one cluster a chain — with cluster_plan's geometry, or
     `plan` — the plain version for CPU tensors."""
     if route(coords) == "cuda":
-        return _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan)
+        return chain_batched(_launch_steps, coords, lnp, perm, z_u, pair, acc_u,
+                             tables, st, plan)
     return fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedEnsemble:
     """run(pos0, lnp0, nsteps, k_steps) with run_ensemble's contract and
-    randomness layout, each k steps one K1 launch (`make_fused_ensemble`).
-    K2's runner (sampler/fused_multi.py) and K3's (sampler/fused_gather.py)
-    subclass it with their own `lnprob` and `step_block`."""
+    randomness layout, each k steps one K1 launch (`make_fused_ensemble`);
+    with a leading chain axis, K independent ensembles in one launch per k
+    steps (MultiChainSampler's run_fn). K2's runner (sampler/fused_multi.py)
+    and K3's (sampler/fused_gather.py, one ensemble only) subclass it with
+    their own `lnprob` and `step_block`."""
 
     tables: tuple
     statics: FusedStatics
@@ -611,39 +650,56 @@ class FusedEnsemble:
         """Returns (chain (nsteps, W, D), lnps (nsteps, W), accepted
         (nsteps,) float32, (pos, lnp)). Randomness as in run_ensemble:
         `randomness=(perms, z_u, pair, acc_u)` for nsteps raw steps, or
-        drawn from `generator`."""
-        W, D = pos0.shape
+        drawn from `generator`. With pos0 (K, W, D) and lnp0 (K, W), K
+        chains in each launch: the randomness has a leading chain axis, or
+        is drawn chain by chain (draw_chain_randomness), and every output
+        gains a leading chain axis; each chain equals the call on its own
+        randomness alone, bitwise."""
+        *lead, W, D = pos0.shape
         if W % 2:
             raise ValueError(f"nwalkers={W} must be even")
-        h = W // 2
         while nsteps % k_steps:       # largest divisor <= k_steps
             k_steps -= 1
         nblocks = nsteps // k_steps
         if randomness is None:
             if generator is None:
                 raise ValueError("FusedEnsemble needs a generator or randomness")
-            randomness = draw_randomness(nsteps, W, generator,
-                                         device=pos0.device, dtype=pos0.dtype)
-        perms, z_u, pair, acc_u = randomness
-        # block layout: the kernel's inner row r = 2*step + half indexes the
-        # (2k, h) slices in (step, half) order
-        perm_b = perms.to(torch.int32).reshape(nblocks, k_steps * W)
-        z_b = z_u.reshape(nblocks, 2 * k_steps, h)
-        pair_b = pair.to(torch.int32).reshape(nblocks, 2 * k_steps, h)
-        acc_b = acc_u.reshape(nblocks, 2 * k_steps, h)
+            kw = dict(device=pos0.device, dtype=pos0.dtype)
+            randomness = (draw_chain_randomness(lead[0], nsteps, W, generator, **kw)
+                          if lead else draw_randomness(nsteps, W, generator, **kw))
+        perm_b, z_b, pair_b, acc_b = block_randomness(randomness, k_steps)
         coords, lnp = pos0.contiguous(), lnp0.contiguous()
         chains, lnpss, accs = [], [], []
         for b in range(nblocks):
             chain_blk, lnps_blk, acc = self.step_block(
                 coords, lnp, perm_b[b], z_b[b], pair_b[b], acc_b[b])
-            coords = chain_blk[(k_steps - 1) * W:]
-            lnp = lnps_blk[(k_steps - 1) * W:]
+            coords = chain_blk[..., (k_steps - 1) * W:, :].contiguous()
+            lnp = lnps_blk[..., (k_steps - 1) * W:].contiguous()
             chains.append(chain_blk)
             lnpss.append(lnps_blk)
             accs.append(acc)
-        return (torch.cat(chains).reshape(nsteps, W, D),
-                torch.cat(lnpss).reshape(nsteps, W), torch.cat(accs),
-                (coords, lnp))
+        return (torch.cat(chains, dim=-2).reshape(*lead, nsteps, W, D),
+                torch.cat(lnpss, dim=-1).reshape(*lead, nsteps, W),
+                torch.cat(accs, dim=-1), (coords, lnp))
+
+
+def block_randomness(randomness, k_steps: int):
+    """(perm, z_u, pair, acc_u) of run_ensemble's layout — perms (..., n,
+    W), the rest (..., n, 2, h), with an optional leading chain axis — in
+    the step kernels' block layout, the block first: perm (nb, ..., k*W)
+    int32, z_u / pair (int32) / acc_u (nb, ..., 2k, h), nb = n / k. The
+    kernel's inner row r = 2*step + half indexes the (2k, h) slices in
+    (step, half) order; block b of each array is contiguous."""
+    perms, z_u, pair, acc_u = randomness
+    *lead, n, W = perms.shape
+    nb, h = n // k_steps, W // 2
+
+    def layout(t, dtype, *tail):
+        return t.to(dtype).reshape(*lead, nb, *tail).movedim(len(lead), 0).contiguous()
+
+    return (layout(perms, torch.int32, k_steps * W), layout(z_u, z_u.dtype, 2 * k_steps, h),
+            layout(pair, torch.int32, 2 * k_steps, h),
+            layout(acc_u, acc_u.dtype, 2 * k_steps, h))
 
 
 def make_fused_ensemble(model, spec, grid_ints, grid_yerrs, bounds,

@@ -583,7 +583,8 @@ def gather_step_block(coords, lnp, perm, z_u, pair, acc_u, tables, st: FusedStat
 @dataclasses.dataclass(frozen=True)
 class GatherFusedEnsemble(FusedEnsemble):
     """K3's runner: FusedEnsemble's run(pos0, lnp0, nsteps, k_steps)
-    contract, each k steps one K3 call (`make_fused_ensemble_gather`)."""
+    contract for one ensemble, each k steps one K3 call
+    (`make_fused_ensemble_gather`)."""
 
     geometry: GatherGeometry
 
@@ -591,6 +592,8 @@ class GatherFusedEnsemble(FusedEnsemble):
         return gather_lnprob(theta, self.tables, self.statics, self.geometry)
 
     def step_block(self, coords, lnp, perm, z_u, pair, acc_u):
+        if coords.dim() != 2:
+            raise ValueError("K3 runs one ensemble a call, not a chain axis")
         return gather_step_block(coords, lnp, perm, z_u, pair, acc_u, self.tables,
                                  self.statics, self.geometry)
 

@@ -47,8 +47,8 @@ from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, SMEM_LIMIT, Clus
                                                  SmemLayout, itemsize, make_plan)
 from cha1_mcmc_tpu_torch.sampler.fused import (
     _AA, _MAX_CHEB, _MAX_POLY, _SUFFIX, FusedEnsemble,
-    bind_kernel_library, check_tensor, gauss_norm, pack_q, q_statics, raise_on,
-    route, statics_q_model, steps_plain)
+    bind_kernel_library, chain_batched, check_step_block, check_tensor, gauss_norm,
+    pack_q, q_statics, raise_on, route, statics_q_model, steps_plain)
 
 __all__ = ["window_extents", "fused_multi_supported", "MultiStatics",
            "multi_statics_tables", "multi_lnprob_plain", "multi_steps_plain",
@@ -315,7 +315,8 @@ def multi_lnprob_plain(theta, tables, st: MultiStatics):
 
 def multi_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
                       st: MultiStatics):
-    """K2's k whole steps with torch ops (layout as in fused.steps_plain)."""
+    """K2's k whole steps with torch ops (layout as in fused.steps_plain;
+    with a leading chain axis, chain by chain)."""
     lnprob = functools.partial(multi_lnprob_plain, tables=tables, st=st)
     return steps_plain(lnprob, st.a, coords, lnp, perm, z_u, pair, acc_u)
 
@@ -349,7 +350,7 @@ def load_kernel_library():
     library, nvcc build log, empty when a cached build was loaded)."""
     global _library
     if _library is None:
-        lib, log = bind_kernel_library("multi_step.cu", "k2", (17, 8), (10, 6),
+        lib, log = bind_kernel_library("multi_step.cu", "k2", (17, 9), (10, 6),
                                        _STATICS, "k5c_half", (15, 7))
         cluster.bind_cluster_entries(lib, "k2", "multi_step.cu")
         _library = lib, log
@@ -440,25 +441,18 @@ def _check_dims(D, st: MultiStatics, dtype):
 
 
 def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
+    """One K2 launch of K chains, one cluster each (fused.check_step_block's
+    layout): chain (K, k*W, D), lnps (K, k*W), acc (K, k)."""
     lib, _ = load_kernel_library()
     dtype, dev = coords.dtype, coords.device
-    W, D = coords.shape
+    K, W, D, k = check_step_block(coords, lnp, perm, z_u, pair, acc_u, "K2")
     _check_dims(D, st, dtype)
-    h, k = W // 2, z_u.shape[0] // 2
-    if W % 2:
-        raise ValueError(f"K2: nwalkers={W} must be even")
-    check_tensor(coords, "coords", dtype, (W, D), dev, "K2")
-    check_tensor(lnp, "lnp", dtype, (W,), dev, "K2")
-    check_tensor(perm, "perm", torch.int32, (k * W,), dev, "K2")
-    check_tensor(z_u, "z_u", dtype, (2 * k, h), dev, "K2")
-    check_tensor(pair, "pair", torch.int32, (2 * k, h), dev, "K2")
-    check_tensor(acc_u, "acc_u", dtype, (2 * k, h), dev, "K2")
     La, M, C, S = _check_tables(tables, dtype, dev)
     plan = checked_plan("steps", plan, W, st.ncomp, La, C, M, dtype, dev)
     packed = _pack_statics(st, dtype)
-    out_chain = torch.empty((k * W, D), dtype=dtype, device=dev)
-    out_lnps = torch.empty(k * W, dtype=dtype, device=dev)
-    out_acc = torch.empty(k, dtype=torch.float32, device=dev)
+    out_chain = torch.empty((K, k * W, D), dtype=dtype, device=dev)
+    out_lnps = torch.empty((K, k * W), dtype=dtype, device=dev)
+    out_acc = torch.empty((K, k), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k2_fused_steps_{_SUFFIX[dtype]}")(
             coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
@@ -466,7 +460,8 @@ def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
             *(t.data_ptr() for t in tables),
             out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
             ctypes.addressof(packed), ctypes.addressof(plan.layout.packed),
-            W, D, La, M, C, S, k, plan.cluster, torch.cuda.current_stream(dev).cuda_stream)
+            W, D, La, M, C, S, k, K, plan.cluster,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k2_error_string, "multi_steps", "K2")
     LAUNCHES["multi_steps"] += 1
     return out_chain, out_lnps, out_acc
@@ -505,18 +500,21 @@ def multi_lnprob(theta, tables, st: MultiStatics):
 
 def multi_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: MultiStatics, plan: ClusterPlan | None = None):
-    """k whole steps (layout as in fused.steps_plain): one CUDA kernel
-    launch for CUDA tensors — with cluster_plan's geometry, or `plan` — the
-    plain version for CPU tensors."""
+    """k whole steps (layout as in fused.steps_plain) of one ensemble, or
+    of K with a leading chain axis: one CUDA kernel launch for CUDA
+    tensors, one cluster a chain — with cluster_plan's geometry, or `plan`
+    — the plain version for CPU tensors."""
     if route(coords, "K2") == "cuda":
-        return _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan)
+        return chain_batched(_launch_steps, coords, lnp, perm, z_u, pair, acc_u,
+                             tables, st, plan)
     return multi_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
 
 
 @dataclasses.dataclass(frozen=True)
 class MultiFusedEnsemble(FusedEnsemble):
     """K2's runner: FusedEnsemble's run(pos0, lnp0, nsteps, k_steps)
-    contract, each k steps one K2 launch (`make_fused_ensemble_multi`)."""
+    contract, each k steps one K2 launch (`make_fused_ensemble_multi`), for
+    one ensemble or K (a leading chain axis)."""
 
     def lnprob(self, theta):
         return multi_lnprob(theta, self.tables, self.statics)

@@ -17,21 +17,39 @@ All randomness of a run is drawn up front in the JAX package's stream
 layout: per raw step a permutation of the W walkers, then z_u, pair and
 acc_u, each (n_raw, 2, W/2). Passing the four arrays in (`randomness=`)
 replays any stream exactly, e.g. one generated by the JAX package.
+
+K independent ensembles (`run_ensemble_chains`, `MultiChainSampler`,
+the JAX package's counterparts at stretch.py:134 and :299) draw their
+randomness from one generator in chain order: chain 0's four arrays,
+then chain 1's, and so on (`draw_chain_randomness`). The JAX package
+splits a key into K keys instead; the port's order is its own, and it
+keeps a run's random state one generator state, so a split-and-resumed
+multi-chain run equals an unsplit one bitwise.
+
+A checkpoint block that raises a device error (the kernel wrappers'
+DeviceError or torch's AcceleratorError) is run again from the
+generator state saved before it, on the same path, up to `max_retries`
+times (JAX stretch.py:213-261), so a recovered chain equals an unfaulted
+one bitwise; any other error propagates at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 
 import numpy as np
 import torch
 
 from cha1_mcmc_tpu_torch.sampler.chain import last_position
-from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, DEVICE_ERRORS, resolve_device
 
-__all__ = ["draw_randomness", "run_ensemble", "half_step", "EnsembleSampler",
+__all__ = ["draw_randomness", "draw_chain_randomness", "run_ensemble",
+           "run_ensemble_chains", "half_step", "EnsembleSampler", "MultiChainSampler",
            "PACKAGE_TAG"]
+
+logger = logging.getLogger(__name__)
 
 #: Written into every `.state.npz` sidecar; a sidecar without it (e.g. one
 #: holding a JAX PRNG key) cannot continue a stream here.
@@ -60,6 +78,18 @@ def draw_randomness(n_raw: int, nwalkers: int, generator: torch.Generator, *,
                          generator=generator, device=device)
     acc_u = torch.rand((n_raw, 2, h), generator=generator, device=device, dtype=dtype)
     return perms, z_u, pair, acc_u
+
+
+def draw_chain_randomness(n_chains: int, n_raw: int, nwalkers: int,
+                          generator: torch.Generator, *, device=None,
+                          dtype=torch.float32):
+    """draw_randomness for K = n_chains ensembles of `nwalkers` each, from
+    one generator in chain order (chain 0's four arrays, then chain
+    1's, ...), stacked on a leading chain axis: perms (K, n_raw, W), z_u /
+    pair / acc_u (K, n_raw, 2, W/2)."""
+    per_chain = [draw_randomness(n_raw, nwalkers, generator, device=device, dtype=dtype)
+                 for _ in range(n_chains)]
+    return tuple(torch.stack(arrays) for arrays in zip(*per_chain))
 
 
 def stretch_z(z_u, a: float):
@@ -138,6 +168,29 @@ def run_ensemble(lnprob_fn, pos0, lnp0, nsteps: int, a: float = 2.0,
         chain[i] = coords
         lnps[i] = lnp
     return chain, lnps, accepted, (coords, lnp)
+
+
+@torch.no_grad()
+def run_ensemble_chains(lnprob_fn, pos0, lnp0, nsteps: int, a: float = 2.0,
+                        thin: int = 1, *, randomness):
+    """Run K independent ensembles: pos0 (K, W, D), lnp0 (K, W).
+
+    `randomness` is the four arrays of each chain stacked on a leading
+    chain axis (draw_chain_randomness). Each chain runs `run_ensemble` on
+    its own randomness with its own lnprob calls, so it equals that chain
+    run alone bitwise (the batched gather lnprob's index_add has no
+    guaranteed order on CUDA, so the chains' proposals are not pooled into
+    one call). Returns chain (K, nsteps, W, D), lnps (K, nsteps, W),
+    accepted (K, nsteps), final (pos (K, W, D), lnp (K, W))."""
+    K = pos0.shape[0]
+    if pos0.dim() != 3 or tuple(lnp0.shape) != (K, pos0.shape[1]):
+        raise ValueError(f"run_ensemble_chains takes pos0 (K, W, D) and lnp0 (K, W), "
+                         f"not {tuple(pos0.shape)} and {tuple(lnp0.shape)}")
+    runs = [run_ensemble(lnprob_fn, pos0[c], lnp0[c], nsteps, a=a, thin=thin,
+                         randomness=tuple(t[c] for t in randomness)) for c in range(K)]
+    chain, lnps, accepted, finals = zip(*runs)
+    return (torch.stack(chain), torch.stack(lnps), torch.stack(accepted),
+            tuple(torch.stack(f) for f in zip(*finals)))
 
 
 @dataclasses.dataclass
@@ -220,7 +273,8 @@ class EnsembleSampler:
 
     def run_mcmc(self, pos, nsteps: int, generator: torch.Generator,
                  checkpoint_every: int = 256, chain_file: str | None = None,
-                 progress: bool = False, thin: int = 1, lnp0=None):
+                 progress: bool = False, thin: int = 1, lnp0=None,
+                 max_retries: int = 2):
         """Run `nsteps` steps, checkpointing the cumulative chain per block.
 
         Alongside the chain .npy, a `<chain>.state.npz` sidecar records the
@@ -230,6 +284,15 @@ class EnsembleSampler:
         so a run split at a block boundary and resumed equals the unsplit
         run bitwise. `lnp0` (from load_state) continues with the saved lnp
         rather than recomputing it.
+
+        A block that raises a device error (DEVICE_ERRORS: a kernel
+        wrapper's DeviceError or torch's AcceleratorError, surfaced at the
+        latest by the block's copy to the host) is run again on the same
+        path from the generator state saved before it, up to `max_retries`
+        times, so a recovered chain equals an unfaulted one bitwise; then
+        the error is raised. Shape, type and value errors propagate at
+        once. A fault that poisons the CUDA context fails again and is
+        raised.
         """
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
         lnp = (self.lnp0(pos) if lnp0 is None
@@ -237,10 +300,23 @@ class EnsembleSampler:
         done = 0
         while done < nsteps:
             block = min(checkpoint_every, nsteps - done)
-            chain, lnps, accepted, (pos, lnp) = self._run_block(
-                pos, lnp, generator, block, thin)
+            saved = generator.get_state()
+            for attempt in range(max_retries + 1):
+                try:
+                    chain, lnps, accepted, (new_pos, new_lnp) = self._run_block(
+                        pos, lnp, generator, block, thin)
+                    chain_host = chain.cpu().numpy()   # a fault in the block surfaces here
+                    break
+                except DEVICE_ERRORS:
+                    if attempt == max_retries:
+                        raise
+                    logger.warning("device error in the MCMC block at step %d; running it "
+                                   "again from its saved random state (%d/%d)",
+                                   done, attempt + 1, max_retries)
+                    generator.set_state(saved)
+            pos, lnp = new_pos, new_lnp
             # device (K, W, D) -> emcee layout (W, K, D)
-            self._chain_blocks.append(chain.cpu().numpy().transpose(1, 0, 2))
+            self._chain_blocks.append(chain_host.transpose(1, 0, 2))
             self._lnp_blocks.append(lnps.cpu().numpy().T)
             self.accepted += int(accepted.sum())
             self.total_proposals += block * thin * self.nwalkers
@@ -293,3 +369,78 @@ class EnsembleSampler:
     def _rng_restore(self, state, state_path: str):
         """The generator state to continue with, from a loaded sidecar."""
         return torch.from_numpy(state["rng_state"].copy())
+
+
+@dataclasses.dataclass
+class MultiChainSampler(EnsembleSampler):
+    """K = n_chains independent ensembles with the chain-file contract
+    (JAX stretch.py:299). `nwalkers` is the total, K * W.
+
+    run_mcmc takes pos (K, W, D), or pooled (K*W, D) as a resumed chain's
+    tail gives it. The recorded chain is the emcee (K*W, S, D) layout with
+    whole chains contiguous, so `chain.reshape(K, W, S, D)` recovers each
+    chain and `diagnostics.gelman_rubin` on the pooled chain measures
+    cross-chain mixing. Each block draws chain 0's randomness, then chain
+    1's, ..., from the one generator (draw_chain_randomness), so the
+    sidecar's one generator state continues every chain.
+
+    A block runs `run_fn` over the chain axis — a chain-batched whole-step
+    runner (FusedEnsemble called with (K, W, D) positions: K1 or K2, one
+    launch per k steps for all K chains), thinned by keeping every
+    thin-th raw step — or, without one, run_ensemble_chains over
+    `lnprob_fn`. The starting lnp comes from run_fn's lnprob where there
+    is one (as FusedEnsembleSampler's), chain by chain.
+    """
+
+    n_chains: int = 2
+    run_fn: object = None
+    k_steps: int = 16
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.n_chains < 1 or self.nwalkers % self.n_chains:
+            raise ValueError(f"nwalkers={self.nwalkers} must be divisible by "
+                             f"n_chains={self.n_chains}")
+        self.walkers_per_chain = self.nwalkers // self.n_chains
+
+    def _shape_pos(self, pos):
+        """(K, W, D) positions on the sampler's device, from (K, W, D) or
+        pooled (K*W, D)."""
+        pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        if pos.dim() == 2:
+            pos = pos.reshape(self.n_chains, self.walkers_per_chain, -1)
+        return pos
+
+    def lnp0(self, pos):
+        lnprob = self.run_fn.lnprob if self.run_fn is not None else self.lnprob_fn
+        with torch.no_grad():
+            return torch.stack([lnprob(p) for p in self._shape_pos(pos)])
+
+    def _run_block(self, pos, lnp, generator, nsteps: int, thin: int):
+        pos = self._shape_pos(pos)
+        lnp = lnp.reshape(self.n_chains, self.walkers_per_chain)
+        K, W, D = pos.shape
+        n_raw = nsteps * thin
+        rnd = draw_chain_randomness(K, n_raw, W, generator, device=pos.device,
+                                    dtype=pos.dtype)
+        if self.run_fn is not None:
+            chain, lnps, acc, final = self.run_fn(pos, lnp, n_raw, self.k_steps,
+                                                  randomness=rnd)
+            n = n_raw
+        else:
+            chain, lnps, acc, final = run_ensemble_chains(
+                self.lnprob_fn, pos, lnp, nsteps, a=self.a, thin=thin, randomness=rnd)
+            n = nsteps
+        # (K, n, W, D) -> (n, K*W, D): the base class transposes each block
+        # to the pooled (K*W, n, D) emcee layout
+        chain = chain.transpose(0, 1).reshape(n, K * W, D)
+        lnps = lnps.transpose(0, 1).reshape(n, K * W)
+        acc = acc.sum(dim=0)
+        if n != nsteps:
+            chain, lnps, acc = self.thin(chain, lnps, acc, thin)
+        return chain, lnps, acc, final
+
+    def run_mcmc(self, pos, nsteps: int, generator: torch.Generator, **kwargs):
+        """EnsembleSampler.run_mcmc with pos (K, W, D) or pooled (K*W, D);
+        returns the final (K, W, D) positions and (K, W) lnp."""
+        return super().run_mcmc(self._shape_pos(pos), nsteps, generator, **kwargs)

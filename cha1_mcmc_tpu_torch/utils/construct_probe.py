@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
-from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, DeviceError, resolve_device
 
 __all__ = ["PROBES", "probe_inputs", "probes_plain", "probes", "reference",
            "run_probes", "load_kernel_library", "LAUNCHES"]
@@ -116,7 +116,7 @@ def _launch(xa, xc, xf):
                             *(out[k].data_ptr() for k in "ABCDEFG"),
                             torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"T3 launch failed: CUDA error {err} "
+        raise DeviceError(f"T3 launch failed: CUDA error {err} "
                            f"({lib.t3_error_string(err).decode()})")
     LAUNCHES["construct_probe"] += 1
     return out

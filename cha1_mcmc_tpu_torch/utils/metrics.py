@@ -1,12 +1,17 @@
 """Throughput measurement for a fit: walker-steps (likelihood evaluations)
-per second of wall time, written beside the fit's artifacts."""
+per second of wall time, written beside the fit's artifacts; and an
+optional torch.profiler trace of a region (port of
+cha1_mcmc_tpu/utils/metrics.py:trace_profile)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 
-__all__ = ["Throughput"]
+import torch
+
+__all__ = ["Throughput", "trace_profile"]
 
 
 class Throughput:
@@ -42,3 +47,21 @@ class Throughput:
         alongside the fit artifacts."""
         with open(path, "w") as f:
             json.dump({**self.summary(), **extra}, f, indent=1)
+
+
+@contextlib.contextmanager
+def trace_profile(log_dir: str | None):
+    """Optionally wrap a region in a torch.profiler trace: the host's ops
+    and, where a CUDA device is present, the card's kernels and copies,
+    written to `log_dir` as a Chrome trace (`*.pt.trace.json`, readable
+    by TensorBoard's profiler plugin or chrome://tracing). None: no trace."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -62,7 +62,13 @@ last line):
      bitwise against its plain version and against K1 / K2 / K3 on the
      same randomness, the f32 lnprob of a half-step (rtol 2e-5), the f32
      acceptance over 1024 (K5c: 512) steps within 0.02. T3's probes
-     against their plain version (A-F bitwise, G rtol 1e-6);
+     against their plain version (A-F bitwise, G rtol 1e-6). K chains in
+     one launch (grid (n, K), one cluster a chain): K1 on the flagship's
+     analytic 4-dim case and K2 on the GOTHAM K=4 case, 128 walkers a
+     chain, 64 steps, at K = 1, 3 and one past the clusters the card holds
+     at once: each chain bitwise equal to it launched alone in f32 and
+     f64 and to the plain version in f64 (lnps rtol 1e-12), a walker per
+     chain kept at lnp = -inf (F4), one launch a block;
   4. time    — K1, K2 and K3 and their plain versions in us per ensemble
      step (128 walkers, k=16) and per lnprob call of 128 thetas; K1 and
      K2 at 16 CTAs, 8 CTAs and 16 CTAs with the tables in device memory;
@@ -77,8 +83,12 @@ last line):
      beside the old count);
      each K5 per half-step call against its plain version, and the
      world-1 sharded runner per ensemble step beside K1 / K2 / K3; T3 per
-     launch. CUDA events after warm-up, in turns (plain, kernel, kernel,
-     plain), median and quartiles;
+     launch; K1 and K2 at K = 1, 2, 4 and 8 chains of 128 walkers, one
+     launch a block against K single-chain launches a block, per ensemble
+     step of all K chains, with the bound (K x one chain's). CUDA events
+     after warm-up, in turns (plain, kernel, kernel, plain; for the chains
+     sequential, one launch, one launch, sequential), median and
+     quartiles;
   5. slice   — SpectralFit(...).run() at 128 walkers x 4096 steps through
      FusedEnsembleSampler (K1), MultiComponentFit(...).run() at 128
      walkers x 4096 steps through K2, each followed by the time of its
@@ -93,7 +103,14 @@ last line):
      256 steps, with use_fused_step=False;
      make_sharded_sampler(n_devices=1, use_fused=True) with
      ShardedEnsembleSampler.run_mcmc and a chain file at 128 walkers x 2048
-     steps through K5a (flagship), K5c (GOTHAM) and K5b (dense); the
+     steps through K5a (flagship), K5c (GOTHAM) and K5b (dense);
+     SpectralFit(...).run() (K1) and MultiComponentFit(...).run() (K2)
+     with n_chains=4, 512 walkers, 1024 steps in 4 checkpoint blocks,
+     through MultiChainSampler and the kernel's chain-batched run_fn (one
+     launch a 16-step block for all 4 chains; walker-steps/s, checkpoint
+     split, cross-chain R-hat, per-chain acceptance), each run again with
+     one DeviceError injected into block 2 by a run_fn double and
+     recovered by the retry, bitwise equal to the unfaulted chain; the
      general sharded runner (make_sharded_sampler(n_devices=1,
      use_pallas=True) in float64, which leaves K5b out) on the dense
      problem for 256 steps through K4a (2 launches a step + 1), with its
@@ -214,34 +231,59 @@ def in_box_thetas(n, ndim, bounds, gen):
     return torch.stack(cols, dim=1)
 
 
-def blocks(rnd, nb):
-    """Randomness of nb * K_STEPS raw steps of the walkers in `rnd` in the
-    kernels' block layout: (perm (nb, k*W) int32, z_u, pair int32, acc_u
-    (nb, 2k, h))."""
+def step_blocks(step, pos0, lnp0, rb, tables, st):
+    """Yield (chain, lnps, acc) of each block of K_STEPS steps through
+    `step` (a step kernel's wrapper or its plain version) from the walkers
+    pos0 (W, D), or (K, W, D) for K chains, on the randomness `rb` in the
+    kernels' block layout (fused.block_randomness)."""
+    w = pos0.shape[-2]
+    c, l = pos0.contiguous(), lnp0.contiguous()
+    for b in range(rb[0].shape[0]):
+        cb, lb, acc = step(c, l, *(t[b] for t in rb), tables, st)
+        c = cb[..., (K_STEPS - 1) * w:, :].contiguous()
+        l = lb[..., (K_STEPS - 1) * w:].contiguous()
+        yield cb, lb, acc
+
+
+def run_blocks(step, pos0, lnp0, rnd, tables, st):
+    """The blocks of K_STEPS steps of `rnd` (run_ensemble's layout, with a
+    leading chain axis for K chains) through `step` from pos0 (W, D) or
+    (K, W, D) (step_blocks): chain, lnps and acc of the blocks,
+    concatenated on the step axis."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
+
+    chain, lnps, acc = zip(*step_blocks(step, pos0, lnp0, block_randomness(rnd, K_STEPS),
+                                        tables, st))
+    return torch.cat(chain, dim=-2), torch.cat(lnps, dim=-1), torch.cat(acc, dim=-1)
+
+
+def event_ms(fn, warm=None):
+    """ms of one fn() call by CUDA events, after a warm() call where one is
+    given."""
     import torch
 
-    perms, z_u, pair, acc_u = rnd
-    w = perms.shape[1]
-    return (perms.to(torch.int32).reshape(nb, K_STEPS * w),
-            z_u.reshape(nb, 2 * K_STEPS, w // 2),
-            pair.to(torch.int32).reshape(nb, 2 * K_STEPS, w // 2),
-            acc_u.reshape(nb, 2 * K_STEPS, w // 2))
+    if warm is not None:
+        warm()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
 
 
-def run_blocks(step, pos0, lnp0, rnd, nb, tables, st):
-    """nb blocks of K_STEPS steps through `step` (a kernel wrapper or its
-    plain version) from the walkers pos0: (chain, lnps, acc) per block,
-    concatenated."""
-    import torch
+def block_us(step, pos0, lnp0, rb, tables, st):
+    """us per step of the blocks `rb` through `step` from pos0 (W, D) or
+    (K, W, D) (step_blocks), by CUDA events after a warm-up block."""
+    def run():
+        for _ in step_blocks(step, pos0, lnp0, rb, tables, st):
+            pass
 
-    pb, zb, prb, ab = blocks(rnd, nb)
-    w = pos0.shape[0]
-    c, l, out = pos0, lnp0, []
-    for b in range(nb):
-        cb, lb, acc = step(c, l, pb[b], zb[b], prb[b], ab[b], tables, st)
-        c, l = cb[(K_STEPS - 1) * w:], lb[(K_STEPS - 1) * w:]
-        out.append((cb, lb, acc))
-    return [torch.cat(t) for t in zip(*out)]
+    nb = rb[0].shape[0]
+    warm = (lambda: step(pos0, lnp0, *(t[0] for t in rb), tables, st))
+    return 1e3 * event_ms(run, warm) / (nb * K_STEPS)
 
 
 def check_kernel(label, fns, t32, t64, th, pos0, yerrs, gen, errs, n_f32_steps):
@@ -275,8 +317,8 @@ def check_kernel(label, fns, t32, t64, th, pos0, yerrs, gen, errs, n_f32_steps):
     # f64 whole-step kernel vs plain, 64 steps in blocks of 16, one stream.
     lnp0 = lnprob_plain(pos0, tb64, st64)
     rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=torch.float64)
-    ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, 4, tb64, st64))
-    cp, lp, ap = (t.cpu().numpy() for t in run_blocks(step_plain, pos0, lnp0, rnd, 4,
+    ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, tb64, st64))
+    cp, lp, ap = (t.cpu().numpy() for t in run_blocks(step_plain, pos0, lnp0, rnd,
                                                       tb64, st64))
     assert np.array_equal(ck, cp), f"{label}: f64 chains differ"
     assert np.array_equal(ak, ap), f"{label}: f64 acceptances differ"
@@ -292,7 +334,7 @@ def check_kernel(label, fns, t32, t64, th, pos0, yerrs, gen, errs, n_f32_steps):
     pos32 = pos0.to(torch.float32)
     lnp32 = lnprob_plain(pos32, tb32, st32)
     for name, fn in (("kernel", step), ("plain", step_plain)):
-        c, _, acc = run_blocks(fn, pos32, lnp32, rnd, n_f32_steps // K_STEPS, tb32, st32)
+        c, _, acc = run_blocks(fn, pos32, lnp32, rnd, tb32, st32)
         fracs[name] = float(acc.sum()) / (n_f32_steps * W)
         assert bool(torch.isfinite(c[-W:]).all()), f"{label}: non-finite f32 {name} walkers"
     assert abs(fracs["kernel"] - fracs["plain"]) < 0.02, (label, fracs)
@@ -495,7 +537,7 @@ def check_cluster_chains(kind, label, tb, st, pos0, seed, geometries, errs):
     gen.manual_seed(seed)
     rnd = draw_randomness(64, nw, gen, device=DEVICE, dtype=torch.float64)
     cp, lp, ap = (t.cpu().numpy() for t in
-                  run_blocks(fam["steps_plain"], pos0, lnp0, rnd, 4, tb, st))
+                  run_blocks(fam["steps_plain"], pos0, lnp0, rnd, tb, st))
     c5p, l5p, a5p, _ = run_k5(fam["half_plain"], (tb, st), pos0, lnp0, rnd)
     c5p, l5p, a5p = (t.cpu().numpy() for t in (c5p, l5p, a5p))
     fin = np.isfinite(lp)
@@ -504,7 +546,7 @@ def check_cluster_chains(kind, label, tb, st, pos0, seed, geometries, errs):
         where = f"{kind} {label}, {name}"
         before = counts[fam["steps_key"]]
         step = functools.partial(fam["step"], plan=step_plan)
-        ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, 4, tb, st))
+        ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, tb, st))
         assert counts[fam["steps_key"]] == before + 4, where
         assert np.array_equal(ck, cp), f"{where}: f64 chains differ"
         assert np.array_equal(ak, ap), f"{where}: f64 acceptances differ"
@@ -627,7 +669,7 @@ def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16):
     launches of 16 steps: (name, median, q1, q3 us/step) per geometry."""
     import functools
 
-    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
     fam = cluster_family(kind)
@@ -637,27 +679,12 @@ def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16):
         kind, tb, st, w, n, stage)[0]) for name, n, stage in (
             ("16 CTAs, staged", 16, True), ("8 CTAs, staged", 8, True),
             ("16 CTAs, unstaged", 16, False))}
-    rnd = draw_randomness(nb * K_STEPS, w, gen, device=DEVICE)
-    pb, zb, prb, ab = blocks(rnd, nb)
+    rb = block_randomness(draw_randomness(nb * K_STEPS, w, gen, device=DEVICE), K_STEPS)
     times = {name: [] for name in steps}
-
-    def run(fn):
-        fn(pos0, lnp0, pb[0], zb[0], prb[0], ab[0], tb, st)   # warm-up
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        c, l = pos0, lnp0
-        t0.record()
-        for b in range(nb):
-            cb, lb, _ = fn(c, l, pb[b], zb[b], prb[b], ab[b], tb, st)
-            c, l = cb[(K_STEPS - 1) * w:], lb[(K_STEPS - 1) * w:]
-        t1.record()
-        torch.cuda.synchronize()
-        return 1e3 * t0.elapsed_time(t1) / (nb * K_STEPS)
-
     order = list(steps)
     for _ in range(TIMING_PAIRS):   # in turns, forwards then backwards
         for name in order + order[::-1]:
-            times[name].append(run(steps[name]))
+            times[name].append(block_us(steps[name], pos0, lnp0, rb, tb, st))
     out = [(name, *quartiles(ts)) for name, ts in times.items()]
     phase(4, "time", f"{kind} {label} by geometry, {w} walkers, f32, median [q1, q3] of "
           f"{2 * TIMING_PAIRS} runs of {nb} launches: " + "; ".join(
@@ -670,37 +697,19 @@ def time_kernel(fns, tables, st, pos0, th, gen, kernel_blocks=64, plain_blocks=4
     lists: whole steps at W walkers, k=K_STEPS, and the lnprob of the
     thetas `th`; CUDA events after a warm-up, in turns plain, kernel,
     kernel, plain, TIMING_PAIRS times. fns as in check_kernel."""
-    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
     lnprob, lnprob_plain, step, step_plain = fns
     lnp0 = lnprob_plain(pos0, tables, st)
 
-    def run(fn, nblocks):
+    def run(fn, nblocks):   # us / step
         rnd = draw_randomness(nblocks * K_STEPS, W, gen, device=DEVICE)
-        pb, zb, prb, ab = blocks(rnd, nblocks)
-        fn(pos0, lnp0, pb[0], zb[0], prb[0], ab[0], tables, st)   # warm-up
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        c, l = pos0, lnp0
-        t0.record()
-        for b in range(nblocks):
-            cb, lb, _ = fn(c, l, pb[b], zb[b], prb[b], ab[b], tables, st)
-            c, l = cb[(K_STEPS - 1) * W:], lb[(K_STEPS - 1) * W:]
-        t1.record()
-        torch.cuda.synchronize()
-        return 1e3 * t0.elapsed_time(t1) / (nblocks * K_STEPS)   # us / step
+        return block_us(fn, pos0, lnp0, block_randomness(rnd, K_STEPS), tables, st)
 
-    def time_lnprob(fn, reps=50):
-        fn(th, tables, st)
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn(th, tables, st)
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps   # ms / call
+    def time_lnprob(fn, reps=50):   # ms / call
+        return event_ms(lambda: [fn(th, tables, st) for _ in range(reps)],
+                        lambda: fn(th, tables, st)) / reps
 
     plain, kern, lnp_plain, lnp_kern = [], [], [], []
     for _ in range(TIMING_PAIRS):   # in turns: plain, kernel, kernel, plain
@@ -960,14 +969,14 @@ def check_dense_geometries(case, errs, cblocks=CBLOCKS):
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(cb)
         rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=torch.float64)
-        cp, lp, ap = (t.cpu().numpy() for t in run_blocks(fns[3], pos0, lnp0, rnd, 4, tb, st))
+        cp, lp, ap = (t.cpu().numpy() for t in run_blocks(fns[3], pos0, lnp0, rnd, tb, st))
         fin = np.isfinite(lp)
         assert 0 < ap.sum() < 64 * W, f"{label}: the chain should accept some proposals"
         for name, plan in k3_plans(geom):
             where = f"K3 {label}, cblock {cb}, {name}"
             before = fg.LAUNCHES["gather_steps"]
             step = functools.partial(fg.gather_step_block, geom=plan)
-            ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, 4, tb, st))
+            ck, lk, ak = (t.cpu().numpy() for t in run_blocks(step, pos0, lnp0, rnd, tb, st))
             assert fg.LAUNCHES["gather_steps"] == before + 4, where
             assert np.array_equal(ck, cp), f"{where}: f64 chains differ"
             assert np.array_equal(ak, ap), f"{where}: f64 acceptances differ"
@@ -1197,18 +1206,8 @@ def time_calls(calls, reps=20):
     """Median [q1, q3] ms per call of each of `calls` {name: fn()}, CUDA
     events after a warm-up, in turns (forward, backward) TIMING_PAIRS
     times."""
-    import torch
-
     def once(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / reps
+        return event_ms(lambda: [fn() for _ in range(reps)], fn) / reps
 
     times = {k: [] for k in calls}
     names = list(calls)
@@ -1230,6 +1229,7 @@ def time_k3_geometries(case, pos0, gen, device, nb=16):
     import functools
 
     import torch
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
     from cha1_mcmc_tpu_torch.sampler.fused_gather import gather_step_block
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
@@ -1250,25 +1250,18 @@ def time_k3_geometries(case, pos0, gen, device, nb=16):
                 W, generator=gen, device=DEVICE, dtype=pos0.dtype))
             lnp_out = fns[1](out_of_box, tb, st)
             assert not torch.isfinite(lnp_out).any()
-    rnd = draw_randomness(nb * K_STEPS, W, gen, device=DEVICE)
-    pb, zb, prb, ab = blocks(rnd, nb)
+    rb = block_randomness(draw_randomness(nb * K_STEPS, W, gen, device=DEVICE), K_STEPS)
     times = {name: [] for name in plans}
 
     def run(name, plan, tb, st):
         step = functools.partial(gather_step_block, geom=plan)
         c, l = (out_of_box, lnp_out) if name == FLOOR else (pos0, lnp0)
-        step(c, l, pb[0], zb[0], prb[0], ab[0], tb, st)   # warm-up
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for b in range(nb):
-            cb_, lb, acc = step(c, l, pb[b], zb[b], prb[b], ab[b], tb, st)
-            c, l = cb_[(K_STEPS - 1) * W:], lb[(K_STEPS - 1) * W:]
-        t1.record()
-        torch.cuda.synchronize()
-        assert name != FLOOR or not bool(acc.any()), "the floor's walkers should not move"
-        return 1e3 * t0.elapsed_time(t1) / (nb * K_STEPS)
+        return block_us(step, c, l, rb, tb, st)
 
+    floor, tb_f, st_f = plans[FLOOR]
+    assert not any(bool(acc.any()) for *_, acc in step_blocks(
+        functools.partial(gather_step_block, geom=floor), out_of_box, lnp_out, rb, tb_f,
+        st_f)), "the floor's walkers should not move"
     order = list(plans)
     for _ in range(TIMING_PAIRS):   # in turns, forwards then backwards
         for name in order + order[::-1]:
@@ -1597,15 +1590,8 @@ def slice_general_sharded(case, gen, k4a_ms, device, nruns=256):
     lnp = runner.entry_lnprob(pos)
     rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=f64)
     runner(pos, lnp0=lnp, randomness=rnd)   # warm-up
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        runner(pos, lnp0=lnp, randomness=rnd)
-        e1.record()
-        torch.cuda.synchronize()
-        runs.append(1e3 * e0.elapsed_time(e1) / 64)
+    runs = [1e3 * event_ms(lambda: runner(pos, lnp0=lnp, randomness=rnd)) / 64
+            for _ in range(3)]
     us = float(np.median(runs))
     # where a step goes: one torch.profiler window over the 64 steps
     from torch.profiler import ProfilerActivity, profile
@@ -2006,6 +1992,272 @@ def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096, k2_times=None):
     return launches
 
 
+# -- K chains in one K1 / K2 launch (MultiChainSampler) -------------------------
+
+#: The chain counts phase 4 times and the fits' chains in phase 5.
+CHAIN_COUNTS = (1, 2, 4, 8)
+FIT_CHAINS, FIT_WALKERS, FIT_STEPS = 4, 512, 1024
+
+
+def chain_occupancy(kind, tb, st):
+    """cudaOccupancyMaxActiveClusters of the step kernel `kind` (K1 / K2)
+    at W walkers on the tables `tb`, at cluster_plan's geometry: the
+    chains one launch runs at once; the rest run in later waves."""
+    fam = cluster_family(kind)
+    La, M, C = fam["sizes"](tb)
+    return fam["module"].cluster_plan("steps", W, fam["size_arg"](st), La, C, M, tb[0].dtype,
+                                      tb[0].device)[1]
+
+
+def chain_starts(kind, case, n_chains, stuck=True):
+    """(K, W, D) f64 starts of `n_chains` chains of a flagship (K1) or
+    GOTHAM (K2) case, chain c from seed c; with `stuck`, walker 3 of every
+    chain outside the prior box so that no proposal of it can enter it
+    (K1: vlsr 9 km/s against the box's 5.5, so with a partner inside the
+    box every proposal lies above 6; K2: dV 0.7, every proposal above 0.35
+    against the 0.3 bound): it keeps lnp = -inf (F4)."""
+    import torch
+
+    if kind == "K1":
+        ndim = case[3].ndim
+        pos = torch.stack([flagship_pos0(ndim, seed=c) for c in range(n_chains)])
+        if stuck:
+            pos[:, 3, ndim - 2] = 9.0
+    else:
+        means, pert = case[4], case[6]
+        pos = torch.stack([multi_pos0(means, pert, seed=c) for c in range(n_chains)])
+        if stuck:
+            pos[:, 3, -1] = 0.7
+    return pos
+
+
+def check_chains(kind, case, errs):
+    """Phase 3: K independent chains in one launch of a cluster step kernel
+    (K1 on a flagship case, K2 on a GOTHAM case) at W walkers a chain, 64
+    steps in blocks of 16, at K = 1, 3 and one past the clusters the card
+    holds at once (a second wave). Chain c draws its randomness after
+    chains 0..c-1 from one generator, so it is the same at every K. Each
+    chain of a K-chain launch equals that chain launched alone (K = 1)
+    bitwise in f32 and f64 — chain, lnps and acceptances — and, in f64, the
+    plain version chain by chain (chain and acceptances bitwise, lnps rtol
+    1e-12). Walker 3 of every chain starts outside the prior box and keeps
+    lnp = -inf at every step, never NaN (F4). One launch a block for all K
+    chains. Returns the chain counts checked."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
+
+    fam = cluster_family(kind)
+    counts = fam["module"].LAUNCHES
+    label = case[0]
+    tabs = dict(zip((torch.float32, torch.float64),
+                    flagship_tables(case) if kind == "K1" else multi_tables(*case[1:6],
+                                                                           case[7])))
+    occupancy = max(chain_occupancy(kind, tb, st) for st, tb in tabs.values())
+    ks = tuple(sorted({1, 3, occupancy + 1}))
+    n = ks[-1]
+    for dtype in (torch.float64, torch.float32):
+        st, tb = tabs[dtype]
+        where = f"{kind} {label} {str(dtype)[6:]}"
+        pos0 = chain_starts(kind, case, n).to(dtype)
+        lnp0 = torch.stack([fam["lnprob_plain"](p, tb, st) for p in pos0])
+        assert bool((lnp0[:, 3] == -torch.inf).all()), where
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(11)
+        rnd = draw_chain_randomness(n, 64, W, gen, device=DEVICE, dtype=dtype)
+        alone = [run_blocks(fam["step"], pos0[c], lnp0[c], tuple(t[c] for t in rnd),
+                                  tb, st) for c in range(n)]
+        if dtype == torch.float64:
+            for c in range(n):
+                cp, lp, ap = run_blocks(fam["steps_plain"], pos0[c], lnp0[c],
+                                              tuple(t[c] for t in rnd), tb, st)
+                ck, lk, ak = alone[c]
+                assert torch.equal(ck, cp), f"{where} chain {c}: differs from plain"
+                assert torch.equal(ak, ap), f"{where} chain {c}: acceptances differ"
+                fin = torch.isfinite(lp)
+                assert torch.equal(torch.isfinite(lk), fin), where
+                np.testing.assert_allclose(lk[fin].cpu().numpy(), lp[fin].cpu().numpy(),
+                                           rtol=1e-12, err_msg=f"{where} chain {c} lnps")
+                errs[kind] = max(errs.get(kind, 0.0), float((lk[fin] - lp[fin]).abs().max()))
+        for K in ks:
+            before = counts[fam["steps_key"]]
+            ck, lk, ak = run_blocks(fam["step"], pos0[:K], lnp0[:K],
+                                          tuple(t[:K] for t in rnd), tb, st)
+            assert counts[fam["steps_key"]] == before + 4, f"{where}: not one launch a block"
+            assert not bool(torch.isnan(lk).any()), f"{where} K={K}: NaN lnps"
+            stuck = lk.reshape(K, 64, W)[:, :, 3]
+            assert bool((stuck == -torch.inf).all()), f"{where} K={K}: F4"
+            for c in range(K):
+                for x, y in zip((ck[c], lk[c], ak[c]), alone[c]):
+                    assert torch.equal(x, y), f"{where} K={K} chain {c}: differs from alone"
+            assert 0 < float(ak.sum()) < K * 64 * (W - 1), where
+    return ks
+
+
+def time_chains(kind, case, gen, device, nb=16):
+    """Phase 4: K chains of W walkers in f32, at each of CHAIN_COUNTS, in
+    one launch a block against K single-chain launches a block, in turns
+    (sequential, one launch, one launch, sequential) TIMING_PAIRS times
+    over nb blocks of K_STEPS steps: {K: (one launch's us per ensemble step
+    of all K chains, (median, q1, q3)), the sequential launches' (median,
+    q1, q3), the bound (K x the single-chain bound), one chain's work}."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
+
+    fam = cluster_family(kind)
+    st, tb = (flagship_tables(case) if kind == "K1"
+              else multi_tables(*case[1:6], case[7]))[0]
+    out = {}
+    for K in CHAIN_COUNTS:
+        pos0 = chain_starts(kind, case, K, stuck=False).to(torch.float32)
+        lnp0 = torch.stack([fam["lnprob_plain"](p, tb, st) for p in pos0])
+        rnd = draw_chain_randomness(K, nb * K_STEPS, W, gen, device=DEVICE)
+        rb = block_randomness(rnd, K_STEPS)
+
+        def one_launch():
+            return block_us(fam["step"], pos0, lnp0, rb, tb, st)
+
+        def sequential():
+            return sum(block_us(fam["step"], pos0[c], lnp0[c], tuple(t[:, c] for t in rb),
+                                tb, st) for c in range(K))
+
+        one, seq = [], []
+        for _ in range(TIMING_PAIRS):
+            seq.append(sequential())
+            one.append(one_launch())
+            one.append(one_launch())
+            seq.append(sequential())
+        if kind == "K1":
+            work = k1_work(tb, st, pos0[0, :, -1], evaluations=K_STEPS)
+        else:
+            work = k2_work(tb, st.ncomp, pos0[0, :, -1], st.mask_center, evaluations=K_STEPS)
+        b_us = K * bound(*work)[0] * 1e3 / K_STEPS
+        out[K] = (quartiles(one), quartiles(seq), b_us, work)
+    phase(4, "time", f"{kind} K chains of {W} walkers in one launch a block (grid (n, K)) "
+          f"vs K single-chain launches a block, f32, {case[0]}, median [q1, q3] of "
+          f"{2 * TIMING_PAIRS} runs of {nb} blocks, us per ensemble step of all K chains: "
+          + "; ".join(f"K={K} one launch {a[0]:.2f} [{a[1]:.2f}, {a[2]:.2f}], sequential "
+                      f"{s[0]:.2f} [{s[1]:.2f}, {s[2]:.2f}], bound {b:.4f} (K x one chain's)"
+                      for K, (a, s, b, _) in out.items()) + f"; {device}")
+    return out
+
+
+class FaultOnce:
+    """A test double of a MultiChainSampler's run_fn: raises one
+    DeviceError on its `at`-th call (0-based: the `at`-th checkpoint
+    block), then calls the real chain-batched K1 / K2 runner. Its calls
+    run on the same path; only the fault is injected."""
+
+    def __init__(self, run_fn, at):
+        self.run_fn, self.at, self.calls, self.raised = run_fn, at, 0, 0
+        self.lnprob = run_fn.lnprob
+
+    def __call__(self, *args, **kwargs):
+        from cha1_mcmc_tpu_torch.utils import DeviceError
+
+        n, self.calls = self.calls, self.calls + 1
+        if n == self.at:
+            self.raised += 1
+            raise DeviceError("injected by chip_smoke: K-chain block fault")
+        return self.run_fn(*args, **kwargs)
+
+
+def per_chain_acceptance(chain, n_chains):
+    """Each chain's acceptance fraction from its pooled (K*W, S, D) rows:
+    the share of (walker, step) moves that changed the walker's row."""
+    moved = (chain[:, 1:] != chain[:, :-1]).any(axis=-1)
+    return moved.reshape(n_chains, -1).mean(axis=1)
+
+
+def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
+    """Phase 5: SpectralFit (K1, flagship) or MultiComponentFit (K2,
+    GOTHAM).run() with n_chains=FIT_CHAINS, FIT_WALKERS walkers in all,
+    FIT_STEPS steps in 4 checkpoint blocks, through MultiChainSampler with
+    the kernel's chain-batched run_fn: one launch a k-step block for all
+    chains. Prints its launches, walker-steps/s, checkpoint split (kernel
+    time at phase 4's FIT_CHAINS-chain median `chain_times` and the
+    lnprob's `lnp_ms`), cross-chain R-hat and pooled chain; checks each
+    chain finite with acceptance in (0.1, 0.9). Then the same fit again
+    with a run_fn double that raises one DeviceError in block 2
+    (FaultOnce), recovered by the retry: its chain equals the first
+    run's bitwise. Returns the launch counts of the first run."""
+    import numpy as np
+    import cha1_mcmc_tpu_torch as port
+    from cha1_mcmc_tpu_torch.pipeline import fit as fit_mod, multifit as multifit_mod
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsemble, MultiChainSampler
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import MultiFusedEnsemble
+
+    every = FIT_STEPS // 4
+    common = dict(nwalkers=FIT_WALKERS, nruns=FIT_STEPS, checkpoint_every=every, seed=0,
+                  device=DEVICE, n_chains=FIT_CHAINS, cat_folder=prob["cat_folder"],
+                  data_path=prob["data_path"])
+    if kind == "K1":
+        module, maker, prefix = fit_mod, "make_fused_ensemble", "fused"
+
+        def make(folder):
+            return port.SpectralFit(port.FitConfig(mol_name="hc5n_hfs", fit_folder=folder,
+                                                   **common))
+    else:
+        module, maker, prefix = multifit_mod, "make_fused_ensemble_multi", "multi"
+
+        def make(folder):
+            return port.MultiComponentFit(port.MultiFitConfig(
+                mol_name="hc9n_hfs", template_run=True, fit_folder=folder, **common))
+
+    zero_launches()
+    fit = make(os.path.join(tmp, f"chains_{kind}"))
+    chain = fit.run()
+    launches = read_launches()
+    sampler, run_fn = fit.sampler, fit.sampler.run_fn
+    assert type(sampler) is MultiChainSampler, type(sampler)
+    want = MultiFusedEnsemble if kind == "K2" else FusedEnsemble
+    assert type(run_fn) is want, type(run_fn)
+    steps_key, lnp_key = f"{prefix}_steps", f"{prefix}_lnprob"
+    assert launches[steps_key] == FIT_STEPS // K_STEPS, launches   # not K a block
+    assert launches[lnp_key] == FIT_CHAINS, launches
+    D = fit.spec.ndim
+    assert chain.shape == (FIT_WALKERS, FIT_STEPS, D), chain.shape
+    assert np.isfinite(chain).all()
+    acc = per_chain_acceptance(chain, FIT_CHAINS)
+    assert ((0.1 < acc) & (acc < 0.9)).all(), acc
+    rate = fit.throughput.walker_steps_per_sec
+    r_hat = fit.convergence["r_hat"]
+    phase(5, "slice", f"{type(fit).__name__}.run() n_chains={FIT_CHAINS}: "
+          f"{type(sampler).__name__} with run_fn {type(run_fn).__name__} ({kind}), launches "
+          f"{ {k: v for k, v in launches.items() if v} } ({FIT_STEPS // K_STEPS} {kind} "
+          f"launches for {FIT_STEPS} steps of {FIT_CHAINS} chains: one a {K_STEPS}-step "
+          f"block), pooled chain {chain.shape}, per-chain acceptance "
+          + ", ".join(f"{a:.3f}" for a in acc) + f", {rate:,.0f} walker-steps/s (sampling "
+          f"wall time incl. checkpoints); cross-chain R-hat "
+          + ", ".join(f"{lbl.split(' [')[0]}={r:.3f}" for lbl, r in zip(fit.spec.labels, r_hat))
+          + f" ({device})")
+    kernel_s = (launches[steps_key] * K_STEPS * chain_times[FIT_CHAINS][0][0] * 1e-6
+                + launches[lnp_key] * lnp_ms * 1e-3)
+    checkpoint_split(fit, kernel_s, tmp, device)
+
+    real = getattr(module, maker)
+    doubles = []
+
+    def faulty_maker(*args, **kwargs):
+        doubles.append(FaultOnce(real(*args, **kwargs), at=1))
+        return doubles[-1]
+
+    setattr(module, maker, faulty_maker)
+    try:
+        again = make(os.path.join(tmp, f"chains_{kind}_fault")).run()
+    finally:
+        setattr(module, maker, real)
+    (double,) = doubles
+    assert double.raised == 1 and double.calls == 5, (double.raised, double.calls)
+    assert np.array_equal(again, chain), f"{kind}: the recovered chain differs"
+    phase(5, "slice", f"{type(fit).__name__}.run() n_chains={FIT_CHAINS} with one "
+          f"DeviceError injected into block 2 of 4 (a run_fn double that raises once, then "
+          f"calls {kind}): retried from the block's generator state, pooled chain bitwise "
+          f"equal to the unfaulted run's ({device})")
+    return launches
+
+
 def slice_dense(prob, tmp, device, fused_step=True, nruns=2048):
     """SpectralFit.run() on the full-size dense problem with use_pallas
     left to auto-select: through K3 (fused_step) or the general gather
@@ -2185,7 +2437,7 @@ def check_sharded(case, gen, errs):
     np.testing.assert_allclose(lk[fin], lp[fin], rtol=1e-12, err_msg=f"{label} f64 lnps")
     errs[case["name"]] = float(np.max(np.abs(lk[fin] - lp[fin])))
     cw, lw, aw = (t.cpu().numpy() for t in
-                  run_blocks(case["step"], pos0, lnp0, rnd, 4, tb64, st64))
+                  run_blocks(case["step"], pos0, lnp0, rnd, tb64, st64))
     assert np.array_equal(ck.reshape(-1, D), cw), \
         f"{label}: f64 chain differs from {case['whole']}'s at world size 1"
     assert np.array_equal(ak, aw), f"{label}: acceptances differ from {case['whole']}'s"
@@ -2247,15 +2499,8 @@ def time_sharded(case, gen, device):
 
     rnd = draw_randomness(64, W, gen, device=DEVICE, dtype=torch.float32)
     run_k5(case["kernel"], case["args32"], pos32, lnp32, rnd)   # warm-up
-    runs = []
-    for _ in range(2 * TIMING_PAIRS):
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        run_k5(case["kernel"], case["args32"], pos32, lnp32, rnd)
-        t1.record()
-        torch.cuda.synchronize()
-        runs.append(1e3 * t0.elapsed_time(t1) / 64)
+    runs = [1e3 * event_ms(lambda: run_k5(case["kernel"], case["args32"], pos32, lnp32,
+                                          rnd)) / 64 for _ in range(2 * TIMING_PAIRS)]
     return per_call, quartiles(runs)
 
 
@@ -2451,6 +2696,15 @@ def main() -> int:
                          multi_cases(prob_w, labels=("analytic-4c",))[0], errs_g)
         phase(3, "check", "K1 / K2 max |kernel - plain| f64 step lnps by geometry: "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs_g.items()) + f" ({device})")
+        errs_c = {}
+        ks1 = check_chains("K1", all_cases[0], errs_c)
+        ks2 = check_chains("K2", gotham[0], errs_c)
+        phase(3, "check", f"K chains of {W} walkers in one launch, 64 steps: K1 "
+              f"{all_cases[0][0]} at K = {ks1}, K2 {gotham[0][0]} at K = {ks2} (the last past "
+              "the clusters the card holds at once): each chain bitwise equal to it launched "
+              "alone in f32 and f64 and to the plain version in f64 (lnps rtol 1e-12; max "
+              f"|kernel - plain| K1 {errs_c['K1']:.3e}, K2 {errs_c['K2']:.3e}), walker 3 of "
+              f"every chain at lnp = -inf every step (F4), one launch a block ({device})")
         for case in dense:
             fracs, g = check_dense_case(case, gen, errs3)
             phase(3, "check", f"K3 {case[0]} ({g.n_blk} blocks, cb0 {g.cb0}): f32 "
@@ -2492,6 +2746,8 @@ def main() -> int:
         glabel, _, _, _, gmeans, _, gpert, _ = gotham[0]
         time_geometries("K2", glabel, tb2, st2,
                         multi_pos0(gmeans, gpert, seed=1).to(torch.float32), gen, device)
+        tc1 = time_chains("K1", all_cases[0], gen, device)
+        tc2 = time_chains("K2", gotham[0], gen, device)
         t3, _, w3, _ = time_dense(dense[0], gen, device)
         t4, d4, w4 = time_opacity(dense[0], gen, device)
         t5 = {}
@@ -2514,6 +2770,9 @@ def main() -> int:
                                                         k2_times=t2).items()
                         if k.startswith("multi"))
         slice_gotham(prob9, tmp, device, fused_step=False, nruns=512)
+        chain_launches = slice_chains("K1", prob, tmp, device, tc1, t1[2])
+        chain_launches.update((k, v) for k, v in slice_chains(
+            "K2", prob9, tmp, device, tc2, t2[2]).items() if k.startswith("multi"))
         launches.update((k, v) for k, v in slice_dense(prob_d, tmp, device).items()
                         if k.startswith("gather"))
         slice_dense(prob_d, tmp, device, fused_step=False, nruns=256)
@@ -2585,6 +2844,16 @@ def main() -> int:
     for entry in entries:
         entry["bound_ms"], entry["bound_by"] = bound(*work[entry["name"]])
         entry["library_ms"] = None
+    # K1 and K2 on the multi-chain path: its launches, and per launch of K
+    # chains (16 steps) the one-launch and sequential times and the bound
+    for entry in entries:
+        times = {"fused_steps": tc1, "multi_steps": tc2}.get(entry["name"])
+        if times is not None:
+            entry["multichain_launches"] = chain_launches[entry["name"]]
+            entry["chains"] = {str(K): {"ms": a[0] * K_STEPS / 1e3,
+                                        "sequential_ms": s[0] * K_STEPS / 1e3,
+                                        "bound_ms": b * K_STEPS / 1e3}
+                               for K, (a, s, b, _) in times.items()}
     phase(5, "slice", f"all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -27,8 +27,14 @@ dims, K2 at W = 64, 96, 100 and 256 for K = 1, 2 and 4 (lnps rtol 1e-12;
 the lnprob entry equal to the in-chain lnps; K5a / K5c at the same W) —
 and K5a / K5c at W_l = 32, 40 and 64 bitwise against their plain versions
 and against K1 / K2; and K2 and K5c on a problem too wide for their f64
-tables to be staged. Every test here needs a CUDA device and nvcc, and
-skips without them; on the card run
+tables to be staged. K chains of 128 walkers in one K1 / K2 launch (one
+cluster a chain) at K = 1, 3 and one past the clusters the card holds at
+once: each chain bitwise equal to it launched alone (f32, f64) and to the
+plain version (f64), the -inf walkers per chain, one kernel event a block
+for all K chains; and the general run_ensemble_chains in f64 against K1
+launched over the same chains (chains and acceptances bitwise, lnps rtol
+1e-12). Every test here needs a CUDA device and nvcc, and skips without
+them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
 
@@ -283,6 +289,7 @@ def test_k3_k5b_one_launch_per_call(dense_cases, k5_cases):
     import chip_smoke
     from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
     from cha1_mcmc_tpu_torch.sampler import fused_gather as fg
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
     case = dense_cases["cheb-split-4d"]
@@ -292,7 +299,8 @@ def test_k3_k5b_one_launch_per_call(dense_cases, k5_cases):
     lnp = fg.gather_lnprob(pos, tb, st, geom)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    pb, zb, prb, ab = chip_smoke.blocks(draw_randomness(16, 128, gen, device="cuda"), 1)
+    pb, zb, prb, ab = block_randomness(draw_randomness(16, 128, gen, device="cuda"),
+                                       chip_smoke.K_STEPS)
     h = 64
     ops = (pb[0][:h].contiguous(), pos[pb[0][h:].long()].contiguous(), zb[0][0].contiguous(),
            prb[0][0].contiguous(), ab[0][0].contiguous())
@@ -395,3 +403,80 @@ def test_t3_probes_match_plain():
     assert construct_probe.LAUNCHES["construct_probe"] == before + 1
     assert construct_probe.run_probes("cuda", verbose=False) == dict.fromkeys("ABCDEFG",
                                                                                True)
+
+
+# -- K chains in one K1 / K2 launch (MultiChainSampler) ------------------------
+
+@pytest.mark.parametrize("kind,label", [("K1", "analytic-4d"), ("K1", "states-5d"),
+                                        ("K2", "analytic-4c"), ("K2", "analytic-1c")])
+def test_chains_in_one_launch_equal_each_chain_alone(cuda_cases, gotham_cases, kind, label):
+    """K chains of 128 walkers in one K1 / K2 launch (one cluster a chain)
+    at K = 1, 3 and one past the clusters the card holds at once: each
+    chain bitwise equal to it launched alone in f32 and f64 and to the
+    plain version in f64, the -inf walkers per chain (F4), one launch a
+    block (chip_smoke.check_chains)."""
+    import chip_smoke
+
+    case = (cuda_cases if kind == "K1" else gotham_cases)[label]
+    ks = chip_smoke.check_chains(kind, case, {})
+    assert len(ks) == 3 and ks[-1] > 3
+
+
+@pytest.mark.parametrize("kind", ["K1", "K2"])
+def test_chains_one_launch_per_block(cuda_cases, gotham_cases, kind):
+    """A FusedEnsemble call over 4 chains of 128 walkers and one 16-step
+    block shows one K1 / K2 kernel in the device trace
+    (chip_smoke.kernel_events: one named event a call), not four."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsemble, MultiFusedEnsemble
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
+
+    if kind == "K1":
+        case = cuda_cases["analytic-4d"]
+        (st, tb), _ = chip_smoke.flagship_tables(case)
+        run, name = FusedEnsemble(tb, st), "k1_cluster_steps_kernel"
+    else:
+        case = gotham_cases["analytic-4c"]
+        (st, tb), _ = chip_smoke.multi_tables(*case[1:6], case[7])
+        run, name = MultiFusedEnsemble(tb, st), "multi_cluster_steps_kernel"
+    pos0 = chip_smoke.chain_starts(kind, case, 4, stuck=False).to(torch.float32)
+    lnp0 = torch.stack([run.lnprob(p) for p in pos0])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    rnd = draw_chain_randomness(4, chip_smoke.K_STEPS, chip_smoke.W, gen, device="cuda")
+    events = chip_smoke.kernel_events(
+        lambda: run(pos0, lnp0, chip_smoke.K_STEPS, chip_smoke.K_STEPS, randomness=rnd),
+        name, 3)
+    assert len(events) == 3
+
+
+def test_general_chains_equal_k1_chains_on_the_card(cuda_cases):
+    """run_ensemble_chains over the flagship's f64 general lnprob on the
+    card against the hand-written K1 launched over the same 3 chains
+    (FusedEnsemble, one launch a block) on the same randomness: chains
+    and acceptances bitwise, lnps rtol 1e-12 (the two sum the channels in
+    another order), as K1 against its plain version."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.inference import build_lnprob, single_component_lnprior
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsemble, run_ensemble_chains
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
+
+    case = cuda_cases["analytic-4d"]
+    _, _, m64, spec, cfg, grid = case
+    lnprob = build_lnprob(m64, spec, grid.ints, grid.yerrs, single_component_lnprior(
+        spec, cfg.bounds, cfg.template_means, cfg.template_stds, dtype=torch.float64))
+    pos0 = chip_smoke.chain_starts("K1", case, 3)
+    lnp0 = torch.stack([lnprob(p) for p in pos0])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    rnd = draw_chain_randomness(3, 32, chip_smoke.W, gen, device="cuda", dtype=torch.float64)
+    general = run_ensemble_chains(lnprob, pos0, lnp0, 32, randomness=rnd)
+    st, tb = chip_smoke.flagship_tables(case)[1]
+    k1 = FusedEnsemble(tb, st)(pos0, lnp0, 32, chip_smoke.K_STEPS, randomness=rnd)
+    assert torch.equal(general[0], k1[0]) and torch.equal(general[3][0], k1[3][0])
+    assert torch.equal(general[2], k1[2].to(general[2].dtype))
+    fin = torch.isfinite(general[1])
+    assert torch.equal(torch.isfinite(k1[1]), fin)
+    np.testing.assert_allclose(k1[1][fin].cpu().numpy(), general[1][fin].cpu().numpy(),
+                               rtol=1e-12)
+    assert 0 < int(general[2].sum()) < 3 * 32 * chip_smoke.W

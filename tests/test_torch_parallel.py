@@ -155,10 +155,48 @@ def _rank_sampler(rank, out, m):
     np.savez(os.path.join(out, f"sampler-rank{rank}.npz"), **res)
 
 
+def _rank_fault(rank, out, m):
+    """Twelve steps in three blocks of 4 of the ShardedEnsembleSampler on a
+    (1, 2, 1) mesh, whose runner raises a DeviceError on rank 1 alone at
+    the start of the second block. Each rank records what it raised, its
+    runner calls and the steps its chain holds."""
+    from cha1_mcmc_tpu_torch.parallel import make_sharded_sampler
+    from cha1_mcmc_tpu_torch.utils import DeviceError
+
+    model = _port_model(m)
+    spec, lnprior = _flagship_prior(m)
+    sampler = make_sharded_sampler(
+        n_devices=2, n_line_shards=1, nwalkers=W, ndim=4, a=2.0, dtype=torch.float64,
+        model=model, spec=spec, grid_ints=m["ints"], grid_yerrs=m["yerrs"],
+        lnprior_fn=lnprior, device="cpu", verbose=False)
+    runner_of, calls = sampler._runner, []
+
+    def faulty_runner(nsteps):
+        runner = runner_of(nsteps)
+
+        def run(*args, **kwargs):
+            calls.append(nsteps)
+            if rank == 1 and len(calls) == 2:
+                raise DeviceError("injected on rank 1")
+            return runner(*args, **kwargs)
+        return run
+
+    sampler._runner = faulty_runner
+    res = dict(raised="", device_error=False, runtime_error=False)
+    try:
+        sampler.run_mcmc(m["pos0"], 12, torch.Generator().manual_seed(7), checkpoint_every=4)
+    except Exception as e:  # noqa: BLE001 - what each rank raised is the result
+        res = dict(raised=f"{type(e).__name__}: {e}", device_error=isinstance(e, DeviceError),
+                   runtime_error=isinstance(e, RuntimeError))
+    np.savez(os.path.join(out, f"fault-rank{rank}.npz"), calls=len(calls),
+             steps=sampler.chain.shape[1], **{k: np.array(v) for k, v in res.items()})
+
+
 def _rank_fits(rank, out, flagship, gotham):
     """SpectralFit and MultiComponentFit with n_devices=2, each rank with
     its own fit folder (so a file in rank 1's shows a write); then
-    n_devices=3 and n_chains=2 must raise."""
+    n_devices=3 must raise, and n_chains=2 must be taken (the fit on the
+    mesh's chains axis runs in tests/test_torch_multichain.py)."""
     from cha1_mcmc_tpu_torch import (FitConfig, MultiComponentFit, MultiFitConfig,
                                      SpectralFit)
 
@@ -177,11 +215,8 @@ def _rank_fits(rank, out, flagship, gotham):
                               **flagship)).run()
     except ValueError as e:
         res["n_devices_3"] = np.array(str(e))
-    try:
-        SpectralFit(FitConfig(fit_folder=folder, n_devices=2, n_chains=2, device="cpu",
-                              **flagship))
-    except NotImplementedError as e:
-        res["n_chains_2"] = np.array(str(e))
+    res["n_chains_2"] = np.array(SpectralFit(FitConfig(
+        fit_folder=folder, n_devices=2, n_chains=2, device="cpu", **flagship)).sharded)
     np.savez(os.path.join(out, f"fits-rank{rank}.npz"), **res)
 
 
@@ -430,10 +465,26 @@ def test_sharded_fits_on_two_ranks(fit_runs, key, ndim):
 
 
 def test_sharded_fit_refusals(fit_runs):
-    """n_devices must equal the world size; n_chains > 1 is still P15's."""
+    """n_devices must equal the world size; n_chains > 1 is no longer
+    refused (P15 is ported): the sharded fit takes it."""
     for res in fit_runs[1]:
         assert "n_devices=3" in str(res["n_devices_3"])
-        assert "P15" in str(res["n_chains_2"])
+        assert bool(res["n_chains_2"])
+
+
+def test_sharded_sampler_raises_a_device_error_met_by_one_rank(flagship, tmp_path):
+    """A DeviceError on one rank is not retried: a rank that reran the
+    block alone would pair its collectives with the other ranks' next
+    ones. Rank 1 raises it from the block's only runner call; rank 0, left
+    waiting in the block's collectives, raises a RuntimeError (not a
+    DeviceError, and not retried) once rank 1's group is gone, within the
+    group's 60 s timeout. Both hold the first block's 4 steps."""
+    spawn(_rank_fault, 2, tmp_path, str(tmp_path), flagship["m"], timeout=60)
+    ranks = [dict(np.load(tmp_path / f"fault-rank{r}.npz")) for r in range(2)]
+    assert str(ranks[1]["raised"]) == "DeviceError: injected on rank 1"
+    assert bool(ranks[0]["runtime_error"]) and not bool(ranks[0]["device_error"])
+    for res in ranks:
+        assert int(res["calls"]) == 2 and int(res["steps"]) == 4
 
 
 def test_multihost_without_a_launcher_is_one_process(monkeypatch):

@@ -13,6 +13,7 @@ Ranks hand their results back through files under tmp_path.
 
 from __future__ import annotations
 
+import datetime
 import os
 
 import torch
@@ -22,11 +23,13 @@ import torch.multiprocessing as mp
 __all__ = ["spawn"]
 
 
-def _rank_main(rank: int, world: int, store_path: str | None, fn, args):
+def _rank_main(rank: int, world: int, store_path: str | None, fn, args,
+               timeout: float | None):
     torch.set_num_threads(1)
     if store_path is not None:
+        kw = {} if timeout is None else dict(timeout=datetime.timedelta(seconds=timeout))
         dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world, **kw)
     try:
         fn(rank, *args)
     finally:
@@ -34,9 +37,11 @@ def _rank_main(rank: int, world: int, store_path: str | None, fn, args):
             dist.destroy_process_group()
 
 
-def spawn(fn, world: int, tmp_path, *args, init: bool = True) -> None:
+def spawn(fn, world: int, tmp_path, *args, init: bool = True,
+          timeout: float | None = None) -> None:
     """Run fn(rank, *args) on `world` gloo ranks; raises if a rank fails.
     With init=False a single process starts with no group (what
-    make_mesh then does itself)."""
+    make_mesh then does itself); `timeout` (seconds) bounds the group's
+    collectives (torch's default otherwise)."""
     store = os.path.join(str(tmp_path), f"store-{fn.__name__}-{world}") if init else None
-    mp.spawn(_rank_main, args=(world, store, fn, args), nprocs=world, join=True)
+    mp.spawn(_rank_main, args=(world, store, fn, args, timeout), nprocs=world, join=True)
