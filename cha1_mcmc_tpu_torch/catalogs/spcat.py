@@ -191,16 +191,22 @@ def parse_spcat(catalog_file: str, name: str | None = None, CT: float = 300.0) -
     logint [21:29], dof [29:31], elower [31:41], gup [41:44], tag [44:51],
     qnformat [51:55], then twelve 2-char quantum numbers [55:79].
 
-    Tokenization is the pure-Python tokenizer (the JAX package's native
-    C++ loader is not ported yet). Derived quantities follow reference
+    Tokenization runs through the native C++ loader when it builds
+    (catalogs/native.py over the port's copy of native/spcat_parser.cpp),
+    falling back to the pure-Python tokenizer, as the JAX package does.
+    Derived quantities follow reference
     classes.py:90-110 exactly; sijmu needs Q(CT), so the partition model is
     resolved here (late import avoids a module cycle: the generic Q
     fallback needs parsed QNs).
     """
+    from cha1_mcmc_tpu_torch.catalogs.native import tokenize_native
+
     with open(catalog_file, "rb") as fh:
         raw = fh.read()
-    fields = _tokenize_python(
-        [ln for ln in raw.decode().splitlines() if ln.strip()])
+    fields = tokenize_native(raw)
+    if fields is None:
+        fields = _tokenize_python(
+            [ln for ln in raw.decode().splitlines() if ln.strip()])
 
     frequency = fields["frequency"]
     error = fields["error"]

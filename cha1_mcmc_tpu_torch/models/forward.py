@@ -131,6 +131,12 @@ def forward_from_lines(line_freq, line_elower, line_aij, line_gup, line_glow,
     return torch.sum(comps, dim=1)
 
 
+def _velocity_grid(line_freq, grid_freq, vel_offset):
+    """Static (L, C) velocity of each channel relative to each line, in f64
+    on the host (reference inference.py:51)."""
+    return (line_freq[:, None] - grid_freq[None, :]) / line_freq[:, None] * CKM + vel_offset
+
+
 class SpectralModel(nn.Module):
     """On-grid emission model over the covered lines.
 
@@ -196,12 +202,10 @@ class SpectralModel(nn.Module):
             q_model = q_model_for_catalog(catalog)
         line_freq = catalog.frequency[sel]
         grid_freq = np.asarray(grid_freq, dtype=np.float64)
-        # Static (L, C) velocity grid, computed once in f64 on the host.
-        vel_grid = (line_freq[:, None] - grid_freq[None, :]) / line_freq[:, None] * CKM + vel_offset
         arrays = dict(line_freq=line_freq, line_elower=catalog.elower[sel],
                       line_aij=catalog.aij[sel], line_gup=catalog.gup[sel],
                       line_glow=catalog.glow[sel], grid_freq=grid_freq,
-                      vel_grid=vel_grid)
+                      vel_grid=_velocity_grid(line_freq, grid_freq, vel_offset))
         return SpectralModel(arrays, q_model, mask_center=mask_center,
                              dish_size=dish_size, Tbg=Tbg,
                              vel_offset=vel_offset, device=device, dtype=dtype)
@@ -212,6 +216,21 @@ class SpectralModel(nn.Module):
         arrays = {name: getattr(self, name)
                   for name in _LINE_FIELDS + ("grid_freq", "vel_grid")}
         return SpectralModel(arrays, q_model, mask_center=self.mask_center,
+                             dish_size=self.dish_size, Tbg=self.Tbg,
+                             vel_offset=self.vel_offset, device=self.device,
+                             dtype=self.dtype)
+
+    def with_grid(self, grid_freq) -> "SpectralModel":
+        """A copy of this model on another channel grid `grid_freq` (MHz):
+        the same lines and Q(T), the velocity grid recomputed in f64 on the
+        host from the lines as `build` computes it (vel_offset included),
+        e.g. a fine grid around a line for plotting."""
+        grid_freq = np.asarray(grid_freq, dtype=np.float64)
+        arrays = {name: getattr(self, name) for name in _LINE_FIELDS}
+        arrays["grid_freq"] = grid_freq
+        arrays["vel_grid"] = _velocity_grid(self.line_freq.cpu().numpy().astype(np.float64),
+                                            grid_freq, self.vel_offset)
+        return SpectralModel(arrays, self.q_model, mask_center=self.mask_center,
                              dish_size=self.dish_size, Tbg=self.Tbg,
                              vel_offset=self.vel_offset, device=self.device,
                              dtype=self.dtype)

@@ -47,6 +47,7 @@ from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_D
 from cha1_mcmc_tpu_torch.models.sparse_opacity import TC, TL, window_is_exact
 from cha1_mcmc_tpu_torch.sampler.fused import _AA, check_tensor, raise_on, route
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
+from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["opacity_block_plain", "opacity_csr_plain", "opacity_pallas",
            "opacity_pallas_fused", "opacity_pallas_mxu", "opacity_pallas_csr",
@@ -60,7 +61,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 #: Kernel launches per K4 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
-LAUNCHES = {"opacity_block": 0, "opacity_csr": 0}
+LAUNCHES = register_launches({"opacity_block": 0, "opacity_csr": 0})
 
 #: Below this z = |v - vlsr| / sigma the Gaussian does not round to exactly
 #: 0 on a card that keeps subnormals: exp(-z^2 / 2) < 2^-150 (half the

@@ -50,6 +50,7 @@ from cha1_mcmc_tpu_torch.parallel.sharded import (CHAIN_AXIS, LINE_AXIS, WALKER_
 from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
 from cha1_mcmc_tpu_torch.sampler.fused import (_SUFFIX, check_tensor, raise_on, route)
 from cha1_mcmc_tpu_torch.sampler.stretch import half_step
+from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["fused_sharded_supported", "fused_multi_sharded_supported",
            "plan_fused_gather_sharded", "half_update_plain", "sharded_half_plain",
@@ -60,7 +61,8 @@ __all__ = ["fused_sharded_supported", "fused_multi_sharded_supported",
 
 #: Kernel launches per K5 wrapper, counted where the C entry is called and
 #: nowhere else (plain-version calls do not count): K5a, K5b, K5c.
-LAUNCHES = {"sharded_half": 0, "sharded_gather_half": 0, "sharded_multi_half": 0}
+LAUNCHES = register_launches({"sharded_half": 0, "sharded_gather_half": 0,
+                               "sharded_multi_half": 0})
 
 
 def _local_walkers(mesh: Mesh, nwalkers: int) -> int | None:

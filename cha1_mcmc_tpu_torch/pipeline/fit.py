@@ -315,6 +315,10 @@ class SpectralFit:
             lnp0 = None
 
         throughput = Throughput()
+        with throughput.setup():
+            lnp0 = self.sampler.prepare(pos, lnp0)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         with trace_profile(cfg.profile_dir), throughput:
             self.sampler.run_mcmc(
                 pos, cfg.nruns, generator, lnp0=lnp0,

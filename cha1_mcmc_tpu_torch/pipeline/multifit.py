@@ -308,9 +308,13 @@ class MultiComponentFit:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(cfg.seed)
         throughput = Throughput()
+        with throughput.setup():
+            lnp0 = self.sampler.prepare(pos)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         with throughput:
             self.sampler.run_mcmc(
-                pos, cfg.nruns, generator, checkpoint_every=cfg.checkpoint_every,
+                pos, cfg.nruns, generator, lnp0=lnp0, checkpoint_every=cfg.checkpoint_every,
                 chain_file=cfg.chain_path, progress=True)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

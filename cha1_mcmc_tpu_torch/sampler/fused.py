@@ -44,6 +44,7 @@ from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_chain_ran
                                                  draw_randomness, half_step)
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 from cha1_mcmc_tpu_torch.utils.device import DeviceError
+from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
            "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
@@ -63,7 +64,7 @@ DV_MARGIN = 1e-4
 
 #: Kernel launches per K1 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
-LAUNCHES = {"fused_steps": 0, "fused_lnprob": 0}
+LAUNCHES = register_launches({"fused_steps": 0, "fused_lnprob": 0})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -50,6 +50,7 @@ from cha1_mcmc_tpu_torch.sampler.fused import (
     _AA, _MAX_CHEB, _MAX_POLY, _STATICS, _SUFFIX, FusedEnsemble, FusedStatics,
     _pack_statics, bind_kernel_library, check_tensor, prior_box, raise_on, route,
     single_statics_tables, steps_plain)
+from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["build_dense_tables", "GatherGeometry", "gather_geometry",
            "block_line_tables", "GatherPlan", "resident_ctas", "launch_grid",
@@ -79,7 +80,7 @@ _SLOT_MAX = 32767         # slots are int16
 #: Kernel launches per K3 entry (one per C call: one cooperative kernel
 #: launch that runs every half-step of the call), counted where the call
 #: is made and nowhere else (plain-version calls do not count).
-LAUNCHES = {"gather_steps": 0, "gather_lnprob": 0}
+LAUNCHES = register_launches({"gather_steps": 0, "gather_lnprob": 0})
 
 
 def _dense_tables(model, dv_max: float, min_saving: float):

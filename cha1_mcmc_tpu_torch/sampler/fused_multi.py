@@ -49,6 +49,7 @@ from cha1_mcmc_tpu_torch.sampler.fused import (
     _AA, _MAX_CHEB, _MAX_POLY, _SUFFIX, FusedEnsemble,
     bind_kernel_library, chain_batched, check_step_block, check_tensor, gauss_norm,
     pack_q, q_statics, raise_on, route, statics_q_model, steps_plain)
+from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["window_extents", "fused_multi_supported", "MultiStatics",
            "multi_statics_tables", "multi_lnprob_plain", "multi_steps_plain",
@@ -60,7 +61,7 @@ _MAX_COMP = 4   # kMaxComp of the kernel's MultiStatics (csrc/multi_step.cu)
 
 #: Kernel launches per K2 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
-LAUNCHES = {"multi_steps": 0, "multi_lnprob": 0}
+LAUNCHES = register_launches({"multi_steps": 0, "multi_lnprob": 0})
 
 
 def window_extents(vel_grid: np.ndarray, mask_center: float, dv_max: float):

@@ -256,6 +256,20 @@ class EnsembleSampler:
         with torch.no_grad():
             return self.lnprob_fn(pos)
 
+    def prepare(self, pos, lnp0=None):
+        """What the first block of run_mcmc would pay once a process, done
+        ahead so a caller can time it apart as set-up: one step's
+        draw_randomness from a generator of its own (the random kernels'
+        first launch; the run's stream is untouched) and the starting
+        lnprob (`lnp0(pos)`, unless `lnp0` is given; a kernel's first
+        launch loads its library). Returns the lnp0 to pass to run_mcmc."""
+        pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
+        draw_randomness(1, self.nwalkers, torch.Generator(device=self.device),
+                        device=self.device, dtype=self.dtype)
+        if lnp0 is not None:
+            return torch.as_tensor(lnp0, dtype=self.dtype, device=self.device)
+        return self.lnp0(pos)
+
     def thin(self, chain, lnps, accepted, thin: int):
         """Keep every thin-th of the raw steps of a (n_raw, W, D) block
         ending each group of `thin` raw moves: bitwise what

@@ -30,6 +30,7 @@ import torch
 
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, DeviceError, resolve_device
+from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["PROBES", "probe_inputs", "probes_plain", "probes", "reference",
            "run_probes", "load_kernel_library", "LAUNCHES"]
@@ -44,7 +45,7 @@ PROBES = {"A": "runtime loop over aligned 8-row bands",
 _BANDS, _ROWS, _PLANE, _STRIDE, _SCRATCH, _COLS = 6, 8, 10, 56, 32, 128
 
 #: Kernel launches, counted where the kernel is launched and nowhere else.
-LAUNCHES = {"construct_probe": 0}
+LAUNCHES = register_launches({"construct_probe": 0})
 
 _library = None
 

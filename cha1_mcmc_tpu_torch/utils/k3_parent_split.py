@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, REPO)
 
 from chip_smoke import (CU_SOURCE_K3, DEVICE, K_STEPS, TIMING_PAIRS, W,  # noqa: E402
-                        blocks, card_line, dense_cases, dense_pos0, dense_tables, phase,
+                        card_line, dense_cases, dense_pos0, dense_tables, phase,
                         quartiles)
 
 #: A C source that includes the three-kernel csrc/gather_step.cu of DIR
@@ -103,7 +103,7 @@ def time_split(parent, case, gen, device):
     import ctypes
 
     import torch
-    from cha1_mcmc_tpu_torch.sampler.fused import _pack_statics
+    from cha1_mcmc_tpu_torch.sampler.fused import _pack_statics, block_randomness
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
     from cha1_mcmc_tpu_torch.utils.cuda_build import BUILD_DIR, NVCC_FLAGS, find_nvcc
 
@@ -128,7 +128,8 @@ def time_split(parent, case, gen, device):
     f32 = dict(dtype=torch.float32, device=DEVICE)
     packed = _pack_statics(st, torch.float32)
     stream = torch.cuda.current_stream().cuda_stream
-    pb, zb, prb, ab = blocks(draw_randomness(nb * K_STEPS, W, gen, device=DEVICE), nb)
+    pb, zb, prb, ab = block_randomness(draw_randomness(nb * K_STEPS, W, gen, device=DEVICE),
+                                       K_STEPS)
     scratch = [torch.empty((h, D), **f32), torch.empty(h, **f32),
                torch.empty((h, 8), **f32), torch.empty((h, geom.n_blk), **f32),
                torch.zeros(1, dtype=torch.int32, device=DEVICE)]

@@ -1,5 +1,6 @@
 """Throughput measurement for a fit: walker-steps (likelihood evaluations)
-per second of wall time, written beside the fit's artifacts; and an
+per second of wall time, the set-up time before it and the kernel
+launches made meanwhile, written beside the fit's artifacts; and an
 optional torch.profiler trace of a region (port of
 cha1_mcmc_tpu/utils/metrics.py:trace_profile)."""
 
@@ -11,24 +12,76 @@ import time
 
 import torch
 
-__all__ = ["Throughput", "trace_profile"]
+__all__ = ["Throughput", "kernel_launches", "launch_counters", "register_launches",
+           "trace_profile"]
+
+#: The LAUNCHES dict of every kernel module imported so far, each
+#: registered by its module (register_launches).
+_LAUNCH_COUNTERS: list[dict] = []
+
+
+def register_launches(counts: dict) -> dict:
+    """Register a kernel module's launch counters (entry name -> count,
+    which its wrappers add one to where they launch their kernel and
+    nowhere else); returns them, as `LAUNCHES = register_launches({...})`."""
+    _LAUNCH_COUNTERS.append(counts)
+    return counts
+
+
+def launch_counters() -> tuple:
+    """The registered LAUNCHES dicts, one a kernel module imported."""
+    return tuple(_LAUNCH_COUNTERS)
+
+
+def kernel_launches() -> dict:
+    """The launch count of every registered kernel entry, by entry name (a
+    copy of launch_counters' dicts, merged)."""
+    return {k: v for counts in _LAUNCH_COUNTERS for k, v in counts.items()}
 
 
 class Throughput:
-    """Measure walker-steps per second over the regions it wraps."""
+    """Measure walker-steps per second over the regions it wraps, and the
+    kernel launches made in them (`launches`: entry name -> count, the
+    entries launched at least once); set-up before the sampling is timed
+    apart (`setup`)."""
 
     def __init__(self):
         self._t0 = None
+        self._launches0 = None
         self.elapsed = 0.0
+        self.setup_s = 0.0
         self.walker_steps = 0
+        self.launches = {}
 
     def __enter__(self):
+        self._launches0 = kernel_launches()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.elapsed += time.perf_counter() - self._t0
         self._t0 = None
+        self._count(self._launches0)
+
+    @contextlib.contextmanager
+    def setup(self):
+        """A region of one-time set-up before the sampling (a process's
+        first kernel-library load and random-kernel launches, the starting
+        lnprob: EnsembleSampler.prepare): its seconds go to `setup_s` and
+        its launches into `launches`, its time not into the rate."""
+        launches0 = kernel_launches()
+        t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            self.setup_s += time.perf_counter() - t0
+            self._count(launches0)
+
+    def _count(self, launches0: dict):
+        for name, count in kernel_launches().items():
+            before = launches0.get(name, 0)   # a module imported meanwhile
+            if count != before:
+                self.launches[name] = self.launches.get(name, 0) + count - before
 
     def add(self, nsteps: int, nwalkers: int):
         self.walker_steps += nsteps * nwalkers
@@ -40,7 +93,9 @@ class Throughput:
     def summary(self) -> dict:
         return {"walker_steps": self.walker_steps,
                 "elapsed_s": self.elapsed,
-                "walker_steps_per_sec": self.walker_steps_per_sec}
+                "walker_steps_per_sec": self.walker_steps_per_sec,
+                "setup_s": self.setup_s,
+                "launches": dict(self.launches)}
 
     def save(self, path: str, **extra):
         """Persist the measurement (plus `extra` keys, e.g. the device)

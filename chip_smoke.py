@@ -116,8 +116,31 @@ last line):
      problem for 256 steps through K4a (2 launches a step + 1), with its
      us/step and K4a's share; and T3's run_probes — each with the launch
      counts of that run;
-then one JSON line of per-kernel results, the card's name and power
-limit, and, last, the device JSON line.
+  6. toolkit — the native SPCAT tokenizer built from the port's copy of
+     the source (g++), its fields on the full dense catalog (21,481
+     lines) bitwise equal to the Python tokenizer's, both timed; the
+     command line in subprocesses on the card (`python -m
+     cha1_mcmc_tpu_torch`): `fit` on the flagship and `fit
+     --all-molecules` over two copies of it (128 walkers x 1,024 steps
+     through K1), `multifit` on GOTHAM (128 x 1,024 through K2), each
+     chain bitwise equal to the first 1,024 steps of phase 5's in-process
+     fit, the same files, the launches its throughput.json reports equal to
+     the in-process fit's scaled to its steps, and `diagnose` on the fit's
+     chain; `analysis.grid_chi2` over a 16 x 16 x 64 x 64 (1,048,576-point)
+     flagship grid around the injected truth, f32 in batches of 65,536
+     (points/s; the minimum near the truth in vlsr and dV and inside the
+     K1 posterior's box in Ncol and Tex), and a 625-point f64 sub-grid
+     equal to the CPU's to 1e-12 relative; `analysis.run_adaptive_metropolis`
+     over the flagship (128 chains, 8 x 128 warm-up and 2,400 frozen
+     steps) held to phase 5's K1 chain with tests/test_convergence.py's
+     tolerances (the spreads as central 68% half-widths; the posterior gate),
+     and over the full dense problem
+     through the K4a block lnprob (acceptance, one K4a launch a proposal
+     batch), each in steps/s;
+then one JSON line of per-kernel results (with, beside the main path's
+launches, the command-line fits' K1 / K2 launches and K4a's on the dense
+Metropolis run), the card's name and power limit, and, last, the device
+JSON line.
 """
 
 from __future__ import annotations
@@ -1817,24 +1840,31 @@ def report_times(kname, times, shape, runs, device, plain_blocks=4):
     return k_us, p_us, lk_ms, lp_ms
 
 
-def _counters():
+def kernel_modules():
+    """Import every kernel module of the port, each registering its launch
+    counters with utils.metrics.register_launches at import."""
     from cha1_mcmc_tpu_torch.models import opacity_kernels
     from cha1_mcmc_tpu_torch.parallel import sharded_fused
     from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
     from cha1_mcmc_tpu_torch.utils import construct_probe
 
-    return (fused.LAUNCHES, fused_multi.LAUNCHES, fused_gather.LAUNCHES,
-            opacity_kernels.LAUNCHES, sharded_fused.LAUNCHES, construct_probe.LAUNCHES)
+    return fused, fused_multi, fused_gather, opacity_kernels, sharded_fused, construct_probe
 
 
 def zero_launches():
-    for counts in _counters():
+    from cha1_mcmc_tpu_torch.utils.metrics import launch_counters
+
+    kernel_modules()
+    for counts in launch_counters():
         for key in counts:
             counts[key] = 0
 
 
 def read_launches():
-    return {k: v for counts in _counters() for k, v in counts.items()}
+    from cha1_mcmc_tpu_torch.utils.metrics import kernel_launches
+
+    kernel_modules()
+    return kernel_launches()
 
 
 def checkpoint_split(fit, kernel_s, tmp, device, reps=3):
@@ -2598,6 +2628,381 @@ def slice_probe(device):
     return launches
 
 
+# -- 6: the toolkit: native tokenizer, command line, grid chi^2, Metropolis -------
+
+#: Steps of each command-line fit: phase 5's first checkpoint block, so a
+#: CLI chain equals the first block of the in-process fit's chain bitwise.
+CLI_STEPS = 1024
+#: The independent engine's schedule (tests/test_convergence.py:335-345):
+#: 8 warm-up rounds of 128 steps, then 2,400 frozen steps (the dense run).
+MH_ROUNDS, MH_ROUND_LEN, MH_STEPS = 8, 128, 2400
+#: The flagship gate's frozen steps: 4 x 2,400. The synthetic Ncol marginal
+#: has a heavy upper tail that the frozen diagonal random walk reaches
+#: slowly, so its Ncol std at 2,400 steps falls short of the posterior's
+#: (the grid integral, slice_metropolis) and grows toward it with the run's
+#: length; the std ratio at each prefix is printed.
+MH_GATE_STEPS = 4 * MH_STEPS
+#: The posterior integrated over a grid (Ncol x Tex x vlsr x dV points, f64
+#: on the card), the gate's third witness.
+POSTERIOR_GRID = (128, 96, 24, 24)
+
+
+def check_native(prob_d, device):
+    """The native SPCAT tokenizer, built from the port's copy of the
+    source: its fields on the full dense catalog equal the Python
+    tokenizer's bitwise; prints both times."""
+    import numpy as np
+    from cha1_mcmc_tpu_torch.catalogs import native, spcat
+
+    t0 = time.perf_counter()
+    lib = native.build_native()             # raises where g++ fails
+    build_s = time.perf_counter() - t0
+    assert native.native_available(), "the native tokenizer does not load"
+    with open(prob_d["cat_path"], "rb") as fh:
+        raw = fh.read()
+    t0 = time.perf_counter()
+    nat = native.tokenize_native(raw)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = spcat._tokenize_python([ln for ln in raw.decode().splitlines() if ln.strip()])
+    t_py = time.perf_counter() - t0
+    assert nat.keys() == py.keys()
+    for k in nat:
+        assert nat[k].dtype == py[k].dtype, k
+        np.testing.assert_array_equal(nat[k], py[k], err_msg=k)
+    phase(6, "toolkit", f"native SPCAT tokenizer ({os.path.basename(lib)}, g++ "
+          f"{' '.join(native.CXX_FLAGS)}, {build_s:.2f} s to build or load): the full "
+          f"dense catalog, {nat['frequency'].size:,} lines, fields bitwise equal to the "
+          f"Python tokenizer's; native {t_nat * 1e3:.2f} ms, Python {t_py * 1e3:.2f} ms "
+          f"(host; {device})")
+
+
+def run_cli(tmp, name, *args, config=None):
+    """`python -m cha1_mcmc_tpu_torch <args>` in a subprocess from the
+    repository root (config: written to tmp/cli/<name>.json and passed as
+    --config); raises unless it exits 0. Returns (stdout, seconds)."""
+    folder = os.path.join(tmp, "cli")
+    os.makedirs(folder, exist_ok=True)
+    if config is not None:
+        path = os.path.join(folder, f"{name}.json")
+        with open(path, "w") as fh:
+            json.dump(config, fh)
+        args = (*args, "--config", path)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "cha1_mcmc_tpu_torch", *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"python -m cha1_mcmc_tpu_torch {' '.join(args)} exited "
+                           f"{out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def check_cli_fit(mol_dir, ref_dir, chain_name, ref_launches, ref_steps):
+    """One CLI fit's folder against the in-process fit's: the same files,
+    the chain equal to the first CLI_STEPS steps of the in-process chain,
+    and the kernel launches its throughput.json reports equal to the
+    in-process fit's, scaled to its steps. Returns throughput.json."""
+    import numpy as np
+
+    assert sorted(os.listdir(mol_dir)) == sorted(os.listdir(ref_dir)), (
+        os.listdir(mol_dir), os.listdir(ref_dir))
+    chain = np.load(os.path.join(mol_dir, chain_name))
+    ref = np.load(os.path.join(ref_dir, chain_name))
+    assert chain.shape == (W, CLI_STEPS, ref.shape[2]), chain.shape
+    np.testing.assert_array_equal(chain, ref[:, :CLI_STEPS])
+    with open(os.path.join(mol_dir, "throughput.json")) as fh:
+        tp = json.load(fh)
+    assert tp["sampler"] == "FusedEnsembleSampler", tp["sampler"]
+    want = {k: (v * CLI_STEPS // ref_steps if k.endswith("_steps") else v)
+            for k, v in ref_launches.items() if v}
+    assert tp["launches"] == want, (tp["launches"], want)
+    return tp
+
+
+def slice_cli(prob, prob9, tmp, device, k1_launches, k2_launches):
+    """Phase 6: the command line on the card, each in a subprocess: `fit`
+    on the flagship, `fit --all-molecules` over two copies of it, `multifit`
+    on GOTHAM, each 128 walkers x CLI_STEPS steps, held to phase 5's
+    in-process fits (k1_launches / k2_launches: their launch counts over
+    4096 steps); then `diagnose` on the fit's chain. Returns the CLI
+    fits' launches (entry -> count, summed over the runs)."""
+    import shutil
+    import numpy as np
+
+    common = dict(nwalkers=W, nruns=CLI_STEPS, checkpoint_every=CLI_STEPS, seed=0,
+                  device="cuda")
+    fit_cfg = dict(mol_name="hc5n_hfs", cat_folder=prob["cat_folder"],
+                   data_path=prob["data_path"], fit_folder=os.path.join(tmp, "cli", "fit"),
+                   **common)
+    _, secs = run_cli(tmp, "fit", "fit", config=fit_cfg)
+    fit_dir = os.path.join(fit_cfg["fit_folder"], "hc5n_hfs")
+    tp = check_cli_fit(fit_dir, os.path.join(tmp, "fit", "hc5n_hfs"), "chain_template.npy",
+                       k1_launches, 4096)
+    totals = dict(tp["launches"])
+    phase(6, "toolkit", f"CLI fit: exit 0 in {secs:.1f} s (process included), "
+          f"{tp['walker_steps_per_sec']:,.0f} walker-steps/s (its throughput.json; set-up "
+          f"{tp['setup_s'] * 1e3:.2f} ms apart), launches "
+          f"{tp['launches']} vs the in-process fit's {k1_launches} for 4096 steps; chain "
+          f"{W} x {CLI_STEPS} x 4 bitwise equal to the in-process fit's first {CLI_STEPS} "
+          f"steps, the same files ({device})")
+
+    cat_folder = os.path.join(tmp, "cli", "catalog")
+    os.makedirs(cat_folder, exist_ok=True)
+    for mol in ("hc5n_hfs", "hc5n_hfs_copy"):
+        shutil.copy(prob["cat_path"], os.path.join(cat_folder, f"{mol}.cat"))
+    batch_cfg = dict(fit_cfg, cat_folder=cat_folder, fit_folder=os.path.join(tmp, "cli", "batch"),
+                     data_paths={"hc5n_hfs": prob["data_path"],
+                                 "hc5n_hfs_copy": prob["data_path"]})
+    _, secs = run_cli(tmp, "batch", "fit", "--all-molecules", config=batch_cfg)
+    rates = []
+    for mol in ("hc5n_hfs", "hc5n_hfs_copy"):
+        mol_dir = os.path.join(batch_cfg["fit_folder"], mol)
+        files = sorted(f.replace(mol, "hc5n_hfs") for f in os.listdir(mol_dir))
+        assert files == sorted(os.listdir(fit_dir)), (files, os.listdir(fit_dir))
+        np.testing.assert_array_equal(np.load(os.path.join(mol_dir, "chain_template.npy")),
+                                      np.load(os.path.join(fit_dir, "chain_template.npy")))
+        with open(os.path.join(mol_dir, "throughput.json")) as fh:
+            btp = json.load(fh)
+        assert btp["launches"] == tp["launches"], btp["launches"]
+        rates.append((btp["walker_steps_per_sec"], btp["setup_s"]))
+        for k, v in btp["launches"].items():
+            totals[k] += v
+    phase(6, "toolkit", f"CLI fit --all-molecules (two copies of the flagship): exit 0 in "
+          f"{secs:.1f} s, {rates[0][0]:,.0f} / {rates[1][0]:,.0f} walker-steps/s (set-up "
+          f"{rates[0][1] * 1e3:.2f} / {rates[1][1] * 1e3:.2f} ms apart), launches "
+          f"{tp['launches']} each; both chains bitwise equal to the CLI fit's ({device})")
+
+    multi_cfg = dict(mol_name="hc9n_hfs", template_run=True, cat_folder=prob9["cat_folder"],
+                     data_path=prob9["data_path"], fit_folder=os.path.join(tmp, "cli", "gotham"),
+                     **common)
+    _, secs = run_cli(tmp, "multifit", "multifit", config=multi_cfg)
+    mtp = check_cli_fit(os.path.join(multi_cfg["fit_folder"], "hc9n_hfs"),
+                        os.path.join(tmp, "gotham", "hc9n_hfs"), "chain.npy", k2_launches,
+                        4096)
+    totals.update(mtp["launches"])
+    phase(6, "toolkit", f"CLI multifit: exit 0 in {secs:.1f} s, "
+          f"{mtp['walker_steps_per_sec']:,.0f} walker-steps/s (set-up {mtp['setup_s'] * 1e3:.2f} "
+          f"ms apart), launches {mtp['launches']} vs "
+          f"the in-process fit's {k2_launches} for 4096 steps; chain {W} x {CLI_STEPS} x 14 "
+          f"bitwise equal to the in-process fit's first {CLI_STEPS} steps ({device})")
+
+    out, secs = run_cli(tmp, "diagnose", "diagnose",
+                        os.path.join(fit_dir, "chain_template.npy"))
+    assert "R-hat" in out and "converged" in out, out
+    phase(6, "toolkit", f"CLI diagnose on the fit's chain: exit 0 in {secs:.1f} s:")
+    for ln in out.strip().splitlines():
+        print(f"    {ln}")
+    return totals
+
+
+def cpu_copy(model):
+    """The same SpectralModel with its buffers on the CPU."""
+    import copy
+
+    return copy.deepcopy(model).cpu()
+
+
+def slice_grid_chi2(case, ref_chain, device):
+    """Phase 6: grid_chi2 over a 16 x 16 x 64 x 64 (1,048,576-point) grid
+    around the injected truth, f32 on the card in batches of 65,536: the
+    minimum near the truth in vlsr and dV and inside the K1 posterior's box
+    in Ncol and Tex, and the f64 scan's minimum; a 625-point sub-grid in
+    f64 on the card equal to the CPU's to 1e-12 relative. Returns the
+    points/s of the timed call."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.analysis import grid_chi2
+    from tests.port_problems import TRUTH
+
+    label, m32, m64, spec, cfg, grid = case
+    truth = np.asarray(TRUTH)
+    # Tex inside the prior's box (3.5, 12): the chi^2 falls toward high Tex
+    # along the Ncol-Tex degeneracy, and the box's edge is outside the posterior
+    grids = {"Ncol": truth[0] * np.linspace(0.5, 1.5, 16), "Tex": np.linspace(4.0, 11.5, 16),
+             "vlsr": truth[2] + np.linspace(-0.16, 0.16, 64),
+             "dV": truth[3] + np.linspace(-0.32, 0.32, 64)}
+    args = (spec, grid.ints, grid.yerrs)
+    grid_chi2(m32, *args, {k: v[:4] for k, v in grids.items()})       # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thetas, chi2, best = grid_chi2(m32, *args, grids, batch=65536)
+    secs = time.perf_counter() - t0
+    assert not any(read_launches().values()), read_launches()  # the dense lnlike only
+    assert thetas.shape == (1_048_576, 4) and np.isfinite(chi2).all()
+    post = ref_chain[:, ref_chain.shape[1] // 4:].reshape(-1, 4).astype(np.float64)
+    sd, lo, hi = post.std(0), post.min(0), post.max(0)
+    steps = {k: v[1] - v[0] for k, v in grids.items()}
+    for i, k in ((2, "vlsr"), (3, "dV")):
+        # the noise of the synthetic spectrum moves its chi^2 minimum ~1
+        # posterior sigma off the truth: the check allows one grid step or
+        # two posterior sigmas, whichever is larger
+        assert abs(best[i] - truth[i]) <= max(steps[k], 2 * sd[i]) * (1 + 1e-9), (k, best, sd)
+    for i in (0, 1):
+        assert lo[i] <= best[i] <= hi[i], (best, lo, hi)
+    # the physical check above is a sanity check; grid_chi2's correctness
+    # rests on the f64 comparisons: the f32 scan finds the f64 scan's
+    # minimum (the same point, or one within 1e-5 relative of its chi^2),
+    # and f64 on the card equals the CPU's (below) and JAX's (the tests)
+    _, c64, b64 = grid_chi2(m64, *args, grids, batch=65536)
+    i32 = int(np.argmin(chi2))
+    same = bool(np.array_equal(best, b64))
+    gap = float((c64[i32] - c64.min()) / c64.min())
+    assert same or gap <= 1e-5, (best, b64, gap)
+    sub = {k: v[::len(v) // 5][:5] for k, v in grids.items()}
+    _, c_card, b_card = grid_chi2(m64, *args, sub)
+    _, c_cpu, b_cpu = grid_chi2(cpu_copy(m64), *args, sub)
+    np.testing.assert_allclose(c_card, c_cpu, rtol=1e-12)
+    assert np.array_equal(b_card, b_cpu)
+    err = float(np.max(np.abs(c_card - c_cpu) / np.abs(c_cpu)))
+    rate = thetas.shape[0] / secs
+    phase(6, "toolkit", f"grid_chi2 {label}, 16 x 16 x 64 x 64 = {thetas.shape[0]:,} points, "
+          f"f32, batches of 65,536: {secs:.3f} s, {rate:,.0f} points/s; minimum at Ncol "
+          f"{best[0]:.4g}, Tex {best[1]:.4g}, vlsr {best[2]:.4f}, dV {best[3]:.4f} (truth "
+          f"{truth[2]}, {truth[3]}: {abs(best[2] - truth[2]) / steps['vlsr']:.2f} / "
+          f"{abs(best[3] - truth[3]) / steps['dV']:.2f} grid steps, "
+          f"{abs(best[2] - truth[2]) / sd[2]:.2f} / {abs(best[3] - truth[3]) / sd[3]:.2f} "
+          f"K1 posterior sigmas); Ncol, Tex inside the K1 posterior's box; the f64 scan's "
+          f"minimum {'the same point' if same else f'{gap:.3e} relative below'}; 625-point "
+          f"f64 sub-grid card vs CPU max rel {err:.3e}, same argmin ({device})")
+    return rate
+
+
+def posterior_grid_moments(lnprob, lo, hi, shape=POSTERIOR_GRID, batch=65536):
+    """The posterior's marginal means and stds, (4,) each, integrated over
+    a grid of `shape` points spaced evenly inside (lo, hi) (f64 thetas
+    through `lnprob`, weights exp(lnp - max)); and the probability mass on
+    each axis's two outer planes, (4,)."""
+    import numpy as np
+    import torch
+
+    axes = [np.linspace(a, b, n + 2)[1:-1] for a, b, n in zip(lo, hi, shape)]
+    mesh = torch.stack(torch.meshgrid(
+        *(torch.as_tensor(a, dtype=torch.float64, device=DEVICE) for a in axes),
+        indexing="ij"), -1).reshape(-1, len(shape))
+    lnp = torch.cat([lnprob(mesh[i:i + batch]) for i in range(0, mesh.shape[0], batch)])
+    w = torch.nan_to_num(torch.exp(lnp - lnp.max()), nan=0.0)
+    w = (w / w.sum()).reshape(shape)
+    means, stds, edge = [], [], []
+    for d, a in enumerate(axes):
+        marg = w.sum(tuple(i for i in range(len(shape)) if i != d)).cpu().numpy()
+        mu = float((marg * a).sum())
+        means.append(mu)
+        stds.append(float(np.sqrt((marg * (a - mu) ** 2).sum())))
+        edge.append(float(marg[0] + marg[-1]))
+    return np.array(means), np.array(stds), np.array(edge)
+
+
+def slice_metropolis(case, ref_chain, dense_case, device):
+    """Phase 6: run_adaptive_metropolis over the flagship (128 chains,
+    init_sigma = stds / 10, MH_ROUNDS x MH_ROUND_LEN warm-up steps,
+    MH_GATE_STEPS frozen) held to the phase-5 K1 fit's chain with
+    tests/test_convergence.py:360-365's checks and tolerances, and both
+    engines held to the posterior integrated over a grid (posterior_grid_
+    moments) with the same tolerances; then over the full dense problem
+    through the K4a block lnprob (MH_STEPS frozen), one K4a launch a
+    proposal batch. Returns ({engine: steps/s}, K4a launches)."""
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.analysis import run_adaptive_metropolis
+    from cha1_mcmc_tpu_torch.inference import (build_lnprob, build_lnprob_batched,
+                                               single_component_lnprior)
+
+    def run(lnprob, pos0, stds, seed, nsteps):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed)
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain, _, acc = run_adaptive_metropolis(
+            lnprob, pos0, gen, nsteps=nsteps, init_sigma=stds / 10,
+            warmup_rounds=MH_ROUNDS, round_len=MH_ROUND_LEN, batched=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return chain.cpu().numpy(), acc, read_launches(), secs
+
+    def check(name, s, m):
+        """tests/test_convergence.py:360-365: means within 0.15 of s's
+        std, stds to rtol 0.25 (relative to m's)."""
+        dmean = np.abs(s.mean(0) - m.mean(0)) / s.std(0)
+        assert np.all(dmean < 0.15), (name, dmean)
+        np.testing.assert_allclose(s.std(0), m.std(0), rtol=0.25, err_msg=name)
+        return dmean
+
+    label, m32, m64, spec, cfg, grid = case
+    means, stds = np.asarray(cfg.template_means), np.asarray(cfg.template_stds)
+    lnprob = build_lnprob(m32, spec, grid.ints, grid.yerrs,
+                          single_component_lnprior(spec, cfg.bounds, means, stds))
+    rng = np.random.default_rng(11)
+    pos0 = torch.as_tensor(means + (stds / 10) * rng.standard_normal((W, 4)),
+                           dtype=torch.float32, device=DEVICE)
+    mchain, acc, launches, secs = run(lnprob, pos0, stds, 6, MH_GATE_STEPS)
+    assert not any(launches.values()), launches
+    assert mchain.shape == (MH_GATE_STEPS, W, 4) and np.isfinite(mchain).all()
+    assert 0.1 < acc < 0.6, acc
+    s = ref_chain[:, ref_chain.shape[1] // 4:].reshape(-1, 4).astype(np.float64)
+    m = mchain[600:].reshape(-1, 4).astype(np.float64)
+    dmean = check("Metropolis vs K1", s, m)
+    rates = {"flagship": (MH_ROUNDS * MH_ROUND_LEN + MH_GATE_STEPS + 1) / secs}
+    prefixes = ", ".join(
+        f"{n:,} {mchain[600:n, :, 0].astype(np.float64).std() / s.std(0)[0]:.3f}"
+        for n in (MH_STEPS, 2 * MH_STEPS, MH_GATE_STEPS))
+    phase(6, "toolkit", f"run_adaptive_metropolis {label}, {W} chains, f32, "
+          f"{MH_ROUNDS} x {MH_ROUND_LEN} warm-up + {MH_GATE_STEPS} frozen steps: {secs:.2f} s, "
+          f"{rates['flagship']:,.0f} steps/s, acceptance {acc:.3f}; against the phase-5 K1 "
+          f"chain (after 1024 steps), tests/test_convergence.py:360-365's checks: |mean "
+          f"difference| / K1 std {', '.join(f'{x:.3f}' for x in dmean)} (< 0.15), std ratio "
+          f"Metropolis / K1 {', '.join(f'{x:.3f}' for x in m.std(0) / s.std(0))} (K1 within "
+          f"rtol 0.25 of it); Ncol std ratio after the first n frozen steps: {prefixes} "
+          f"({device})")
+
+    # the third witness: the posterior integrated over a grid spanning both
+    # chains (10% past their range, inside the prior's box), in f64
+    both = np.concatenate([s, m])
+    span = both.max(0) - both.min(0)
+    box = np.array([cfg.bounds[k] for k in ("Ncol", "Tex", "vlsr", "dV")])
+    lo = np.maximum(both.min(0) - 0.1 * span, box[:, 0])
+    hi = np.minimum(both.max(0) + 0.1 * span, box[:, 1])
+    lnprob64 = build_lnprob(m64, spec, grid.ints, grid.yerrs, single_component_lnprior(
+        spec, cfg.bounds, means, stds, dtype=torch.float64))
+    t0 = time.perf_counter()
+    g_mean, g_std, edge = posterior_grid_moments(lnprob64, lo, hi)
+    g_secs = time.perf_counter() - t0
+    for name, x in (("K1", s), ("Metropolis", m)):
+        dm = np.abs(x.mean(0) - g_mean) / g_std
+        assert np.all(dm < 0.15), (name, dm)
+        np.testing.assert_allclose(x.std(0), g_std, rtol=0.25, err_msg=name)
+    phase(6, "toolkit", f"the posterior on a {' x '.join(map(str, POSTERIOR_GRID))} grid "
+          f"(f64, {np.prod(POSTERIOR_GRID):,} points in {g_secs:.2f} s; mass on the outer "
+          f"planes {', '.join(f'{x:.1e}' for x in edge)}): std "
+          f"{', '.join(f'{x:.5g}' for x in g_std)}; std ratio K1 / grid "
+          f"{', '.join(f'{x:.3f}' for x in s.std(0) / g_std)}, Metropolis / grid "
+          f"{', '.join(f'{x:.3f}' for x in m.std(0) / g_std)} (rtol 0.25), |mean difference| "
+          f"/ grid std K1 {', '.join(f'{x:.3f}' for x in np.abs(s.mean(0) - g_mean) / g_std)}, "
+          f"Metropolis {', '.join(f'{x:.3f}' for x in np.abs(m.mean(0) - g_mean) / g_std)} "
+          f"(< 0.15) ({device})")
+
+    label, d32, _, dspec, dbounds, dmeans, dstds, dgrid, _ = dense_case
+    lnprob = build_lnprob_batched(
+        d32, dspec, dgrid.ints, dgrid.yerrs,
+        single_component_lnprior(dspec, dbounds, dmeans, dstds),
+        use_pallas=True, pallas_kernel="block", dv_max=DENSE_DV_MAX,
+        dv_min=dbounds["dV"][0], vlsr_bounds=dbounds["vlsr"])
+    dchain, acc, launches, secs = run(lnprob, dense_pos0(dense_case, seed=2).to(torch.float32),
+                                      np.asarray(dstds), 7, MH_STEPS)
+    n_batches = MH_ROUNDS * MH_ROUND_LEN + MH_STEPS + 1     # + the initial lnprob
+    assert launches["opacity_block"] == n_batches, launches
+    assert not any(v for k, v in launches.items() if k != "opacity_block"), launches
+    assert np.isfinite(dchain).all()
+    assert 0.1 < acc < 0.6, acc
+    rates["dense"] = n_batches / secs
+    phase(6, "toolkit", f"run_adaptive_metropolis dense {label} ({d32.n_lines} lines x "
+          f"{d32.n_channels} channels) through the K4a block lnprob, {W} chains, f32: "
+          f"{secs:.2f} s, {rates['dense']:,.0f} steps/s, acceptance {acc:.3f}, K4a launches "
+          f"{launches['opacity_block']} = one a proposal batch ({device})")
+    return rates, launches["opacity_block"]
+
+
 def main() -> int:
     import torch
 
@@ -2766,9 +3171,9 @@ def main() -> int:
         t5["construct_probe"] = time_probe(probe_in, device)
 
         launches = slice_flagship(prob, tmp, device, t1)
-        launches.update((k, v) for k, v in slice_gotham(prob9, tmp, device,
-                                                        k2_times=t2).items()
-                        if k.startswith("multi"))
+        k1_fit = dict(launches)
+        k2_fit = slice_gotham(prob9, tmp, device, k2_times=t2)
+        launches.update((k, v) for k, v in k2_fit.items() if k.startswith("multi"))
         slice_gotham(prob9, tmp, device, fused_step=False, nruns=512)
         chain_launches = slice_chains("K1", prob, tmp, device, tc1, t1[2])
         chain_launches.update((k, v) for k, v in slice_chains(
@@ -2803,6 +3208,13 @@ def main() -> int:
             launches[case["name"]] = counts[case["name"]]
         launches.update((k, v) for k, v in slice_probe(device).items()
                         if k == "construct_probe")
+
+        import numpy as np
+        check_native(prob_d, device)
+        cli_launches = slice_cli(prob, prob9, tmp, device, k1_fit, k2_fit)
+        k1_chain = np.load(os.path.join(tmp, "fit", "hc5n_hfs", "chain_template.npy"))
+        slice_grid_chi2(all_cases[0], k1_chain, device)
+        _, mh_k4a = slice_metropolis(all_cases[0], k1_chain, dense[0], device)
     dist.destroy_process_group()
 
     work = {**w1, **w2, **w3, **w4}
@@ -2854,7 +3266,14 @@ def main() -> int:
                                         "sequential_ms": s[0] * K_STEPS / 1e3,
                                         "bound_ms": b * K_STEPS / 1e3}
                                for K, (a, s, b, _) in times.items()}
-    phase(5, "slice", f"all phases passed in {time.perf_counter() - start:.1f} s")
+    # the toolkit's paths (phase 6): the command-line fits' launches (from
+    # their throughput.json) and K4a's on the dense Metropolis run
+    for entry in entries:
+        if entry["name"] in cli_launches:
+            entry["cli_launches"] = cli_launches[entry["name"]]
+        if entry["name"] == "opacity_block":
+            entry["metropolis_launches"] = mh_k4a
+    phase(6, "toolkit", f"all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,7 +33,11 @@ once: each chain bitwise equal to it launched alone (f32, f64) and to the
 plain version (f64), the -inf walkers per chain, one kernel event a block
 for all K chains; and the general run_ensemble_chains in f64 against K1
 launched over the same chains (chains and acceptances bitwise, lnps rtol
-1e-12). Every test here needs a CUDA device and nvcc, and skips without
+1e-12). The analysis toolkit on the card (chip_smoke's phase 6):
+grid_chi2 in f64 equal to the CPU call (625 flagship points, rtol 1e-12),
+run_adaptive_metropolis in f64 bitwise equal to the CPU run on the same
+injected draws, and the dense Metropolis through the K4a block lnprob
+launching K4a once a proposal batch. Every test here needs a CUDA device and nvcc, and skips without
 them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -480,3 +484,90 @@ def test_general_chains_equal_k1_chains_on_the_card(cuda_cases):
     np.testing.assert_allclose(k1[1][fin].cpu().numpy(), general[1][fin].cpu().numpy(),
                                rtol=1e-12)
     assert 0 < int(general[2].sum()) < 3 * 32 * chip_smoke.W
+
+
+# -- the analysis toolkit on the card (phase 6 of chip_smoke) -------------------
+
+def _flagship_grid_625():
+    from tests.port_problems import TRUTH
+
+    t = np.asarray(TRUTH)
+    return {"Ncol": t[0] * np.linspace(0.6, 1.4, 5), "Tex": np.linspace(5.0, 11.0, 5),
+            "vlsr": t[2] + np.linspace(-0.08, 0.08, 5), "dV": t[3] + np.linspace(-0.2, 0.2, 5)}
+
+
+def test_grid_chi2_on_the_card_equals_cpu(cuda_cases):
+    """grid_chi2 on the card equals the same call on the CPU in f64: 625
+    flagship grid points (ragged batches of 100) to 1e-12 relative, the
+    same thetas and argmin."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.analysis import grid_chi2
+
+    _, _, m64, spec, _, grid = cuda_cases["analytic-4d"]
+    grids = _flagship_grid_625()
+    t_card, c_card, b_card = grid_chi2(m64, spec, grid.ints, grid.yerrs, grids, batch=100)
+    t_cpu, c_cpu, b_cpu = grid_chi2(chip_smoke.cpu_copy(m64), spec, grid.ints, grid.yerrs,
+                                    grids, batch=100)
+    np.testing.assert_array_equal(t_card, t_cpu)
+    np.testing.assert_allclose(c_card, c_cpu, rtol=1e-12)
+    assert np.argmin(c_card) == np.argmin(c_cpu)
+    np.testing.assert_array_equal(b_card, b_cpu)
+
+
+def test_metropolis_on_the_card_equals_cpu_bitwise(cuda_cases):
+    """run_adaptive_metropolis over the flagship's f64 lnprob on the card
+    equals the CPU run on the same injected per-round draws: chains
+    bitwise, the same acceptance, lnps rtol 1e-12 (the two devices sum the
+    channels in another order)."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.analysis import run_adaptive_metropolis
+    from cha1_mcmc_tpu_torch.analysis.independent import draw_round
+    from cha1_mcmc_tpu_torch.inference import build_lnprob, single_component_lnprior
+
+    _, _, m64, spec, cfg, grid = cuda_cases["analytic-4d"]
+    rounds, round_len, nsteps, W = 3, 64, 256, 32
+    stds = np.asarray(cfg.template_stds)
+    gen = torch.Generator().manual_seed(9)
+    rnd = [draw_round(n, W, 4, gen, dtype=torch.float64)
+           for n in [round_len] * rounds + [nsteps]]
+    runs = []
+    for model, device in ((m64, "cuda"), (chip_smoke.cpu_copy(m64), "cpu")):
+        lnprob = build_lnprob(model, spec, grid.ints, grid.yerrs, single_component_lnprior(
+            spec, cfg.bounds, cfg.template_means, cfg.template_stds, dtype=torch.float64))
+        pos0 = chip_smoke.flagship_pos0(4, W, seed=3).to(device)
+        chain, lnps, acc = run_adaptive_metropolis(
+            lnprob, pos0, nsteps=nsteps, init_sigma=stds / 10, warmup_rounds=rounds,
+            round_len=round_len, batched=True,
+            randomness=[(z.to(device), u.to(device)) for z, u in rnd])
+        runs.append((chain.cpu().numpy(), lnps.cpu().numpy(), acc))
+    (c_card, l_card, a_card), (c_cpu, l_cpu, a_cpu) = runs
+    np.testing.assert_array_equal(c_card, c_cpu)
+    assert a_card == a_cpu and 0.0 < a_card < 1.0
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-12)
+
+
+def test_dense_block_metropolis_launches_k4a_once_a_batch(dense_cases):
+    """run_adaptive_metropolis over the full dense problem through the
+    K4a block lnprob (build_lnprob_batched(..., pallas_kernel="block"))
+    launches K4a once a proposal batch, and nothing else."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.analysis import run_adaptive_metropolis
+    from cha1_mcmc_tpu_torch.inference import build_lnprob_batched, single_component_lnprior
+    from cha1_mcmc_tpu_torch.utils.metrics import kernel_launches
+
+    case = dense_cases["cheb-split-4d"]
+    _, d32, _, spec, bounds, means, stds, grid, _ = case
+    lnprob = build_lnprob_batched(
+        d32, spec, grid.ints, grid.yerrs, single_component_lnprior(spec, bounds, means, stds),
+        use_pallas=True, pallas_kernel="block", dv_max=chip_smoke.DENSE_DV_MAX,
+        dv_min=bounds["dV"][0], vlsr_bounds=bounds["vlsr"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    before = kernel_launches()
+    chain, _, acc = run_adaptive_metropolis(
+        lnprob, chip_smoke.dense_pos0(case, seed=2).to(torch.float32), gen, nsteps=64,
+        init_sigma=np.asarray(stds) / 10, warmup_rounds=2, round_len=32, batched=True)
+    after = kernel_launches()
+    counts = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+    assert counts == {"opacity_block": 2 * 32 + 64 + 1}, counts
+    assert torch.isfinite(chain).all() and 0.0 < acc < 1.0
