@@ -44,7 +44,8 @@ last line):
      K3 on the full-size dense problem (write_dense_problem: ~2,200 lines
      x ~10,900 channels) at 128 walkers, for Chebyshev and state-sum Q on
      the split tables, Chebyshev on the rectangular table and analytic Q
-     in 5 dims: the same three checks (the f32 run over 1024 steps), the
+     in 5 dims: the same three checks (the f32 run over DENSE_F32_STEPS,
+     256), the
      lnprob entry also against the port's plain batched gather lnprob;
      then each case at channel blocks of 128, 256 and 512, each at the
      card's grid, at 37 CTAs and with the taus in device memory: f64
@@ -61,7 +62,7 @@ last line):
      cases at world size 1: the f64 64-step chain of the sharded runner
      bitwise against its plain version and against K1 / K2 / K3 on the
      same randomness, the f32 lnprob of a half-step (rtol 2e-5), the f32
-     acceptance over 1024 (K5c: 512) steps within 0.02. T3's probes
+     acceptance over 1024 (K5c: 512; K5b: 256) steps within 0.02. T3's probes
      against their plain version (A-F bitwise, G rtol 1e-6). K chains in
      one launch (grid (n, K), one cluster a chain): K1 on the flagship's
      analytic 4-dim case and K2 on the GOTHAM K=4 case, 128 walkers a
@@ -105,13 +106,16 @@ last line):
      path auto-selected) at 128 walkers x 2048 steps through K3 and, for
      256 steps, with use_fused_step=False;
      make_sharded_sampler(n_devices=1, use_fused=True) with
-     ShardedEnsembleSampler.run_mcmc and a chain file at 128 walkers x 2048
-     steps through K5a (flagship), K5c (GOTHAM) and K5b (dense);
+     ShardedEnsembleSampler.run_mcmc and a chain file in two blocks at 128
+     walkers through K5a (flagship), K5c (GOTHAM) and K5b (dense), for
+     SHARDED_POSTERIOR's steps, each chain held to its problem's JAX
+     golden as phase 8 holds its fits;
      SpectralFit(...).run() (K1) and MultiComponentFit(...).run() (K2)
-     with n_chains=4, 512 walkers, 1024 steps in 4 checkpoint blocks,
+     with n_chains=4, 512 walkers, FIT_STEPS steps in 4 checkpoint blocks,
      through MultiChainSampler and the kernel's chain-batched run_fn (one
      launch a 16-step block for all 4 chains; walker-steps/s, checkpoint
-     split, cross-chain R-hat, per-chain acceptance), each run again with
+     split, cross-chain R-hat, per-chain acceptance, the pooled chain held
+     to the JAX golden as in phase 8), each run again with
      one DeviceError injected into block 2 by a run_fn double and
      recovered by the retry, bitwise equal to the unfaulted chain; the
      general sharded runner (make_sharded_sampler(n_devices=1,
@@ -150,7 +154,25 @@ last line):
      the full dense problem's band at res 0.01 MHz against the golden's
      summaries, with run_sim's host ms; graft_entry.entry() on the card and
      dryrun_multichip(1) in phase 2's world-1 group; no kernel launches;
-  8. bench   — `python -m cha1_mcmc_tpu_torch bench` (bench_torch.py) in a
+  8. posterior — the card's posteriors against the JAX package's: K1
+     (SpectralFit on the flagship), K2 (MultiComponentFit on GOTHAM) and
+     K3 (SpectralFit on the full dense problem), each a dedicated fit at
+     128 walkers in float32 for POSTERIOR_FITS' steps in one checkpoint
+     block, through FusedEnsembleSampler with its kernel launched; the
+     reduced datagrid's sha256 against the golden's and the port's f64
+     lnprob at the golden's 16 probe thetas equal to the JAX values (rtol
+     1e-12; the dense problem's data differ in the last bits from one
+     machine to another, so its hash may not match); the chain, its burn
+     picked in its own tau floored at the golden's, summarised and held
+     to the JAX package's
+     float64 golden (tests/golden/port_posterior_*.json, written by
+     scripts/make_posterior_goldens.py) by tests/posterior_gate.py: mean,
+     std, p16, p50 and p84 of every parameter at |z| <= 4.5, standard
+     errors from each side's ESS, and the gate's floors (50 tau_max after
+     the burn, a burn of 20 tau_max, a combined mean SE of at most 0.05
+     sigma) met, else it fails; one line per parameter, then ESS, tau,
+     steps and seconds;
+  9. bench   — `python -m cha1_mcmc_tpu_torch bench` (bench_torch.py) in a
      subprocess, its CHA1_BENCH_DEADLINE_S what is left of the script's
      1200 s less a margin: every streamed section line and the artifact
      parsed; every section but the baseline ok (the baseline fails without
@@ -161,7 +183,9 @@ last line):
      sizes and numbers printed;
 then one JSON line of per-kernel results (with, beside the main path's
 launches, the command-line fits' K1 / K2 launches, K4a's on the dense
-Metropolis run and each kernel's launches in the bench), the card's name
+Metropolis run, the posterior phase's K1 / K2 / K3 launches, the largest
+|z| against the JAX golden of the fits through K1-K3 and K5a-c, and each
+kernel's launches in the bench), the card's name
 and power limit, and, last, the device JSON line.
 """
 
@@ -925,6 +949,12 @@ def dense_pos0(case, seed=0):
                            dtype=torch.float64, device=DEVICE)
 
 
+#: Steps of K3's and K5b's f32 acceptance check against the plain version
+#: (36.6 ms a plain step at the dense size; the posterior phase holds the
+#: f32 K3 chain to the JAX posterior).
+DENSE_F32_STEPS = 256
+
+
 def check_dense_case(case, gen, errs):
     """K3's checks on one dense case (check_kernel), and the T1 check: the
     f32 lnprob entry against the port's plain batched gather lnprob."""
@@ -937,7 +967,7 @@ def check_dense_case(case, gen, errs):
     fns, t32, t64, plans = dense_tables(case)
     th = dense_thetas(512, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
     fracs = check_kernel(label, fns, t32, t64, th, dense_pos0(case), grid.yerrs, gen,
-                         errs, 1024)
+                         errs, DENSE_F32_STEPS)
     prior = single_component_lnprior(spec, bounds, means, stds, dtype=torch.float32)
     general = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
                                    use_pallas=True, dv_max=DENSE_DV_MAX)(th)
@@ -1923,7 +1953,14 @@ def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096, k2_times=None):
 
 #: The chain counts phase 4 times and the fits' chains in phase 5.
 CHAIN_COUNTS = (1, 2, 4, 8)
-FIT_CHAINS, FIT_WALKERS, FIT_STEPS = 4, 512, 1024
+FIT_CHAINS, FIT_WALKERS = 4, 512
+#: The K-chain fits: kernel -> (the problem whose JAX golden holds the
+#: pooled chain, steps). K1's run is long enough for the card's floors;
+#: K2's is not gated (None): the floors need 40,960 steps (70 x the
+#: golden's tau_max of 556), whose 4 cumulative checkpoints, twice, and
+#: checkpoint_split's repeat write ~9 GB, 2-3 minutes at the 50-73 MB/s
+#: phase 5 measures for np.save (PERF.md §6).
+FIT_STEPS = {"K1": ("flagship", 20_480), "K2": (None, 1_024)}
 
 
 def chain_occupancy(kind, tb, st):
@@ -2105,18 +2142,22 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
     chains. Prints its launches, walker-steps/s, checkpoint split (kernel
     time at phase 4's FIT_CHAINS-chain median `chain_times` and the
     lnprob's `lnp_ms`), cross-chain R-hat and pooled chain; checks each
-    chain finite with acceptance in (0.1, 0.9). Then the same fit again
+    chain finite with acceptance in (0.1, 0.9), and holds the pooled
+    chain to its problem's JAX golden (gate_posterior) where FIT_STEPS
+    names one. Then the same fit again
     with a run_fn double that raises one DeviceError in block 2
     (FaultOnce), recovered by the retry: its chain equals the first
-    run's bitwise. Returns the launch counts of the first run."""
+    run's bitwise. Returns (the launch counts of the first run, max |z| or
+    None)."""
     import numpy as np
     import cha1_mcmc_tpu_torch as port
     from cha1_mcmc_tpu_torch.pipeline import fit as fit_mod, multifit as multifit_mod
     from cha1_mcmc_tpu_torch.sampler import FusedEnsemble, MultiChainSampler
     from cha1_mcmc_tpu_torch.sampler.fused_multi import MultiFusedEnsemble
 
-    every = FIT_STEPS // 4
-    common = dict(nwalkers=FIT_WALKERS, nruns=FIT_STEPS, checkpoint_every=every, seed=0,
+    name, steps = FIT_STEPS[kind]
+    every = steps // 4
+    common = dict(nwalkers=FIT_WALKERS, nruns=steps, checkpoint_every=every, seed=0,
                   device=DEVICE, n_chains=FIT_CHAINS, cat_folder=prob["cat_folder"],
                   data_path=prob["data_path"])
     if kind == "K1":
@@ -2141,10 +2182,10 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
     want = MultiFusedEnsemble if kind == "K2" else FusedEnsemble
     assert type(run_fn) is want, type(run_fn)
     steps_key, lnp_key = f"{prefix}_steps", f"{prefix}_lnprob"
-    assert launches[steps_key] == FIT_STEPS // K_STEPS, launches   # not K a block
+    assert launches[steps_key] == steps // K_STEPS, launches   # not K a block
     assert launches[lnp_key] == FIT_CHAINS, launches
     D = fit.spec.ndim
-    assert chain.shape == (FIT_WALKERS, FIT_STEPS, D), chain.shape
+    assert chain.shape == (FIT_WALKERS, steps, D), chain.shape
     assert np.isfinite(chain).all()
     acc = per_chain_acceptance(chain, FIT_CHAINS)
     assert ((0.1 < acc) & (acc < 0.9)).all(), acc
@@ -2152,8 +2193,8 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
     r_hat = fit.convergence["r_hat"]
     phase(5, "slice", f"{type(fit).__name__}.run() n_chains={FIT_CHAINS}: "
           f"{type(sampler).__name__} with run_fn {type(run_fn).__name__} ({kind}), launches "
-          f"{ {k: v for k, v in launches.items() if v} } ({FIT_STEPS // K_STEPS} {kind} "
-          f"launches for {FIT_STEPS} steps of {FIT_CHAINS} chains: one a {K_STEPS}-step "
+          f"{ {k: v for k, v in launches.items() if v} } ({steps // K_STEPS} {kind} "
+          f"launches for {steps} steps of {FIT_CHAINS} chains: one a {K_STEPS}-step "
           f"block), pooled chain {chain.shape}, per-chain acceptance "
           + ", ".join(f"{a:.3f}" for a in acc) + f", {rate:,.0f} walker-steps/s (sampling "
           f"wall time incl. checkpoints); cross-chain R-hat "
@@ -2161,7 +2202,15 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
           + f" ({device})")
     kernel_s = (launches[steps_key] * K_STEPS * chain_times[FIT_CHAINS][0][0] * 1e-6
                 + launches[lnp_key] * lnp_ms * 1e-3)
-    checkpoint_split(fit, kernel_s, tmp, device)
+    checkpoint_split(fit, kernel_s, tmp, device, reps=1)
+    zmax = None
+    if name is not None:
+        zmax = gate_posterior(f"{kind} {FIT_CHAINS} chains {name}", name, chain,
+                              fit.spec.labels, steps, fit.throughput.elapsed, device,
+                              phase_no=5)
+    else:
+        phase(5, "posterior", f"{kind} {FIT_CHAINS} chains, {steps} steps: not held to the "
+              "GOTHAM golden; the card's floors need 40,960 steps (FIT_STEPS)")
 
     real = getattr(module, maker)
     doubles = []
@@ -2182,7 +2231,7 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
           f"DeviceError injected into block 2 of 4 (a run_fn double that raises once, then "
           f"calls {kind}): retried from the block's generator state, pooled chain bitwise "
           f"equal to the unfaulted run's ({device})")
-    return launches
+    return launches, zmax
 
 
 def slice_dense(prob, tmp, device, fused_step=True, nruns=2048):
@@ -2321,7 +2370,7 @@ def k5_cases(flagship, gotham, dense_case):
              plain=by_dtype(sf.sharded_gather_half_plain, plans), args32=(tb3, st3),
              args64=(tb3d, st3d), step=fns[2], lnprob=fns[1], pos0=pos3,
              work=k3w,
-             n_f32=1024, whole="K3")]
+             n_f32=DENSE_F32_STEPS, whole="K3")]
 
 
 def run_k5(half, args, pos0, lnp0, rnd):
@@ -2431,11 +2480,21 @@ def time_sharded(case, gen, device):
     return per_call, quartiles(runs)
 
 
+#: The sharded fits' lengths (two checkpoint blocks each) and the golden
+#: each is held to: K5 entry -> (problem, steps); the steps are 1.26-2.5x
+#: 70 x the golden's tau_max (the runner takes 0.9-1.5 ms a step).
+SHARDED_POSTERIOR = {"sharded_half": ("flagship", 20_480),
+                     "sharded_multi_half": ("gotham", 49_152),
+                     "sharded_gather_half": ("dense", 8_192)}
+
+
 def slice_sharded(case, model, spec, grid, lnprior, bounds, means, stds, dv_max,
-                  use_pallas, tmp, device, nruns=2048):
+                  use_pallas, tmp, device):
     """make_sharded_sampler(n_devices=1, use_fused=True) and
-    ShardedEnsembleSampler.run_mcmc with a chain file, through the case's
-    K5 at W walkers in f32: returns the launch counts of the run."""
+    ShardedEnsembleSampler.run_mcmc with a chain file in two checkpoint
+    blocks, through the case's K5 at W walkers in f32, for
+    SHARDED_POSTERIOR's steps; the chain held to its problem's JAX golden
+    (gate_posterior). Returns (the launch counts of the run, max |z|)."""
     import numpy as np
     import torch
     from cha1_mcmc_tpu_torch.parallel import make_sharded_sampler
@@ -2449,9 +2508,10 @@ def slice_sharded(case, model, spec, grid, lnprior, bounds, means, stds, dv_max,
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(0)
     chain_file = os.path.join(tmp, f"{case['name']}.npy")
+    name, nruns = SHARDED_POSTERIOR[case["name"]]
     t0 = time.perf_counter()
-    sampler.run_mcmc(case["pos0"].to(torch.float32), nruns, gen, checkpoint_every=1024,
-                     chain_file=chain_file)
+    sampler.run_mcmc(case["pos0"].to(torch.float32), nruns, gen,
+                     checkpoint_every=nruns // 2, chain_file=chain_file)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = read_launches()
@@ -2467,7 +2527,9 @@ def slice_sharded(case, model, spec, grid, lnprior, bounds, means, stds, dv_max,
           f"ShardedEnsembleSampler.run_mcmc, launches {launches}, chain {chain.shape}, "
           f"acceptance {acc:.3f}, {W * nruns / secs:,.0f} walker-steps/s (wall time "
           f"incl. checkpoints; {device})")
-    return launches
+    zmax = gate_posterior(case["label"].split(" ")[0] + f" {name}", name, chain,
+                          spec.labels, nruns, secs, device, phase_no=5)
+    return launches, zmax
 
 
 # -- T3: the construct probe -----------------------------------------------------
@@ -3002,9 +3064,117 @@ def slice_workbench(prob_d, tmp, device):
           f"{time.perf_counter() - t_all:.1f} s; {device}")
 
 
-# -- 8: the benchmark command -------------------------------------------------------
+# -- 8: the posterior gate against the JAX package's goldens ----------------------
 
-#: The script's time limit; phase 8 gives the bench what is left of it, less
+#: The posterior phase's fits: problem -> (kernel entry prefix, steps), 128
+#: walkers, float32, one checkpoint block. The goldens' tau_max are 215
+#: (flagship), 556 (GOTHAM) and ~47 (dense), so each length is 1.7-5x the
+#: card's floors (70 tau_max).
+POSTERIOR_FITS = {"flagship": ("fused", 65_536), "gotham": ("multi", 65_536),
+                  "dense": ("gather", 16_384)}
+POSTERIOR_SEED = 13
+
+
+def load_golden(name):
+    """The JAX package's posterior golden of problem `name`
+    (tests/golden/port_posterior_<name>.json,
+    scripts/make_posterior_goldens.py)."""
+    from tests.posterior_gate import PROBLEMS
+
+    with open(os.path.join(REPO, "tests", "golden", PROBLEMS[name][3])) as fh:
+        return json.load(fh)
+
+
+def gate_posterior(label, name, chain, labels, steps, secs, device, phase_no=8):
+    """Hold a card chain (W, S, D) to problem `name`'s golden with
+    tests/posterior_gate.py at the card's floors: its burn picked in its
+    own tau, floored at the golden's (a card chain is shorter than the
+    golden's runs, and a shorter chain's tau estimate runs low), one
+    line per parameter (golden, card, SE, z and ok per statistic), ESS,
+    tau, steps and seconds; raises if any row fails. Returns the
+    largest |z|."""
+    from tests import posterior_gate as pg
+
+    golden = load_golden(name)
+    t0 = time.perf_counter()
+    burn = pg.pick_burn(chain, tau_floor=golden["tau"])
+    ours = pg.summarize(chain, burn, labels, tau_floor=golden["tau"])
+    rows = pg.compare(golden, ours)
+    reduce_s = time.perf_counter() - t0
+    for d, lbl in enumerate(labels):
+        mine = [r for r in rows if r["param"] == lbl and "z" in r]
+        phase(phase_no, "posterior", f"{label} {lbl.split(' [')[0]}: " + "; ".join(
+            f"{r['stat']} {r['golden']:.5g} / {r['ours']:.5g} se {r['se']:.3g} "
+            f"z {r['z']:+.2f}{'' if r['ok'] else ' FAIL'}" for r in mine)
+            + f"; ESS {ours['ess'][d]:,.0f} tau {ours['tau'][d]:.1f}")
+    bad = pg.failures(rows)
+    zmax = pg.max_abs_z(rows)
+    phase(phase_no, "posterior", f"{label}: {chain.shape[0]} walkers x {steps} steps, burn "
+          f"{burn} ({burn / max(ours['tau']):.1f} tau_max), {steps - burn} after it "
+          f"({(steps - burn) / max(ours['tau']):.1f} tau_max; the golden's "
+          f"{(golden['S'] - golden['burn']) / max(golden['tau']):.1f}), ESS min "
+          f"{min(ours['ess']):,.0f} (golden {min(golden['ess']):,.0f}), max |z| {zmax:.2f} "
+          f"of {pg.Z}; sampled in {secs:.2f} s, summarised and compared in "
+          f"{reduce_s:.1f} s; {len(bad)} failed rows ({device})")
+    if bad:
+        raise AssertionError(f"{label}: the posterior differs from the JAX golden:\n"
+                             + pg.format_rows(bad))
+    return zmax
+
+
+def slice_posterior(name, tmp, device):
+    """Phase 8: the port's fit of problem `name` on the card (K1 flagship
+    SpectralFit, K2 GOTHAM MultiComponentFit, K3 dense SpectralFit),
+    f32, W walkers x POSTERIOR_FITS steps in one checkpoint block,
+    through FusedEnsembleSampler; the problem the golden's: the reduced
+    datagrid's sha256 compared with the golden's (the dense writer's
+    floating-point sums differ in the last bits from one machine to
+    another, so its hash may differ on the card's host), and the port's
+    f64 lnprob at the golden's probe thetas equal
+    to the JAX package's values there (rtol 1e-12); its chain held to the
+    JAX package's f64 golden (gate_posterior). Returns (launches, max
+    |z|)."""
+    import numpy as np
+    import cha1_mcmc_tpu_torch as port
+    from cha1_mcmc_tpu_torch.reduce import load_datagrid
+    from tests import posterior_gate as pg
+    from tests.posterior_probe import PORT, build_lnprob64, make_fit
+
+    prefix, steps = POSTERIOR_FITS[name]
+    prob = pg.write_problem(name, os.path.join(tmp, f"posterior_{name}"))
+    fit = make_fit(PORT, name, prob, os.path.join(tmp, f"posterior_{name}", "fit"),
+                   nwalkers=W, nruns=steps, checkpoint_every=steps, seed=POSTERIOR_SEED,
+                   device="cuda")
+    zero_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        chain = fit.run()
+    launches = read_launches()
+    assert type(fit.sampler) is port.FusedEnsembleSampler, type(fit.sampler)
+    assert launches[f"{prefix}_steps"] > 0 and launches[f"{prefix}_lnprob"] > 0, launches
+    assert chain.shape == (W, steps, fit.spec.ndim) and np.isfinite(chain).all()
+    golden = load_golden(name)
+    same = pg.datagrid_sha256(load_datagrid(fit.config.datagrid_path)) == \
+        golden["datagrid_sha256"]
+    _, lnprob = build_lnprob64(PORT, name, prob, os.path.join(tmp, f"posterior_{name}",
+                                                               "probe"))
+    want = np.asarray(golden["probe"]["lnprob"])
+    rel = float(np.max(np.abs(lnprob(np.asarray(golden["probe"]["thetas"])) / want - 1)))
+    assert rel <= 1e-12, f"{name}: f64 lnprob at the golden's probes off by {rel:.3e}"
+    phase(8, "posterior", f"{type(fit).__name__}.run() {name}: {type(fit.sampler).__name__}, "
+          f"launches { {k: v for k, v in launches.items() if v} }, acceptance "
+          f"{fit.sampler.acceptance_fraction:.3f}; the reduced datagrid's sha256 "
+          f"{'equal to' if same else 'differs from'} the golden's; the port's f64 lnprob "
+          f"(CPU) at the golden's {want.size} probe thetas within {rel:.2e} of the JAX "
+          f"package's (rtol 1e-12)")
+    label = {"fused": "K1", "multi": "K2", "gather": "K3"}[prefix] + f" {name}"
+    zmax = gate_posterior(label, name, chain, fit.spec.labels, steps,
+                          fit.throughput.elapsed, device)
+    return launches, zmax
+
+
+# -- 9: the benchmark command -------------------------------------------------------
+
+#: The script's time limit; phase 9 gives the bench what is left of it, less
 #: BENCH_MARGIN_S, as its CHA1_BENCH_DEADLINE_S.
 SMOKE_LIMIT_S, BENCH_MARGIN_S = 1200.0, 90.0
 BENCH_SECTIONS = ("baseline", "tpu", "large", "gotham", "dense", "dense_full_fit")
@@ -3021,14 +3191,14 @@ BENCH_ERRORS = {"tpu": ("fused_error", "gather_kernel_error", "unfused_error"),
 
 
 def slice_bench(tmp, device, deadline_s):
-    """Phase 8: `python -m cha1_mcmc_tpu_torch bench` in a subprocess under
+    """Phase 9: `python -m cha1_mcmc_tpu_torch bench` in a subprocess under
     CHA1_BENCH_DEADLINE_S = deadline_s, its chatter and partial artifact
     under `tmp`: every streamed section line and the artifact parsed; every
     section but the baseline ok (the baseline carries bench.py's message for
     a missing reference tree), each section's kernels launched
     (BENCH_KERNELS), its error fields null, the artifact's value K1's
     rate. Returns ({section: line}, artifact, seconds)."""
-    phase(8, "bench", f"python -m cha1_mcmc_tpu_torch bench under CHA1_BENCH_DEADLINE_S="
+    phase(9, "bench", f"python -m cha1_mcmc_tpu_torch bench under CHA1_BENCH_DEADLINE_S="
           f"{deadline_s:.0f} (what is left of the script's {SMOKE_LIMIT_S:.0f} s less "
           f"{BENCH_MARGIN_S:.0f})")
     env = dict(os.environ, CHA1_BENCH_DEADLINE_S=f"{deadline_s:.0f}",
@@ -3061,7 +3231,7 @@ def slice_bench(tmp, device, deadline_s):
     tpu = sections["tpu"]
     assert art["value"] == round(tpu["rate"], 1) > 0 and art["fused_error"] is None, art
     assert art["backend_probe"]["card"] == device, art["backend_probe"]
-    phase(8, "bench", f"python -m cha1_mcmc_tpu_torch bench: exit 0 in {secs:.1f} s "
+    phase(9, "bench", f"python -m cha1_mcmc_tpu_torch bench: exit 0 in {secs:.1f} s "
           f"(artifact wall_seconds {art['wall_seconds']}), {len(sections)} sections and the "
           f"artifact parsed; baseline: {base.get('error') or base['rate']}; {device}")
     import bench_torch
@@ -3096,7 +3266,7 @@ def slice_bench(tmp, device, deadline_s):
                                f"{fit['acceptance']}, recovery z max {fit['recovery_z_max']}"}
     for name in BENCH_SECTIONS[1:]:
         entry = sections[name]
-        phase(8, "bench", f"{name} ({entry['problem']}; {sizes[name]}): {rates[name]}; "
+        phase(9, "bench", f"{name} ({entry['problem']}; {sizes[name]}): {rates[name]}; "
               f"{entry['seconds']} s; launches {entry['launches']}")
     return sections, art, secs
 
@@ -3144,6 +3314,7 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     errs, errs2, errs3, errs4, errs5 = {}, {}, {}, {}, {}
+    post_launches, phase5_z = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         prob = write_hc5n_problem(os.path.join(tmp, "problem"))
         prob9 = write_hc9n_problem(os.path.join(tmp, "problem9"))
@@ -3212,8 +3383,8 @@ def main() -> int:
             fracs, g = check_dense_case(case, gen, errs3)
             phase(3, "check", f"K3 {case[0]} ({g.n_blk} blocks, cb0 {g.cb0}): f32 "
                   f"lnprob ok (also vs the batched gather lnprob), f64 64-step chain "
-                  f"bitwise, f32 1024-step acceptance kernel {fracs['kernel']:.4f} vs "
-                  f"plain {fracs['plain']:.4f}")
+                  f"bitwise, f32 {DENSE_F32_STEPS}-step acceptance kernel "
+                  f"{fracs['kernel']:.4f} vs plain {fracs['plain']:.4f}")
         errs_k3 = {}
         for case in dense:
             check_dense_geometries(case, errs_k3)
@@ -3273,9 +3444,10 @@ def main() -> int:
         k2_fit = slice_gotham(prob9, tmp, device, k2_times=t2)
         launches.update((k, v) for k, v in k2_fit.items() if k.startswith("multi"))
         slice_gotham(prob9, tmp, device, fused_step=False, nruns=512)
-        chain_launches = slice_chains("K1", prob, tmp, device, tc1, t1[2])
-        chain_launches.update((k, v) for k, v in slice_chains(
-            "K2", prob9, tmp, device, tc2, t2[2]).items() if k.startswith("multi"))
+        chain_launches, phase5_z["K1 4 chains"] = slice_chains("K1", prob, tmp, device,
+                                                               tc1, t1[2])
+        k2_chains, _ = slice_chains("K2", prob9, tmp, device, tc2, t2[2])
+        chain_launches.update((k, v) for k, v in k2_chains.items() if k.startswith("multi"))
         launches.update((k, v) for k, v in slice_dense(prob_d, tmp, device).items()
                         if k.startswith("gather"))
         slice_dense(prob_d, tmp, device, fused_step=False, nruns=256)
@@ -3302,7 +3474,8 @@ def main() -> int:
             dspec, dbounds, dmeans, dstds, dtype=f32), dbounds, dmeans, dstds,
             DENSE_DV_MAX, True))
         for case, run in zip(k5, runs):
-            counts = slice_sharded(case, *run, tmp, device)
+            counts, phase5_z[case["label"].split(" ")[0]] = slice_sharded(case, *run, tmp,
+                                                                          device)
             launches[case["name"]] = counts[case["name"]]
         launches.update((k, v) for k, v in slice_probe(device).items()
                         if k == "construct_probe")
@@ -3314,6 +3487,14 @@ def main() -> int:
         slice_grid_chi2(all_cases[0], k1_chain, device)
         _, mh_k4a = slice_metropolis(all_cases[0], k1_chain, dense[0], device)
         slice_workbench(prob_d, tmp, device)
+        posterior = {}
+        for pname in POSTERIOR_FITS:
+            counts, posterior[pname] = slice_posterior(pname, tmp, device)
+            post_launches.update((k, v) for k, v in counts.items() if v)
+        phase(8, "posterior", "K1 / K2 / K3 posteriors against the JAX f64 goldens, max "
+              "|z| " + ", ".join(f"{k} {v:.2f}" for k, v in posterior.items())
+              + "; sharded and 4-chain fits (phase 5) " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in phase5_z.items()) + f" ({device})")
         bench, _, _ = slice_bench(tmp, device, SMOKE_LIMIT_S - BENCH_MARGIN_S
                                   - (time.perf_counter() - start))
     dist.destroy_process_group()
@@ -3377,12 +3558,21 @@ def main() -> int:
             entry["cli_launches"] = cli_launches[entry["name"]]
         if entry["name"] == "opacity_block":
             entry["metropolis_launches"] = mh_k4a
-    # the bench's launches (phase 8), by kernel entry over its sections
+    # the posterior phase's launches (phase 8): its K1 / K2 / K3 fits; the
+    # largest |z| of the fits held to the JAX goldens through each entry
+    gated = {"fused_steps": posterior["flagship"], "multi_steps": posterior["gotham"],
+             "gather_steps": posterior["dense"], "sharded_half": phase5_z["K5a"],
+             "sharded_multi_half": phase5_z["K5c"], "sharded_gather_half": phase5_z["K5b"]}
+    for entry in entries:
+        entry["posterior_launches"] = post_launches.get(entry["name"], 0)
+        if entry["name"] in gated:
+            entry["posterior_max_abs_z"] = gated[entry["name"]]
+    # the bench's launches (phase 9), by kernel entry over its sections
     for entry in entries:
         entry["bench_launches"] = sum(sec["launches"].get(entry["name"], 0)
                                       for sec in bench.values())
     end = time.perf_counter()
-    phase(8, "bench", f"all phases passed in {end - start:.1f} s; seconds a phase: "
+    phase(9, "bench", f"all phases passed in {end - start:.1f} s; seconds a phase: "
           + ", ".join(f"{n} {t}" for n, t in phase_seconds(end).items()))
     print(json.dumps({"kernels": entries}))
     print(card)

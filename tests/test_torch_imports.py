@@ -1,6 +1,8 @@
 """The port's import rule, held in a fresh interpreter: importing every
-module of cha1_mcmc_tpu_torch (walked with pkgutil), chip_smoke.py and
-bench_torch.py loads neither jax nor the JAX package cha1_mcmc_tpu."""
+module of cha1_mcmc_tpu_torch (walked with pkgutil), chip_smoke.py,
+bench_torch.py and the posterior gate (tests/posterior_gate.py) loads
+neither jax nor the JAX package cha1_mcmc_tpu; the gate loads no torch
+either."""
 
 import json
 import os
@@ -15,10 +17,11 @@ import importlib, json, pkgutil, sys
 import cha1_mcmc_tpu_torch
 names = ["cha1_mcmc_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     cha1_mcmc_tpu_torch.__path__, "cha1_mcmc_tpu_torch.")]
-for name in names + ["chip_smoke", "bench_torch"]:
+for name in names + ["chip_smoke", "bench_torch", "tests.posterior_gate"]:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cha1_mcmc_tpu"))
-print(json.dumps({"modules": names + ["bench_torch"], "loaded": loaded}))
+print(json.dumps({"modules": names + ["bench_torch", "tests.posterior_gate"],
+                  "loaded": loaded}))
 """
 
 
@@ -30,7 +33,7 @@ def test_port_and_chip_smoke_import_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == [], result["loaded"]
     modules = set(result["modules"])
-    assert "bench_torch" in modules
+    assert "bench_torch" in modules and "tests.posterior_gate" in modules
     # this slice's modules are among those walked
     for name in ("__main__", "analysis.independent", "analysis.crosscheck",
                  "analysis.inspection", "catalogs.native", "pipeline.batch",
@@ -38,6 +41,24 @@ def test_port_and_chip_smoke_import_no_jax():
                  "pipeline.plots", "graft_entry", "models.pallas_kernels",
                  "utils.roofline"):
         assert f"cha1_mcmc_tpu_torch.{name}" in modules, name
+
+
+def test_posterior_gate_imports_numpy_and_scipy_only():
+    """tests/posterior_gate.py, which chip_smoke.py reads on the card and
+    scripts/make_posterior_goldens.py with JAX on the CPU, loads no torch, no
+    jax and neither package, also when it summarises and compares."""
+    probe = ("import json, sys, numpy as np\n"
+             "from tests import posterior_gate as pg\n"
+             "c = np.random.default_rng(0).standard_normal((8, 400, 2))\n"
+             "s = pg.summarize(c, 100)\n"
+             "pg.compare(s, s)\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'jaxlib', 'cha1_mcmc_tpu', 'cha1_mcmc_tpu_torch'))))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_every_kernel_module_registers_its_launch_counters():
