@@ -44,8 +44,7 @@ last line):
      K3 on the full-size dense problem (write_dense_problem: ~2,200 lines
      x ~10,900 channels) at 128 walkers, for Chebyshev and state-sum Q on
      the split tables, Chebyshev on the rectangular table and analytic Q
-     in 5 dims: the same three checks (the f32 run over DENSE_F32_STEPS,
-     256), the
+     in 5 dims: the same three checks (the f32 run over 1024 steps), the
      lnprob entry also against the port's plain batched gather lnprob;
      then each case at channel blocks of 128, 256 and 512, each at the
      card's grid, at 37 CTAs and with the taus in device memory: f64
@@ -62,7 +61,7 @@ last line):
      cases at world size 1: the f64 64-step chain of the sharded runner
      bitwise against its plain version and against K1 / K2 / K3 on the
      same randomness, the f32 lnprob of a half-step (rtol 2e-5), the f32
-     acceptance over 1024 (K5c: 512; K5b: 256) steps within 0.02. T3's probes
+     acceptance over 1024 (K5c: 512) steps within 0.02. T3's probes
      against their plain version (A-F bitwise, G rtol 1e-6). K chains in
      one launch (grid (n, K), one cluster a chain): K1 on the flagship's
      analytic 4-dim case and K2 on the GOTHAM K=4 case, 128 walkers a
@@ -111,11 +110,12 @@ last line):
      SHARDED_POSTERIOR's steps, each chain held to its problem's JAX
      golden as phase 8 holds its fits;
      SpectralFit(...).run() (K1) and MultiComponentFit(...).run() (K2)
-     with n_chains=4, 512 walkers, FIT_STEPS steps in 4 checkpoint blocks,
-     through MultiChainSampler and the kernel's chain-batched run_fn (one
-     launch a 16-step block for all 4 chains; walker-steps/s, checkpoint
-     split, cross-chain R-hat, per-chain acceptance, the pooled chain held
-     to the JAX golden as in phase 8), each run again with
+     with n_chains=4, 512 walkers, FIT_STEPS (K1) or 1024 (K2) steps in 4
+     checkpoint blocks, through MultiChainSampler and the kernel's
+     chain-batched run_fn (one launch a 16-step block for all 4 chains;
+     walker-steps/s, checkpoint split, cross-chain R-hat, per-chain
+     acceptance, K1's pooled chain held to the JAX golden as in phase 8),
+     each run again with
      one DeviceError injected into block 2 by a run_fn double and
      recovered by the retry, bitwise equal to the unfaulted chain; the
      general sharded runner (make_sharded_sampler(n_devices=1,
@@ -159,13 +159,13 @@ last line):
      K3 (SpectralFit on the full dense problem), each a dedicated fit at
      128 walkers in float32 for POSTERIOR_FITS' steps in one checkpoint
      block, through FusedEnsembleSampler with its kernel launched; the
-     reduced datagrid's sha256 against the golden's and the port's f64
-     lnprob at the golden's 16 probe thetas equal to the JAX values (rtol
-     1e-12; the dense problem's data differ in the last bits from one
-     machine to another, so its hash may not match); the chain, its burn
-     picked in its own tau floored at the golden's, summarised and held
-     to the JAX package's
-     float64 golden (tests/golden/port_posterior_*.json, written by
+     reduced datagrid held to the golden's (its sha256 on the flagship and
+     GOTHAM; on the dense problem, whose data differ in the last bits from
+     one machine to another, the exactly rounded sums of each array at
+     rtol 1e-12) and the port's f64 lnprob at the golden's 16 probe thetas
+     equal to the JAX values (rtol 1e-12); the chain, its burn picked in
+     its own tau floored at the golden's, summarised and held to the JAX
+     package's float64 golden (tests/golden/port_posterior_*.json, written by
      scripts/make_posterior_goldens.py) by tests/posterior_gate.py: mean,
      std, p16, p50 and p84 of every parameter at |z| <= 4.5, standard
      errors from each side's ESS, and the gate's floors (50 tau_max after
@@ -949,12 +949,6 @@ def dense_pos0(case, seed=0):
                            dtype=torch.float64, device=DEVICE)
 
 
-#: Steps of K3's and K5b's f32 acceptance check against the plain version
-#: (36.6 ms a plain step at the dense size; the posterior phase holds the
-#: f32 K3 chain to the JAX posterior).
-DENSE_F32_STEPS = 256
-
-
 def check_dense_case(case, gen, errs):
     """K3's checks on one dense case (check_kernel), and the T1 check: the
     f32 lnprob entry against the port's plain batched gather lnprob."""
@@ -967,7 +961,7 @@ def check_dense_case(case, gen, errs):
     fns, t32, t64, plans = dense_tables(case)
     th = dense_thetas(512, spec.ndim, means[spec.ndim - 4] / 1.2, gen).to(torch.float32)
     fracs = check_kernel(label, fns, t32, t64, th, dense_pos0(case), grid.yerrs, gen,
-                         errs, DENSE_F32_STEPS)
+                         errs, 1024)
     prior = single_component_lnprior(spec, bounds, means, stds, dtype=torch.float32)
     general = build_lnprob_batched(m32, spec, grid.ints, grid.yerrs, prior,
                                    use_pallas=True, dv_max=DENSE_DV_MAX)(th)
@@ -1434,20 +1428,22 @@ def time_dense(case, gen, device):
     return k3, t, work, steps
 
 
-def kernel_events(fn, kernel, calls, tries=3, lead=8):
+def kernel_events(fn, kernel, calls, tries=6, lead=8):
     """Durations (us) of the CUDA kernel events whose name holds `kernel`
     in a torch.profiler window over `calls` calls of fn, each of which
     must launch one such kernel. On the H100 a window's first kernel
     records can go missing once other windows have run in the process (a
     window of one K4 call held only the host's cudaLaunchKernel; with two
     torch kernels ahead of the call, those two were missing and the K4
-    kernel was there). So each window opens with `lead` small torch
+    kernel was there; once, T3's windows held 11 of 20 probe kernels,
+    three windows in a row). So each window opens with `lead` small torch
     kernels to take that loss, and a window with another count is taken
     again, up to `tries` windows; then it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     lead_in = torch.zeros(1, device=DEVICE)
+    counts = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(lead):
@@ -1459,8 +1455,9 @@ def kernel_events(fn, kernel, calls, tries=3, lead=8):
               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
         if len(us) == calls:
             return us
-    raise RuntimeError(f"torch.profiler shows {len(us)} {kernel} events for {calls} calls "
-                       f"in each of {tries} windows")
+        counts.append(len(us))
+    raise RuntimeError(f"torch.profiler shows {counts} {kernel} events for {calls} calls "
+                       f"in {tries} windows")
 
 
 def device_ms(fn, kernel, reps=20):
@@ -1953,14 +1950,9 @@ def slice_gotham(prob, tmp, device, fused_step=True, nruns=4096, k2_times=None):
 
 #: The chain counts phase 4 times and the fits' chains in phase 5.
 CHAIN_COUNTS = (1, 2, 4, 8)
-FIT_CHAINS, FIT_WALKERS = 4, 512
-#: The K-chain fits: kernel -> (the problem whose JAX golden holds the
-#: pooled chain, steps). K1's run is long enough for the card's floors;
-#: K2's is not gated (None): the floors need 40,960 steps (70 x the
-#: golden's tau_max of 556), whose 4 cumulative checkpoints, twice, and
-#: checkpoint_split's repeat write ~9 GB, 2-3 minutes at the 50-73 MB/s
-#: phase 5 measures for np.save (PERF.md §6).
-FIT_STEPS = {"K1": ("flagship", 20_480), "K2": (None, 1_024)}
+#: K1's K-chain fit is long enough for the card's floors (70 x the
+#: flagship golden's tau_max of 215); K2's takes its own steps at its call.
+FIT_CHAINS, FIT_WALKERS, FIT_STEPS = 4, 512, 20_480
 
 
 def chain_occupancy(kind, tb, st):
@@ -2134,17 +2126,18 @@ def per_chain_acceptance(chain, n_chains):
     return moved.reshape(n_chains, -1).mean(axis=1)
 
 
-def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
+def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms, steps=FIT_STEPS,
+                 golden=None):
     """Phase 5: SpectralFit (K1, flagship) or MultiComponentFit (K2,
     GOTHAM).run() with n_chains=FIT_CHAINS, FIT_WALKERS walkers in all,
-    FIT_STEPS steps in 4 checkpoint blocks, through MultiChainSampler with
+    `steps` steps in 4 checkpoint blocks, through MultiChainSampler with
     the kernel's chain-batched run_fn: one launch a k-step block for all
     chains. Prints its launches, walker-steps/s, checkpoint split (kernel
     time at phase 4's FIT_CHAINS-chain median `chain_times` and the
     lnprob's `lnp_ms`), cross-chain R-hat and pooled chain; checks each
     chain finite with acceptance in (0.1, 0.9), and holds the pooled
-    chain to its problem's JAX golden (gate_posterior) where FIT_STEPS
-    names one. Then the same fit again
+    chain to problem `golden`'s JAX golden (gate_posterior) where one is
+    named. Then the same fit again
     with a run_fn double that raises one DeviceError in block 2
     (FaultOnce), recovered by the retry: its chain equals the first
     run's bitwise. Returns (the launch counts of the first run, max |z| or
@@ -2155,7 +2148,6 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
     from cha1_mcmc_tpu_torch.sampler import FusedEnsemble, MultiChainSampler
     from cha1_mcmc_tpu_torch.sampler.fused_multi import MultiFusedEnsemble
 
-    name, steps = FIT_STEPS[kind]
     every = steps // 4
     common = dict(nwalkers=FIT_WALKERS, nruns=steps, checkpoint_every=every, seed=0,
                   device=DEVICE, n_chains=FIT_CHAINS, cat_folder=prob["cat_folder"],
@@ -2202,15 +2194,12 @@ def slice_chains(kind, prob, tmp, device, chain_times, lnp_ms):
           + f" ({device})")
     kernel_s = (launches[steps_key] * K_STEPS * chain_times[FIT_CHAINS][0][0] * 1e-6
                 + launches[lnp_key] * lnp_ms * 1e-3)
-    checkpoint_split(fit, kernel_s, tmp, device, reps=1)
+    checkpoint_split(fit, kernel_s, tmp, device)
     zmax = None
-    if name is not None:
-        zmax = gate_posterior(f"{kind} {FIT_CHAINS} chains {name}", name, chain,
+    if golden is not None:
+        zmax = gate_posterior(f"{kind} {FIT_CHAINS} chains {golden}", golden, chain,
                               fit.spec.labels, steps, fit.throughput.elapsed, device,
                               phase_no=5)
-    else:
-        phase(5, "posterior", f"{kind} {FIT_CHAINS} chains, {steps} steps: not held to the "
-              "GOTHAM golden; the card's floors need 40,960 steps (FIT_STEPS)")
 
     real = getattr(module, maker)
     doubles = []
@@ -2370,7 +2359,7 @@ def k5_cases(flagship, gotham, dense_case):
              plain=by_dtype(sf.sharded_gather_half_plain, plans), args32=(tb3, st3),
              args64=(tb3d, st3d), step=fns[2], lnprob=fns[1], pos0=pos3,
              work=k3w,
-             n_f32=DENSE_F32_STEPS, whole="K3")]
+             n_f32=1024, whole="K3")]
 
 
 def run_k5(half, args, pos0, lnp0, rnd):
@@ -3075,16 +3064,6 @@ POSTERIOR_FITS = {"flagship": ("fused", 65_536), "gotham": ("multi", 65_536),
 POSTERIOR_SEED = 13
 
 
-def load_golden(name):
-    """The JAX package's posterior golden of problem `name`
-    (tests/golden/port_posterior_<name>.json,
-    scripts/make_posterior_goldens.py)."""
-    from tests.posterior_gate import PROBLEMS
-
-    with open(os.path.join(REPO, "tests", "golden", PROBLEMS[name][3])) as fh:
-        return json.load(fh)
-
-
 def gate_posterior(label, name, chain, labels, steps, secs, device, phase_no=8):
     """Hold a card chain (W, S, D) to problem `name`'s golden with
     tests/posterior_gate.py at the card's floors: its burn picked in its
@@ -3094,6 +3073,7 @@ def gate_posterior(label, name, chain, labels, steps, secs, device, phase_no=8):
     tau, steps and seconds; raises if any row fails. Returns the
     largest |z|."""
     from tests import posterior_gate as pg
+    from tests.posterior_probe import load_golden
 
     golden = load_golden(name)
     t0 = time.perf_counter()
@@ -3127,21 +3107,21 @@ def slice_posterior(name, tmp, device):
     SpectralFit, K2 GOTHAM MultiComponentFit, K3 dense SpectralFit),
     f32, W walkers x POSTERIOR_FITS steps in one checkpoint block,
     through FusedEnsembleSampler; the problem the golden's: the reduced
-    datagrid's sha256 compared with the golden's (the dense writer's
-    floating-point sums differ in the last bits from one machine to
-    another, so its hash may differ on the card's host), and the port's
-    f64 lnprob at the golden's probe thetas equal
+    datagrid held to the golden's (posterior_probe.check_datagrid: its
+    sha256, or on the dense problem, whose writer's sums differ in the
+    last bits from one machine to another, its fingerprint at rtol
+    1e-12), and the port's f64 lnprob at the golden's probe thetas equal
     to the JAX package's values there (rtol 1e-12); its chain held to the
     JAX package's f64 golden (gate_posterior). Returns (launches, max
     |z|)."""
     import numpy as np
     import cha1_mcmc_tpu_torch as port
     from cha1_mcmc_tpu_torch.reduce import load_datagrid
-    from tests import posterior_gate as pg
-    from tests.posterior_probe import PORT, build_lnprob64, make_fit
+    from tests.posterior_probe import (PORT, build_lnprob64, check_datagrid, load_golden,
+                                       make_fit, write_problem)
 
     prefix, steps = POSTERIOR_FITS[name]
-    prob = pg.write_problem(name, os.path.join(tmp, f"posterior_{name}"))
+    prob = write_problem(name, os.path.join(tmp, f"posterior_{name}"))
     fit = make_fit(PORT, name, prob, os.path.join(tmp, f"posterior_{name}", "fit"),
                    nwalkers=W, nruns=steps, checkpoint_every=steps, seed=POSTERIOR_SEED,
                    device="cuda")
@@ -3153,8 +3133,7 @@ def slice_posterior(name, tmp, device):
     assert launches[f"{prefix}_steps"] > 0 and launches[f"{prefix}_lnprob"] > 0, launches
     assert chain.shape == (W, steps, fit.spec.ndim) and np.isfinite(chain).all()
     golden = load_golden(name)
-    same = pg.datagrid_sha256(load_datagrid(fit.config.datagrid_path)) == \
-        golden["datagrid_sha256"]
+    held = check_datagrid(name, load_datagrid(fit.config.datagrid_path), golden)
     _, lnprob = build_lnprob64(PORT, name, prob, os.path.join(tmp, f"posterior_{name}",
                                                                "probe"))
     want = np.asarray(golden["probe"]["lnprob"])
@@ -3162,8 +3141,7 @@ def slice_posterior(name, tmp, device):
     assert rel <= 1e-12, f"{name}: f64 lnprob at the golden's probes off by {rel:.3e}"
     phase(8, "posterior", f"{type(fit).__name__}.run() {name}: {type(fit.sampler).__name__}, "
           f"launches { {k: v for k, v in launches.items() if v} }, acceptance "
-          f"{fit.sampler.acceptance_fraction:.3f}; the reduced datagrid's sha256 "
-          f"{'equal to' if same else 'differs from'} the golden's; the port's f64 lnprob "
+          f"{fit.sampler.acceptance_fraction:.3f}; the reduced {held}; the port's f64 lnprob "
           f"(CPU) at the golden's {want.size} probe thetas within {rel:.2e} of the JAX "
           f"package's (rtol 1e-12)")
     label = {"fused": "K1", "multi": "K2", "gather": "K3"}[prefix] + f" {name}"
@@ -3383,8 +3361,8 @@ def main() -> int:
             fracs, g = check_dense_case(case, gen, errs3)
             phase(3, "check", f"K3 {case[0]} ({g.n_blk} blocks, cb0 {g.cb0}): f32 "
                   f"lnprob ok (also vs the batched gather lnprob), f64 64-step chain "
-                  f"bitwise, f32 {DENSE_F32_STEPS}-step acceptance kernel "
-                  f"{fracs['kernel']:.4f} vs plain {fracs['plain']:.4f}")
+                  f"bitwise, f32 1024-step acceptance kernel {fracs['kernel']:.4f} vs "
+                  f"plain {fracs['plain']:.4f}")
         errs_k3 = {}
         for case in dense:
             check_dense_geometries(case, errs_k3)
@@ -3444,9 +3422,12 @@ def main() -> int:
         k2_fit = slice_gotham(prob9, tmp, device, k2_times=t2)
         launches.update((k, v) for k, v in k2_fit.items() if k.startswith("multi"))
         slice_gotham(prob9, tmp, device, fused_step=False, nruns=512)
-        chain_launches, phase5_z["K1 4 chains"] = slice_chains("K1", prob, tmp, device,
-                                                               tc1, t1[2])
-        k2_chains, _ = slice_chains("K2", prob9, tmp, device, tc2, t2[2])
+        chain_launches, phase5_z["K1 4 chains"] = slice_chains(
+            "K1", prob, tmp, device, tc1, t1[2], golden="flagship")
+        # not held to the GOTHAM golden: the floors need 40,960 steps (70 x
+        # its tau_max of 556), whose cumulative checkpoints write ~9 GB at the
+        # 50-73 MB/s np.save reaches here (PERF.md §6)
+        k2_chains, _ = slice_chains("K2", prob9, tmp, device, tc2, t2[2], steps=1_024)
         chain_launches.update((k, v) for k, v in k2_chains.items() if k.startswith("multi"))
         launches.update((k, v) for k, v in slice_dense(prob_d, tmp, device).items()
                         if k.startswith("gather"))

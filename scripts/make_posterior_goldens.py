@@ -6,7 +6,7 @@ synthetic fits, on the CPU.
     python scripts/make_posterior_goldens.py --problem gotham     # one
     python scripts/make_posterior_goldens.py --problem dense --chains DIR
 
-For each problem of tests/posterior_gate.py's PROBLEMS (the flagship
+For each problem of tests/posterior_probe.py's PROBLEMS (the flagship
 SpectralFit on write_hc5n_problem, the GOTHAM MultiComponentFit on
 write_hc9n_problem, the dense SpectralFit on
 write_dense_problem(scale="full"), each configured as chip_smoke.py's
@@ -20,7 +20,8 @@ walkers side by side, the larger burn), checks that the pool meets
 GOLDEN_FLOORS on its own, and writes tests/golden/port_posterior_<name>.json:
 the pooled summary, both runs' summaries, the provenance (generator,
 problem, config fields, lengths, seeds, jax version, wall seconds, the
-runs' largest |z|), the sha256 of the reduced datagrid, and 16 probe
+runs' largest |z|), the sha256 and fingerprint (exactly rounded sums,
+posterior_probe.datagrid_fingerprint) of the reduced datagrid, and 16 probe
 thetas with the JAX lnprob at each. --chains DIR also saves the raw
 chains there. Run the three problems as three processes in parallel:
 on 8 CPU cores the flagship took ~6 minutes, GOTHAM ~40 and the dense
@@ -69,12 +70,13 @@ def run_problem(name: str, walkers: int, steps: int, chains_dir: str | None) -> 
     import numpy as np
 
     from tests import posterior_gate as gate
+    from tests import posterior_probe as probe
     from tests.posterior_probe import JAX, build_lnprob64, make_fit
 
-    fit_kind, writer, writer_kwargs, golden_file = gate.PROBLEMS[name]
+    fit_kind, writer, writer_kwargs, _ = probe.PROBLEMS[name]
     runs, chains, walls = [], [], []
     with tempfile.TemporaryDirectory() as tmp:
-        prob = gate.write_problem(name, os.path.join(tmp, "problem"))
+        prob = probe.write_problem(name, os.path.join(tmp, "problem"))
         for seed in SEEDS:
             fit = make_fit(JAX, name, prob, os.path.join(tmp, f"fit{seed}"),
                            nwalkers=walkers, nruns=steps, checkpoint_every=steps,
@@ -126,7 +128,8 @@ def run_problem(name: str, walkers: int, steps: int, chains_dir: str | None) -> 
         },
         **pooled,
         "runs": runs,
-        "datagrid_sha256": gate.datagrid_sha256(grid),
+        "datagrid_sha256": probe.datagrid_sha256(grid),
+        "datagrid_fingerprint": probe.datagrid_fingerprint(grid),
         "probe": {"thetas": thetas.tolist(), "lnprob": values.tolist()},
     }
 
@@ -143,11 +146,11 @@ def main(argv=None) -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     sys.path.insert(0, REPO)
-    from tests.posterior_gate import PROBLEMS
+    from tests.posterior_probe import GOLDEN_DIR, PROBLEMS
 
     for name in args.problem or sorted(SIZES):
         golden = run_problem(name, *SIZES[name], args.chains)
-        path = os.path.join(REPO, "tests", "golden", PROBLEMS[name][3])
+        path = os.path.join(GOLDEN_DIR, PROBLEMS[name][3])
         with open(path, "w") as fh:
             json.dump(golden, fh, indent=1)
         print(f"wrote {path}: pooled tau_max {max(golden['tau']):.1f}, ESS min "

@@ -38,15 +38,13 @@ exceeds `mean_se` of that parameter's posterior sigma (CARD_FLOORS:
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import math
 
 import numpy as np
 
 __all__ = ["Floors", "CARD_FLOORS", "GOLDEN_FLOORS", "STATS", "Z",
            "autocorr_time", "pick_burn", "summarize", "compare",
-           "check_floors", "failures", "max_abs_z", "format_rows",
-           "datagrid_sha256", "PROBLEMS", "write_problem", "fit_fields"]
+           "check_floors", "failures", "max_abs_z", "format_rows"]
 
 #: The statistics compared for every parameter.
 STATS = ("mean", "std", "p16", "p50", "p84")
@@ -259,54 +257,3 @@ def format_rows(rows: list) -> str:
             lines.append(f"{r['param']:>14} {r['stat']}: {r['value']:.4g} "
                          f"(limit {r['limit']:g}) {mark}")
     return "\n".join(lines)
-
-
-# -- the three problems the goldens are made on --------------------------------
-
-def datagrid_sha256(grid) -> str:
-    """sha256 of a reduced datagrid's freqs, ints and yerrs as float64."""
-    h = hashlib.sha256()
-    for a in (grid.freqs, grid.ints, grid.yerrs):
-        h.update(np.ascontiguousarray(np.asarray(a, dtype=np.float64)).tobytes())
-    return h.hexdigest()
-
-
-#: name -> (fit class, writer, writer arguments, golden file under tests/golden).
-PROBLEMS = {
-    "flagship": ("SpectralFit", "write_hc5n_problem", {"seed": 4},
-                 "port_posterior_flagship.json"),
-    "gotham": ("MultiComponentFit", "write_hc9n_problem",
-               {"n_multiplets": 22, "seed": 0}, "port_posterior_gotham.json"),
-    "dense": ("SpectralFit", "write_dense_problem", {"scale": "full"},
-              "port_posterior_dense.json"),
-}
-
-
-def write_problem(name: str, folder: str) -> dict:
-    """Write problem `name`'s catalog and spectrum into `folder`
-    (tests/port_problems.py); returns the writer's dict."""
-    from tests import port_problems
-
-    _, writer, kwargs, _ = PROBLEMS[name]
-    return getattr(port_problems, writer)(folder, **kwargs)
-
-
-def fit_fields(name: str, prob: dict) -> dict:
-    """The config fields of problem `name` that both packages' fits
-    share (FitConfig / MultiFitConfig), apart from folders, nwalkers,
-    nruns, checkpoint_every, seed, dtype and device."""
-    fields = {"cat_folder": prob["cat_folder"], "data_path": prob["data_path"]}
-    if name == "flagship":
-        return {"mol_name": "hc5n_hfs", **fields}
-    if name == "gotham":
-        return {"mol_name": "hc9n_hfs", "template_run": True, **fields}
-    from tests.port_problems import (DENSE_BOUNDS, DENSE_CENTER, DENSE_DISH,
-                                     DENSE_NAME, DENSE_SOURCE_SIZE)
-
-    ncol = prob["truth"][0]
-    return {"mol_name": DENSE_NAME, **fields, "lower_limit": prob["ll"],
-            "upper_limit": prob["ul"], "dish_size": DENSE_DISH,
-            "aligned_velocity": DENSE_CENTER, "fixed_source_size": DENSE_SOURCE_SIZE,
-            "bounds": dict(DENSE_BOUNDS),
-            "template_means": (DENSE_SOURCE_SIZE, 1.2 * ncol, 8.0, DENSE_CENTER, 0.7575),
-            "template_stds": (6.5, 0.5 * ncol, 3.0, 0.06, 0.22)}

@@ -1,8 +1,8 @@
 """The port's import rule, held in a fresh interpreter: importing every
 module of cha1_mcmc_tpu_torch (walked with pkgutil), chip_smoke.py,
-bench_torch.py and the posterior gate (tests/posterior_gate.py) loads
-neither jax nor the JAX package cha1_mcmc_tpu; the gate loads no torch
-either."""
+bench_torch.py, the posterior gate (tests/posterior_gate.py) and the
+posterior problems (tests/posterior_probe.py) loads neither jax nor the
+JAX package cha1_mcmc_tpu; the gate loads no torch either."""
 
 import json
 import os
@@ -17,11 +17,11 @@ import importlib, json, pkgutil, sys
 import cha1_mcmc_tpu_torch
 names = ["cha1_mcmc_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     cha1_mcmc_tpu_torch.__path__, "cha1_mcmc_tpu_torch.")]
-for name in names + ["chip_smoke", "bench_torch", "tests.posterior_gate"]:
+extra = ["bench_torch", "tests.posterior_gate", "tests.posterior_probe"]
+for name in names + ["chip_smoke"] + extra:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cha1_mcmc_tpu"))
-print(json.dumps({"modules": names + ["bench_torch", "tests.posterior_gate"],
-                  "loaded": loaded}))
+print(json.dumps({"modules": names + extra, "loaded": loaded}))
 """
 
 
@@ -33,7 +33,7 @@ def test_port_and_chip_smoke_import_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["loaded"] == [], result["loaded"]
     modules = set(result["modules"])
-    assert "bench_torch" in modules and "tests.posterior_gate" in modules
+    assert {"bench_torch", "tests.posterior_gate", "tests.posterior_probe"} <= modules
     # this slice's modules are among those walked
     for name in ("__main__", "analysis.independent", "analysis.crosscheck",
                  "analysis.inspection", "catalogs.native", "pipeline.batch",

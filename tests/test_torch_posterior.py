@@ -4,8 +4,8 @@ on the CPU.
 
 * Each golden belongs to its problem: the JAX package's float64 lnprob
   at the golden's 16 probe thetas equals the recorded values (rtol
-  1e-12) and the reduced datagrid's sha256 is the recorded one; the
-  port's float64 CPU lnprob equals them too.
+  1e-12) and the reduced datagrid's sha256 and fingerprint are the
+  recorded ones; the port's float64 CPU lnprob equals them too.
 * The gate (tests/posterior_gate.py) on seeded AR(1) chains of known
   tau: its tau is the port's estimator's; it passes two independent
   chains, fails a mean shifted by 6
@@ -25,25 +25,20 @@ from __future__ import annotations
 
 import contextlib
 import io
-import json
 import os
 
 import numpy as np
 import pytest
 
 from tests import posterior_gate as pg
-from tests.posterior_probe import JAX, PORT, build_lnprob64, make_fit
+from tests.posterior_probe import (JAX, PORT, PROBLEMS, build_lnprob64, datagrid_fingerprint,
+                                   datagrid_sha256, load_golden as golden, make_fit,
+                                   write_problem)
 
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
-NAMES = tuple(pg.PROBLEMS)
+NAMES = tuple(PROBLEMS)
 #: The CPU fit's size and its own floors (its tau floored at the golden's).
 CPU_FLOORS = pg.Floors(post_tau=10.0, burn_tau=10.0, mean_se=0.1)
 CPU_WALKERS, CPU_STEPS = 32, 4_400
-
-
-def golden(name):
-    with open(os.path.join(GOLDEN_DIR, pg.PROBLEMS[name][3])) as fh:
-        return json.load(fh)
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +48,7 @@ def problems(tmp_path_factory):
     for name in NAMES:
         folder = str(tmp_path_factory.mktemp(name))
         with contextlib.redirect_stdout(io.StringIO()):
-            out[name] = (pg.write_problem(name, os.path.join(folder, "problem")), folder)
+            out[name] = (write_problem(name, os.path.join(folder, "problem")), folder)
     return out
 
 
@@ -68,7 +63,8 @@ def test_golden_belongs_to_its_problem(name, problems):
     with jax.enable_x64():
         grid, lnprob = build_lnprob64(JAX, name, prob, os.path.join(folder, "jax"))
         got = lnprob(np.asarray(g["probe"]["thetas"]))
-    assert pg.datagrid_sha256(grid) == g["datagrid_sha256"]
+    assert datagrid_sha256(grid) == g["datagrid_sha256"]
+    assert datagrid_fingerprint(grid) == g["datagrid_fingerprint"]
     assert len(got) == 16 and np.isfinite(got).all()
     np.testing.assert_allclose(got, g["probe"]["lnprob"], rtol=1e-12, atol=0)
 
@@ -80,7 +76,7 @@ def test_port_lnprob_matches_golden(name, problems):
     g = golden(name)
     prob, folder = problems[name]
     grid, lnprob = build_lnprob64(PORT, name, prob, os.path.join(folder, "port"))
-    assert pg.datagrid_sha256(grid) == g["datagrid_sha256"]
+    assert datagrid_sha256(grid) == g["datagrid_sha256"]
     np.testing.assert_allclose(lnprob(np.asarray(g["probe"]["thetas"])),
                                g["probe"]["lnprob"], rtol=1e-12, atol=0)
 
