@@ -54,7 +54,7 @@ from cha1_mcmc_tpu_torch.models.opacity_kernels import plan_opacity_block
 from cha1_mcmc_tpu_torch.models.sparse_opacity import block_activity_mask_traced
 from cha1_mcmc_tpu_torch.parallel.multihost import local_rank
 from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_randomness,
-                                                 half_step)
+                                                 half_step, to_host)
 from cha1_mcmc_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Mesh", "sharded_device", "writes_files", "make_mesh", "pad_model_lines",
@@ -472,10 +472,10 @@ class ShardedEnsembleSampler(EnsembleSampler):
         chain, lnps, acc = self.thin(chain, lnps, acc, thin)
         return chain, lnps, acc, final
 
-    def _rng_sidecar(self, generator) -> dict:
+    def _rng_sidecar(self, generator, counted) -> dict:
         # collective: every rank's shard generator state, in rank order
         state = self.shard_generator(generator).get_state().to(self.mesh.device)
-        return dict(rng_states=_all_gather(state[None], None).cpu().numpy())
+        return dict(rng_states=to_host(_all_gather(state[None], None), counted))
 
     def _rng_restore(self, state, state_path: str):
         world = self.mesh.size

@@ -46,6 +46,7 @@ from cha1_mcmc_tpu_torch.reduce.datagrid import (Datagrid, read_spectrum_gotham,
                                                  save_datagrid)
 from cha1_mcmc_tpu_torch.pipeline.plotting import plot_results, report_convergence
 from cha1_mcmc_tpu_torch.utils import Throughput
+from cha1_mcmc_tpu_torch.utils.metrics import span, trace
 
 __all__ = ["MultiFitConfig", "MultiComponentFit"]
 
@@ -154,6 +155,7 @@ class MultiComponentFit:
         self.dtype = _DTYPES[config.dtype]
         self.catalog = None
         self.sampler: EnsembleSampler | None = None
+        self._throughput: Throughput | None = None   # begun by init_setup
 
     def init_setup(self) -> Datagrid:
         """Reduce the GOTHAM spectrum once
@@ -164,18 +166,22 @@ class MultiComponentFit:
         if not os.path.exists(cfg.catfile_path):
             raise FileNotFoundError(f"No catalog file found at {cfg.catfile_path}.")
         os.makedirs(cfg.mol_folder, exist_ok=True)
-        self.catalog = load_catalog(cfg.catfile_path, name=cfg.mol_name)
-        C, dV, T, ss = cfg.fiducial
-        freq_sim, int_sim, _ = simulate_sticks_host(
-            self.catalog, C=[C], dV=[dV], T=[T],
-            ll=[cfg.lower_limit], ul=[cfg.upper_limit],
-            source_size=ss, dish_size=cfg.dish_size)
-        data = np.load(cfg.data_path, allow_pickle=True)
-        grid = read_spectrum_gotham(
-            data, freq_sim, int_sim, block_interlopers=cfg.block_interlopers)
-        if writes_files(self.sharded):
-            save_datagrid(cfg.datagrid_path, grid)
-            print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}")
+        self._throughput = Throughput()
+        with trace(self._throughput.trace_id):
+            with span("pipeline/catalog", host=True):
+                self.catalog = load_catalog(cfg.catfile_path, name=cfg.mol_name)
+            with span("pipeline/reduce", host=True):
+                C, dV, T, ss = cfg.fiducial
+                freq_sim, int_sim, _ = simulate_sticks_host(
+                    self.catalog, C=[C], dV=[dV], T=[T],
+                    ll=[cfg.lower_limit], ul=[cfg.upper_limit],
+                    source_size=ss, dish_size=cfg.dish_size)
+                data = np.load(cfg.data_path, allow_pickle=True)
+                grid = read_spectrum_gotham(
+                    data, freq_sim, int_sim, block_interlopers=cfg.block_interlopers)
+                if writes_files(self.sharded):
+                    save_datagrid(cfg.datagrid_path, grid)
+                    print(f"{GRAY}Saved reduced spectrum to: {cfg.datagrid_path}{RESET}")
         return grid
 
     def _fused_eligible(self, model: SpectralModel) -> bool:
@@ -191,7 +197,8 @@ class MultiComponentFit:
     def build_model(self, grid: Datagrid) -> SpectralModel:
         cfg = self.config
         if self.catalog is None:
-            self.catalog = load_catalog(cfg.catfile_path, name=cfg.mol_name)
+            with span("pipeline/catalog", host=True):
+                self.catalog = load_catalog(cfg.catfile_path, name=cfg.mol_name)
         return SpectralModel.build(
             self.catalog, grid.covered_trans, grid.freqs,
             ll=cfg.lower_limit, ul=cfg.upper_limit,
@@ -218,122 +225,129 @@ class MultiComponentFit:
 
     def fit(self, grid: Datagrid) -> np.ndarray:
         """Sample the N-component posterior; returns the (W, S, D) chain
-        (reference fit_multi_gaussian, TMC1_four_component.py:280-350)."""
-        cfg = self.config
-        print(f"{CYAN}Fitting column densities for {cfg.mol_name}. "
-              f"Restart = {cfg.restart}.{RESET}")
-        model = self.build_model(grid)
+        (reference fit_multi_gaussian, TMC1_four_component.py:280-350).
+        The fit's Throughput (throughput.json) is the one init_setup
+        began, so its spans and trace id take in the reduction's."""
+        throughput, self._throughput = self._throughput or Throughput(), None
+        with trace(throughput.trace_id):
+            cfg = self.config
+            print(f"{CYAN}Fitting column densities for {cfg.mol_name}. "
+                  f"Restart = {cfg.restart}.{RESET}")
+            with span("pipeline/model"):
+                model = self.build_model(grid)
 
-        if cfg.template_run:
-            initial = np.asarray(cfg.template_means, dtype=np.float64)
-            prior_means, prior_stds = initial, np.asarray(cfg.template_stds)
-        else:
-            prior_means, prior_stds = chain_to_priors(load_chain(cfg.prior_path))
-            if prior_means.shape != (cfg.ndim,):
-                raise ValueError(
-                    f"prior chain has ndim {prior_means.shape}, expected {cfg.ndim}")
-            if cfg.restart:
-                initial = np.asarray(cfg.initial if cfg.initial is not None
-                                     else cfg.template_means, dtype=np.float64)
+            if cfg.template_run:
+                initial = np.asarray(cfg.template_means, dtype=np.float64)
+                prior_means, prior_stds = initial, np.asarray(cfg.template_stds)
             else:
-                # Continue from the median of the last 200 steps
-                # (reference TMC1_four_component.py:325-327).
-                chain_data = load_chain(cfg.chain_path)[:, -200:, :].reshape(-1, cfg.ndim).T
-                initial = np.median(chain_data, axis=1)
+                prior_means, prior_stds = chain_to_priors(load_chain(cfg.prior_path))
+                if prior_means.shape != (cfg.ndim,):
+                    raise ValueError(
+                        f"prior chain has ndim {prior_means.shape}, expected {cfg.ndim}")
+                if cfg.restart:
+                    initial = np.asarray(cfg.initial if cfg.initial is not None
+                                         else cfg.template_means, dtype=np.float64)
+                else:
+                    # Continue from the median of the last 200 steps
+                    # (reference TMC1_four_component.py:325-327).
+                    chain_data = load_chain(cfg.chain_path)[:, -200:, :].reshape(-1, cfg.ndim).T
+                    initial = np.median(chain_data, axis=1)
 
-        model = self._attach_device_q(model, prior_means, prior_stds)
-        lnprior = ordered_velocity_lnprior(self.spec, prior_means, prior_stds,
-                                           dv_max=cfg.dv_bound, dtype=self.dtype)
+            with span("pipeline/model"):
+                model = self._attach_device_q(model, prior_means, prior_stds)
+                lnprior = ordered_velocity_lnprior(self.spec, prior_means, prior_stds,
+                                                   dv_max=cfg.dv_bound, dtype=self.dtype)
 
-        # Fixed-perturbation walker ball, no rejection
-        # (reference TMC1_four_component.py:330-331).
-        rng = np.random.default_rng(cfg.seed)
-        perturbation = np.asarray(cfg.perturbation, dtype=np.float64)
-        pos = initial + perturbation * rng.standard_normal((cfg.nwalkers, cfg.ndim))
+            # Fixed-perturbation walker ball, no rejection
+            # (reference TMC1_four_component.py:330-331).
+            with span("pipeline/walkers", host=True):
+                rng = np.random.default_rng(cfg.seed)
+                perturbation = np.asarray(cfg.perturbation, dtype=np.float64)
+                pos = initial + perturbation * rng.standard_normal((cfg.nwalkers, cfg.ndim))
 
-        common = dict(nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
-                      dtype=self.dtype, device=self.device)
-        if self.sharded:
-            # Walkers (and optionally lines) sharded over a mesh of ranks,
-            # every rank running this same call, through the
-            # multi-component half-step kernel K5c on a CUDA float32 fit
-            # that K2 takes at the local walker count; else the general
-            # sharded runner over the dense model (the JAX multifit's
-            # sharded formulation).
-            self.sampler = make_sharded_sampler(
-                n_devices=cfg.n_devices, n_line_shards=cfg.n_line_shards,
-                nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
-                dtype=self.dtype, model=model, spec=self.spec, grid_ints=grid.ints,
-                grid_yerrs=grid.yerrs, lnprior_fn=lnprior,
-                n_chains=cfg.n_chains, use_fused=cfg.use_fused_step, dv_max=cfg.dv_bound,
-                prior_means=prior_means, prior_stds=prior_stds, device=self.device)
-        elif cfg.n_chains > 1:
-            # K independent ensembles over the batched gather lnprob; all K
-            # through one K2 launch per k steps where K2 takes the per-chain
-            # ensemble.
-            lnprob = build_lnprob_batched(
-                model, self.spec, grid.ints, grid.yerrs, lnprior,
-                use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
-            run_fn = None
-            if self._fused_eligible(model):
-                run_fn = make_fused_ensemble_multi(
-                    model, self.spec, grid.ints, grid.yerrs, prior_means,
-                    prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
-            self.sampler = MultiChainSampler(lnprob_fn=lnprob, n_chains=cfg.n_chains,
-                                             run_fn=run_fn, **common)
-        elif self._fused_eligible(model):
-            # K2: one CUDA kernel launch per k ensemble steps
-            # (sampler/fused_multi.py, csrc/multi_step.cu).
-            lnprob = build_lnprob_batched(
-                model, self.spec, grid.ints, grid.yerrs, lnprior,
-                use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
-            run_fn = make_fused_ensemble_multi(
-                model, self.spec, grid.ints, grid.yerrs, prior_means,
-                prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
-            self.sampler = FusedEnsembleSampler(lnprob_fn=lnprob, run_fn=run_fn,
-                                                **common)
-        elif cfg.use_sparse_opacity:
-            # Channel-major gather opacity: each covered GOTHAM line touches
-            # a few percent of the channels at the dV prior bound, and
-            # cfg.dv_bound feeds both the prior's hard bound and the static
-            # table's window, so the table is exact for every in-bounds walker.
-            lnprob = build_lnprob_batched(
-                model, self.spec, grid.ints, grid.yerrs, lnprior,
-                use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
-            self.sampler = EnsembleSampler(lnprob_fn=lnprob, **common)
-        else:
-            lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs, lnprior)
-            self.sampler = EnsembleSampler(lnprob_fn=lnprob, **common)
-        print(f"{GRAY}Sampler: {type(self.sampler).__name__} on {self.device}.{RESET}")
+            with span("pipeline/model"):
+                common = dict(nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
+                              dtype=self.dtype, device=self.device)
+                if self.sharded:
+                    # Walkers (and optionally lines) sharded over a mesh of ranks,
+                    # every rank running this same call, through the
+                    # multi-component half-step kernel K5c on a CUDA float32 fit
+                    # that K2 takes at the local walker count; else the general
+                    # sharded runner over the dense model (the JAX multifit's
+                    # sharded formulation).
+                    self.sampler = make_sharded_sampler(
+                        n_devices=cfg.n_devices, n_line_shards=cfg.n_line_shards,
+                        nwalkers=cfg.nwalkers, ndim=cfg.ndim, a=cfg.stretch_a,
+                        dtype=self.dtype, model=model, spec=self.spec, grid_ints=grid.ints,
+                        grid_yerrs=grid.yerrs, lnprior_fn=lnprior,
+                        n_chains=cfg.n_chains, use_fused=cfg.use_fused_step, dv_max=cfg.dv_bound,
+                        prior_means=prior_means, prior_stds=prior_stds, device=self.device)
+                elif cfg.n_chains > 1:
+                    # K independent ensembles over the batched gather lnprob; all K
+                    # through one K2 launch per k steps where K2 takes the per-chain
+                    # ensemble.
+                    lnprob = build_lnprob_batched(
+                        model, self.spec, grid.ints, grid.yerrs, lnprior,
+                        use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
+                    run_fn = None
+                    if self._fused_eligible(model):
+                        run_fn = make_fused_ensemble_multi(
+                            model, self.spec, grid.ints, grid.yerrs, prior_means,
+                            prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
+                    self.sampler = MultiChainSampler(lnprob_fn=lnprob, n_chains=cfg.n_chains,
+                                                     run_fn=run_fn, **common)
+                elif self._fused_eligible(model):
+                    # K2: one CUDA kernel launch per k ensemble steps
+                    # (sampler/fused_multi.py, csrc/multi_step.cu).
+                    lnprob = build_lnprob_batched(
+                        model, self.spec, grid.ints, grid.yerrs, lnprior,
+                        use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
+                    run_fn = make_fused_ensemble_multi(
+                        model, self.spec, grid.ints, grid.yerrs, prior_means,
+                        prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
+                    self.sampler = FusedEnsembleSampler(lnprob_fn=lnprob, run_fn=run_fn,
+                                                        **common)
+                elif cfg.use_sparse_opacity:
+                    # Channel-major gather opacity: each covered GOTHAM line touches
+                    # a few percent of the channels at the dV prior bound, and
+                    # cfg.dv_bound feeds both the prior's hard bound and the static
+                    # table's window, so the table is exact for every in-bounds walker.
+                    lnprob = build_lnprob_batched(
+                        model, self.spec, grid.ints, grid.yerrs, lnprior,
+                        use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
+                    self.sampler = EnsembleSampler(lnprob_fn=lnprob, **common)
+                else:
+                    lnprob = build_lnprob(model, self.spec, grid.ints, grid.yerrs, lnprior)
+                    self.sampler = EnsembleSampler(lnprob_fn=lnprob, **common)
+            print(f"{GRAY}Sampler: {type(self.sampler).__name__} on {self.device}.{RESET}")
 
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(cfg.seed)
-        throughput = Throughput()
-        with throughput.setup():
-            lnp0 = self.sampler.prepare(pos)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        with throughput:
-            self.sampler.run_mcmc(
-                pos, cfg.nruns, generator, lnp0=lnp0, checkpoint_every=cfg.checkpoint_every,
-                chain_file=cfg.chain_path, progress=True)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        throughput.add(cfg.nruns, cfg.nwalkers)
-        device_name = (torch.cuda.get_device_name(self.device)
-                       if self.device.type == "cuda" else "cpu")
-        if writes_files(self.sharded):
-            throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
-                            device=device_name, sampler=type(self.sampler).__name__)
-        self.throughput = throughput
-        print(f"{GRAY}Acceptance fraction: "
-              f"{self.sampler.acceptance_fraction:.3f}  |  "
-              f"{throughput.walker_steps_per_sec:,.0f} walker-steps/s on "
-              f"{device_name} (wall, incl. checkpoints){RESET}")
-        if cfg.n_chains > 1:
-            self.convergence = report_convergence(self.sampler.chain, self.spec.labels,
-                                                  cfg.n_chains)
-        return self.sampler.chain
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(cfg.seed)
+            with throughput.setup():
+                lnp0 = self.sampler.prepare(pos)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            with throughput:
+                self.sampler.run_mcmc(
+                    pos, cfg.nruns, generator, lnp0=lnp0, checkpoint_every=cfg.checkpoint_every,
+                    chain_file=cfg.chain_path, progress=True)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            throughput.add(cfg.nruns, cfg.nwalkers)
+            device_name = (torch.cuda.get_device_name(self.device)
+                           if self.device.type == "cuda" else "cpu")
+            if writes_files(self.sharded):
+                throughput.save(os.path.join(cfg.mol_folder, "throughput.json"),
+                                device=device_name, sampler=type(self.sampler).__name__)
+            self.throughput = throughput
+            print(f"{GRAY}Acceptance fraction: "
+                  f"{self.sampler.acceptance_fraction:.3f}  |  "
+                  f"{throughput.walker_steps_per_sec:,.0f} walker-steps/s on "
+                  f"{device_name} (wall, incl. checkpoints){RESET}")
+            if cfg.n_chains > 1:
+                self.convergence = report_convergence(self.sampler.chain, self.spec.labels,
+                                                      cfg.n_chains)
+            return self.sampler.chain
 
     def run(self) -> np.ndarray:
         grid = self.init_setup()

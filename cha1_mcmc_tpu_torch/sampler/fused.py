@@ -44,7 +44,7 @@ from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_chain_ran
                                                  draw_randomness, half_step)
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 from cha1_mcmc_tpu_torch.utils.device import DeviceError
-from cha1_mcmc_tpu_torch.utils.metrics import register_launches
+from cha1_mcmc_tpu_torch.utils.metrics import first_launch, register_launches
 
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
            "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
@@ -671,6 +671,10 @@ class FusedEnsemble:
         perm_b, z_b, pair_b, acc_b = block_randomness(randomness, k_steps)
         coords, lnp = pos0.contiguous(), lnp0.contiguous()
         chains, lnpss, accs = [], [], []
+        # A block's device time (BlockTimer's device_s) starts here, after the
+        # draws and their layout; moving this call moves what the benchmark's
+        # sampler.device_idle_pct and sampler.block_gap_us read.
+        first_launch()
         for b in range(nblocks):
             chain_blk, lnps_blk, acc = self.step_block(
                 coords, lnp, perm_b[b], z_b[b], pair_b[b], acc_b[b])

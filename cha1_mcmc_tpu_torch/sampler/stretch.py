@@ -44,6 +44,7 @@ import torch
 
 from cha1_mcmc_tpu_torch.sampler.chain import last_position
 from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, DEVICE_ERRORS, resolve_device
+from cha1_mcmc_tpu_torch.utils.metrics import BlockTimer, span, trace
 
 __all__ = ["draw_randomness", "draw_chain_randomness", "run_ensemble",
            "run_ensemble_chains", "half_step", "EnsembleSampler", "MultiChainSampler",
@@ -193,6 +194,15 @@ def run_ensemble_chains(lnprob_fn, pos0, lnp0, randomness, nsteps: int,
             tuple(torch.stack(f) for f in zip(*finals)))
 
 
+def to_host(tensor: torch.Tensor, counted: span) -> np.ndarray:
+    """`tensor` copied to the host, which waits for the device: one host
+    synchronisation, counted on the span `counted` (`syncs`, and the bytes
+    in `d2h_bytes`) where it happens."""
+    out = tensor.cpu().numpy()
+    counted.add(syncs=1, d2h_bytes=out.nbytes)
+    return out
+
+
 @dataclasses.dataclass
 class EnsembleSampler:
     """Stateful wrapper with the reference chain-file contract.
@@ -266,11 +276,12 @@ class EnsembleSampler:
         lnprob (`lnp0(pos)`, unless `lnp0` is given; a kernel's first
         launch loads its library). Returns the lnp0 to pass to run_mcmc."""
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
-        draw_randomness(1, self.nwalkers, torch.Generator(device=self.device),
-                        device=self.device, dtype=self.dtype)
-        if lnp0 is not None:
-            return torch.as_tensor(lnp0, dtype=self.dtype, device=self.device)
-        return self.lnp0(pos)
+        with span("sampler/prepare"):
+            draw_randomness(1, self.nwalkers, torch.Generator(device=self.device),
+                            device=self.device, dtype=self.dtype)
+            if lnp0 is not None:
+                return torch.as_tensor(lnp0, dtype=self.dtype, device=self.device)
+            return self.lnp0(pos)
 
     def thin(self, chain, lnps, accepted, thin: int):
         """Keep every thin-th of the raw steps of a (n_raw, W, D) block
@@ -287,6 +298,7 @@ class EnsembleSampler:
         return run_ensemble(self.lnprob_fn, pos, lnp, generator, nsteps, a=self.a,
                             thin=thin)
 
+    @trace()
     def run_mcmc(self, pos, nsteps: int, generator: torch.Generator,
                  checkpoint_every: int = 256, chain_file: str | None = None,
                  progress: bool = False, thin: int = 1, max_retries: int = 2,
@@ -313,43 +325,61 @@ class EnsembleSampler:
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
         lnp = (self.lnp0(pos) if lnp0 is None
                else torch.as_tensor(lnp0, dtype=self.dtype, device=self.device))
+        timer = BlockTimer(self.device)
         done = 0
         while done < nsteps:
             block = min(checkpoint_every, nsteps - done)
-            saved = generator.get_state()
-            for attempt in range(max_retries + 1):
-                try:
-                    chain, lnps, accepted, (new_pos, new_lnp) = self._run_block(
-                        pos, lnp, generator, block, thin)
-                    chain_host = chain.cpu().numpy()   # a fault in the block surfaces here
-                    break
-                except DEVICE_ERRORS:
-                    if attempt == max_retries:
-                        raise
-                    logger.warning("device error in the MCMC block at step %d; running it "
-                                   "again from its saved random state (%d/%d)",
-                                   done, attempt + 1, max_retries)
-                    generator.set_state(saved)
-            pos, lnp = new_pos, new_lnp
-            # device (K, W, D) -> emcee layout (W, K, D)
-            self._chain_blocks.append(chain_host.transpose(1, 0, 2))
-            self._lnp_blocks.append(lnps.cpu().numpy().T)
-            self.accepted += int(accepted.sum())
-            self.total_proposals += block * thin * self.nwalkers
-            done += block
-            if chain_file is not None:
-                rng = self._rng_sidecar(generator)
-                if self.writes_files:
-                    np.save(chain_file, self.chain)
-                    np.savez(_state_path(chain_file),
-                             pos=pos.cpu().numpy(), lnp=lnp.cpu().numpy(),
-                             accepted=self.accepted,
-                             total_proposals=self.total_proposals,
-                             package=PACKAGE_TAG, **rng)
+            with span("sampler/block") as blk:
+                saved = generator.get_state()
+                for attempt in range(max_retries + 1):
+                    try:
+                        with timer, span("sampler/enqueue"):
+                            chain, lnps, accepted, (new_pos, new_lnp) = self._run_block(
+                                pos, lnp, generator, block, thin)
+                        with span("sampler/fetch"):
+                            # a fault in the block surfaces at the first copy
+                            chain_host = to_host(chain, blk)
+                            lnps_host = to_host(lnps, blk)
+                            n_accepted = int(to_host(accepted.sum(), blk))
+                        break
+                    except DEVICE_ERRORS:
+                        if attempt == max_retries:
+                            raise
+                        logger.warning("device error in the MCMC block at step %d; running "
+                                       "it again from its saved random state (%d/%d)",
+                                       done, attempt + 1, max_retries)
+                        generator.set_state(saved)
+                blk.add(**timer.read())
+                pos, lnp = new_pos, new_lnp
+                with span("sampler/record", host=True):
+                    # device (K, W, D) -> emcee layout (W, K, D)
+                    self._chain_blocks.append(chain_host.transpose(1, 0, 2))
+                    self._lnp_blocks.append(lnps_host.T)
+                    self.accepted += n_accepted
+                    self.total_proposals += block * thin * self.nwalkers
+                    done += block
+                if chain_file is not None:
+                    rng = self._rng_sidecar(generator, blk)
+                    if self.writes_files:
+                        state = dict(pos=to_host(pos, blk), lnp=to_host(lnp, blk))
+                        self._save_checkpoint(chain_file, state, rng)
             if progress:
                 print(f"MCMC sampling: {done}/{nsteps} steps "
                       f"(acceptance {self.acceptance_fraction:.3f})", flush=True)
         return pos.cpu().numpy(), lnp.cpu().numpy()
+
+    def _save_checkpoint(self, chain_file: str, state: dict, rng: dict):
+        """Write the cumulative chain and the sidecar (`state`: the block's
+        last positions and lnprob on the host; `rng`: _rng_sidecar's)."""
+        with span("sampler/checkpoint", host=True) as ckpt:
+            np.save(chain_file, self.chain)
+            np.savez(_state_path(chain_file), **state, accepted=self.accepted,
+                     total_proposals=self.total_proposals, package=PACKAGE_TAG, **rng)
+            chain_path = os.fspath(chain_file)
+            if not chain_path.endswith(".npy"):   # np.save's suffix
+                chain_path += ".npy"
+            ckpt.add(bytes=os.path.getsize(chain_path)
+                     + os.path.getsize(_state_path(chain_file)))
 
     def load_state(self, chain_file: str):
         """Restore (pos, lnp, generator_state) from a `.state.npz` sidecar
@@ -378,8 +408,9 @@ class EnsembleSampler:
         """Whether this process writes the chain and the sidecar."""
         return True
 
-    def _rng_sidecar(self, generator) -> dict:
-        """The sidecar's random-state fields."""
+    def _rng_sidecar(self, generator, counted: span) -> dict:
+        """The sidecar's random-state fields (a copy from the device is
+        counted on `counted`, as to_host counts it)."""
         return dict(rng_state=generator.get_state().numpy())
 
     def _rng_restore(self, state, state_path: str):

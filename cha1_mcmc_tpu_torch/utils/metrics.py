@@ -1,19 +1,49 @@
 """Throughput measurement for a fit: walker-steps (likelihood evaluations)
-per second of wall time, the set-up time before it and the kernel
-launches made meanwhile, written beside the fit's artifacts; and an
-optional torch.profiler trace of a region (port of
-cha1_mcmc_tpu/utils/metrics.py:trace_profile)."""
+per second of wall time, the set-up time before it, and the kernel
+launches and spans made meanwhile, written beside the fit's artifacts;
+the program's spans and per-span counts; the device time of a loop's
+blocks from CUDA events; and an optional torch.profiler trace of a
+region (port of cha1_mcmc_tpu/utils/metrics.py:trace_profile).
+
+Spans. `with span("<layer>/<phase>") as s:` times a region on
+`time.perf_counter()`, the host clock a caller stamps its own requests
+with, and records as it closes its name, start and end, the enclosing
+span (`parent`, so a layer's self time is its span less its children's),
+its trace id and the counts attached to it (`s.add(syncs=1, ...)`).
+Every span of one top-level call shares a trace id: that of the
+enclosing `trace()` region (one `run_mcmc` call, one fit's `init_setup`
+and `fit`), else of the outermost span. Closed spans go to a bounded
+ring (`spans()`; the oldest are dropped first and counted,
+`spans_dropped()`) and to per-name totals that are never dropped
+(`span_totals()`). Spans and counts are always on.
+
+A span made with `host=True` marks a region that enqueues nothing on the
+card. While a torch.profiler window is open (a flag read: no profiler
+call is made otherwise), such a span, and only such a span, is also
+entered as `record_function(name)`, which puts it on the profiler's host
+timeline beside the kernels. A range that launched device work would
+also be mirrored onto the device's timeline, as an annotation from its
+first to its last device op, which a reader of device time takes for
+work.
+"""
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.autograd.profiler import record_function
 
-__all__ = ["Throughput", "kernel_launches", "launch_counters", "register_launches",
-           "trace_profile"]
+__all__ = ["BlockTimer", "SpanLog", "SpanRecord", "Throughput", "first_launch",
+           "kernel_launches", "launch_counters", "new_trace_id", "register_launches", "span",
+           "span_totals", "spans", "spans_dropped", "trace", "trace_profile"]
 
 #: The LAUNCHES dict of every kernel module imported so far, each
 #: registered by its module (register_launches).
@@ -39,11 +69,230 @@ def kernel_launches() -> dict:
     return {k: v for counts in _LAUNCH_COUNTERS for k, v in counts.items()}
 
 
+# -- spans -------------------------------------------------------------------
+
+#: Closed spans the ring keeps: 131,072, four times the ~33,000 of a 51-s
+#: window of the flagship's 512-step blocks (~6,600 blocks of 4-5 spans).
+SPAN_RING = 1 << 17
+
+
+class SpanRecord(NamedTuple):
+    """A closed span: host-clock seconds (time.perf_counter), the
+    enclosing span's id (None at the top), the trace id and the counts
+    attached to it."""
+    id: int
+    name: str
+    t0: float
+    t1: float
+    parent: int | None
+    trace: int
+    counts: dict
+
+
+class SpanLog:
+    """Where closed spans go: a ring of the last `ring` (the oldest
+    dropped first, `dropped` counting them) and, per name, [count,
+    seconds, counts summed], never dropped."""
+
+    def __init__(self, ring: int = SPAN_RING):
+        self._ring = collections.deque(maxlen=ring)
+        self._totals: dict[str, list] = {}
+        self._lock = threading.Lock()
+        self.dropped = 0
+
+    def close(self, record: tuple):
+        """Log a closed span, given as the tuple of SpanRecord's fields."""
+        _, name, t0, t1, _, _, counts = record
+        with self._lock:
+            if len(self._ring) == self._ring.maxlen:
+                self.dropped += 1
+            self._ring.append(record)
+            total = self._totals.get(name)
+            if total is None:
+                total = self._totals[name] = [0, 0.0, {}]
+            total[0] += 1
+            total[1] += t1 - t0
+            summed = total[2]
+            for k, v in counts.items():
+                summed[k] = summed.get(k, 0) + v
+
+    def records(self) -> list[SpanRecord]:
+        with self._lock:
+            return [SpanRecord(*r[:6], dict(r[6])) for r in self._ring]
+
+    def totals(self) -> dict:
+        with self._lock:
+            return {name: [n, s, dict(c)] for name, (n, s, c) in self._totals.items()}
+
+
+_LOG = SpanLog()
+_SPAN_IDS = itertools.count(1)
+_TRACE_IDS = itertools.count(1)
+
+
+class _ThreadSpans(threading.local):
+    """A thread's open spans, innermost last, its active trace id and its
+    active BlockTimer."""
+
+    def __init__(self):
+        self.open: list[span] = []
+        self.trace: int | None = None
+        self.timer: BlockTimer | None = None
+
+
+_THREAD = _ThreadSpans()
+
+
+class span:
+    """A span named `<layer>/<phase>`, entered with `with`; `host=True`
+    where the region enqueues nothing on the card (then mirrored to an
+    open profiler window). See the module's docstring."""
+
+    __slots__ = ("name", "host", "counts", "id", "parent", "trace", "t0", "_mirror")
+
+    def __init__(self, name: str, *, host: bool = False):
+        self.name, self.host, self.counts = name, host, {}
+        self._mirror = None
+
+    def add(self, **counts) -> span:
+        """Add to the span's counts (summed into its name's totals when
+        it closes)."""
+        mine = self.counts
+        for k, v in counts.items():
+            mine[k] = mine.get(k, 0) + v
+        return self
+
+    def __enter__(self) -> span:
+        thread = _THREAD
+        if thread.open:
+            outer = thread.open[-1]
+            self.parent, self.trace = outer.id, outer.trace
+        else:
+            self.parent = None
+            self.trace = thread.trace if thread.trace is not None else next(_TRACE_IDS)
+        self.id = next(_SPAN_IDS)
+        thread.open.append(self)
+        if self.host and _autograd_profiler._is_profiler_enabled:
+            self._mirror = record_function(self.name)
+            self._mirror.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self._mirror is not None:
+            self._mirror.__exit__(*exc)
+            self._mirror = None
+        _THREAD.open.remove(self)
+        _LOG.close((self.id, self.name, self.t0, t1, self.parent, self.trace, self.counts))
+        return False
+
+
+def new_trace_id() -> int:
+    return next(_TRACE_IDS)
+
+
+@contextlib.contextmanager
+def trace(trace_id: int | None = None):
+    """A region whose spans share one trace id: `trace_id`, or a new one;
+    inside another trace region, that region's. Yields the id."""
+    thread = _THREAD
+    if thread.trace is not None:
+        yield thread.trace
+        return
+    thread.trace = new_trace_id() if trace_id is None else trace_id
+    try:
+        yield thread.trace
+    finally:
+        thread.trace = None
+
+
+def spans() -> list[SpanRecord]:
+    """The closed spans the ring holds, oldest first (a copy)."""
+    return _LOG.records()
+
+
+def spans_dropped() -> int:
+    """How many closed spans the ring has dropped."""
+    return _LOG.dropped
+
+
+def span_totals() -> dict:
+    """Every span name's [count, seconds, counts summed] since the process
+    started (a copy)."""
+    return _LOG.totals()
+
+
+class BlockTimer:
+    """The device time of a loop's blocks, from reused CUDA events on the
+    device's current stream. `with timer:` around a block's enqueue records
+    its start before the first enqueue and its stop after its last kernel.
+    A runner that works on the host before its first kernel launch
+    (FusedEnsemble: drawing the block's randomness and laying it out, while
+    the card idles) calls `first_launch()` just before that launch, which
+    records the start there instead; once a runner has done so, the timer
+    records no start at the enqueue. Once the block's own host
+    synchronisation has passed, `read()` (which adds none) gives
+    `device_s`, the block's span on the device from start to stop, and
+    `gap_s`, the device's time from the previous block's stop to this
+    block's start (absent for the first block). So for such a runner the
+    device work before its mark (the draws and their layout) and the copies
+    to the host after the stop fall in `gap_s`, not in `device_s`. On a CPU
+    device it records nothing and reads {}."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self._events = None
+        self._has_last = False
+        self._marked = False      # the runner calls first_launch()
+        if device.type == "cuda":
+            self._stream = torch.cuda.current_stream(device)
+            # start, stop, and the previous block's stop
+            self._events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+
+    def __enter__(self) -> BlockTimer:
+        if self._events is not None:
+            if not self._marked:
+                self._events[0].record(self._stream)
+            _THREAD.timer = self
+        return self
+
+    def __exit__(self, *exc):
+        _THREAD.timer = None
+        if self._events is not None and exc[0] is None:
+            self._events[1].record(self._stream)
+        return False
+
+    def read(self) -> dict:
+        if self._events is None:
+            return {}
+        start, stop, last_stop = self._events
+        out = {"device_s": start.elapsed_time(stop) * 1e-3}
+        if self._has_last:
+            out["gap_s"] = last_stop.elapsed_time(start) * 1e-3
+        self._events[1], self._events[2] = last_stop, stop
+        self._has_last = True
+        return out
+
+
+def first_launch():
+    """Called by a runner just before its first kernel launch of a block:
+    the thread's active BlockTimer, if any, moves the block's start here."""
+    timer = _THREAD.timer
+    if timer is not None:
+        timer._events[0].record(timer._stream)
+        timer._marked = True
+
+
+# -- the fit's measurement -----------------------------------------------------
+
 class Throughput:
     """Measure walker-steps per second over the regions it wraps, and the
     kernel launches made in them (`launches`: entry name -> count, the
     entries launched at least once); set-up before the sampling is timed
-    apart (`setup`)."""
+    apart (`setup`). `span_counts()` sums by name the spans closed since it
+    was made (a fit makes it as its set-up begins); `trace_id` is the id the
+    fit's spans share (`trace(throughput.trace_id)`)."""
 
     def __init__(self):
         self._t0 = None
@@ -52,6 +301,8 @@ class Throughput:
         self.setup_s = 0.0
         self.walker_steps = 0
         self.launches = {}
+        self.trace_id = new_trace_id()
+        self._spans0 = span_totals()
 
     def __enter__(self):
         self._launches0 = kernel_launches()
@@ -90,12 +341,28 @@ class Throughput:
     def walker_steps_per_sec(self) -> float:
         return self.walker_steps / self.elapsed if self.elapsed else 0.0
 
+    def span_counts(self) -> dict:
+        """Span name -> {count, seconds, counts} of the spans closed since
+        this Throughput was made."""
+        out = {}
+        for name, (n, s, counts) in span_totals().items():
+            n0, s0, counts0 = self._spans0.get(name, (0, 0.0, {}))
+            if n != n0:
+                out[name] = {"count": n - n0, "seconds": s - s0,
+                             "counts": {k: v - counts0.get(k, 0) for k, v in counts.items()
+                                        if v != counts0.get(k, 0)}}
+        return out
+
     def summary(self) -> dict:
+        spans_ = self.span_counts()
+        timed = [v["counts"]["device_s"] for v in spans_.values() if "device_s" in v["counts"]]
         return {"walker_steps": self.walker_steps,
                 "elapsed_s": self.elapsed,
                 "walker_steps_per_sec": self.walker_steps_per_sec,
                 "setup_s": self.setup_s,
-                "launches": dict(self.launches)}
+                "launches": dict(self.launches),
+                "spans": spans_,
+                "device_busy_s": sum(timed) if timed else None}
 
     def save(self, path: str, **extra):
         """Persist the measurement (plus `extra` keys, e.g. the device)

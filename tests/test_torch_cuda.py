@@ -593,3 +593,46 @@ def test_dense_block_metropolis_launches_k4a_once_a_batch(dense_cases):
     counts = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
     assert counts == {"opacity_block": 2 * 32 + 64 + 1}, counts
     assert torch.isfinite(chain).all() and 0.0 < acc < 1.0
+
+
+def test_block_timer_spans_a_block_from_its_first_launch():
+    """utils/metrics.py:BlockTimer on the card: a block's device_s runs from
+    first_launch() (not from the host's work before it, when the card
+    idles) to its last kernel; gap_s from the previous block's last kernel
+    to that launch; a block whose runner marks no launch starts at its
+    first enqueue."""
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA events run only on the card")
+    from cha1_mcmc_tpu_torch.utils.metrics import BlockTimer, first_launch
+
+    cycles = 20_000_000            # ~10 ms at the H100's 1.98 GHz
+    ref = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda._sleep(1000)
+    ref[0].record()
+    torch.cuda._sleep(cycles)
+    ref[1].record()
+    torch.cuda.synchronize()
+    kernel_s = ref[0].elapsed_time(ref[1]) * 1e-3
+    def blocks(marked: bool) -> list[dict]:
+        timer, reads = BlockTimer("cuda"), []
+        for _ in range(3):
+            time.sleep(0.01)       # the host between blocks
+            with timer:
+                time.sleep(0.02)   # the host's preparation, the card idle
+                if marked:
+                    first_launch()
+                torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
+            reads.append(timer.read())
+        assert "gap_s" not in reads[0] and all("gap_s" in r for r in reads[1:])
+        return reads
+
+    for r in blocks(marked=True):
+        assert abs(r["device_s"] - kernel_s) < 0.2 * kernel_s + 1e-3, (r, kernel_s)
+        assert r.get("gap_s", 0.03) > 0.025, r    # 10 ms between + 20 ms before the launch
+    for r in blocks(marked=False):
+        assert r["device_s"] > kernel_s + 0.015, (r, kernel_s)
+        assert 0.005 < r.get("gap_s", 0.01) < 0.02, r
+    first_launch()                 # outside a timed block: nothing to move
