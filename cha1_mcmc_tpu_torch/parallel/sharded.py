@@ -408,6 +408,11 @@ class ShardedEnsembleSampler(EnsembleSampler):
     gather_plan: object = None
     use_fused_multi: bool = False
 
+    #: One block in flight: the runner waits on the host every half-step,
+    #: so there is nothing to overlap, and the sidecar's generator states
+    #: are gathered collectively after each block.
+    queue_ahead = 0
+
     def __post_init__(self):
         if self.mesh is None or self.model is None:
             raise ValueError("ShardedEnsembleSampler requires mesh and model")
@@ -472,9 +477,12 @@ class ShardedEnsembleSampler(EnsembleSampler):
         chain, lnps, acc = self.thin(chain, lnps, acc, thin)
         return chain, lnps, acc, final
 
-    def _rng_sidecar(self, generator, counted) -> dict:
+    def _rng_state(self, generator) -> torch.Tensor:
+        return self.shard_generator(generator).get_state()
+
+    def _rng_sidecar(self, state, counted) -> dict:
         # collective: every rank's shard generator state, in rank order
-        state = self.shard_generator(generator).get_state().to(self.mesh.device)
+        state = state.to(self.mesh.device)
         return dict(rng_states=to_host(_all_gather(state[None], None), counted))
 
     def _rng_restore(self, state, state_path: str):

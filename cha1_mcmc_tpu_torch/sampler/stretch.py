@@ -35,6 +35,7 @@ one bitwise; any other error propagates at once.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -44,7 +45,7 @@ import torch
 
 from cha1_mcmc_tpu_torch.sampler.chain import last_position
 from cha1_mcmc_tpu_torch.utils.device import DEFAULT_DEVICE, DEVICE_ERRORS, resolve_device
-from cha1_mcmc_tpu_torch.utils.metrics import BlockTimer, span, trace
+from cha1_mcmc_tpu_torch.utils.metrics import BlockTimer, innermost_span, span, trace
 
 __all__ = ["draw_randomness", "draw_chain_randomness", "run_ensemble",
            "run_ensemble_chains", "half_step", "EnsembleSampler", "MultiChainSampler",
@@ -203,6 +204,70 @@ def to_host(tensor: torch.Tensor, counted: span) -> np.ndarray:
     return out
 
 
+class HostCopies:
+    """The copies of run_mcmc's blocks to the host, queued with a block and
+    waited on once it is due (`queue`, then `wait`).
+
+    On a CUDA device a block's tensors are copied as the block is queued,
+    without blocking, into pinned host buffers of their shape (a transposed
+    view is made contiguous on the card, not on the host), and an event is
+    recorded after them; `wait` is one host synchronisation, on that event,
+    then one memcpy a buffer out of the pinned memory. Two sets of buffers,
+    made at the first block of a call and reused, serve the two blocks in
+    flight in turn: a set is copied out before it is queued into again. On
+    the CPU `wait` makes to_host's copies, one synchronisation each."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self._cuda = device.type == "cuda"
+        self._sets = ({}, {})
+        self._next = 0
+        if self._cuda:
+            self._stream = torch.cuda.current_stream(device)
+            self._events = (torch.cuda.Event(), torch.cuda.Event())
+
+    def queue(self, tensors: dict):
+        """Queue the copies of `tensors` (name -> tensor, in the layout the
+        host keeps); returns what `wait` takes. The tensors are referenced
+        until then."""
+        if not self._cuda:
+            return tensors
+        i, self._next = self._next, 1 - self._next
+        buffers, pinned = self._sets[i], {}
+        for name, t in tensors.items():
+            buf = buffers.get(name)
+            if buf is None or buf.dtype != t.dtype or buf.numel() < t.numel():
+                buf = buffers[name] = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+            pinned[name] = buf[:t.numel()].view(t.shape)
+            pinned[name].copy_(t, non_blocking=True)
+        self._events[i].record(self._stream)
+        return i, pinned, tensors
+
+    def wait(self, queued, counted: span) -> dict:
+        """Wait for copies `queue` made; returns name -> C-contiguous host
+        array, counting the synchronisations and bytes on `counted`."""
+        if not self._cuda:
+            return {name: to_host(t.contiguous(), counted) for name, t in queued.items()}
+        i, pinned, _ = queued
+        self._events[i].synchronize()
+        counted.add(syncs=1, d2h_bytes=sum(t.nbytes for t in pinned.values()))
+        return {name: t.numpy().copy() for name, t in pinned.items()}
+
+
+class _Block:
+    """A block of run_mcmc queued on the device and not yet recorded: its
+    first step and length, its `sampler/block` span, the generator state
+    before its draws (`saved`) and after them (`rng`, for the sidecar),
+    where it started and ended, and its queued copies."""
+
+    __slots__ = ("start", "nsteps", "span", "saved", "rng", "pos0", "lnp0", "final", "copies")
+
+    def __init__(self, start, nsteps, blk, saved, pos0, lnp0):
+        self.start, self.nsteps, self.span, self.saved = start, nsteps, blk, saved
+        self.pos0, self.lnp0 = pos0, lnp0
+        self.rng = self.final = self.copies = None
+
+
 @dataclasses.dataclass
 class EnsembleSampler:
     """Stateful wrapper with the reference chain-file contract.
@@ -224,6 +289,9 @@ class EnsembleSampler:
     # keyword-only: JAX's next positional is its vmap switch `batched`
     _: dataclasses.KW_ONLY
     device: torch.device | str = DEFAULT_DEVICE
+
+    #: Blocks run_mcmc queues on the device beyond the one it waits on.
+    queue_ahead = 1
 
     def __post_init__(self):
         self.device = resolve_device(self.device, type(self).__name__)
@@ -313,65 +381,124 @@ class EnsembleSampler:
         run bitwise. `lnp0` (from load_state) continues with the saved lnp
         rather than recomputing it.
 
+        Blocks run one ahead (`queue_ahead`): block b + 1 is queued on the
+        device, from block b's final state, before the host waits for block
+        b's copies, so the card runs it while the host records block b and
+        writes its checkpoint. The draws come from `generator` in block
+        order all the same, and the sidecar written after block b holds the
+        generator state as it was right after block b's draws.
+
         A block that raises a device error (DEVICE_ERRORS: a kernel
-        wrapper's DeviceError or torch's AcceleratorError, surfaced at the
-        latest by the block's copy to the host) is run again on the same
-        path from the generator state saved before it, up to `max_retries`
-        times, so a recovered chain equals an unfaulted one bitwise; then
-        the error is raised. Shape, type and value errors propagate at
-        once. A fault that poisons the CUDA context fails again and is
-        raised.
+        wrapper's DeviceError or torch's AcceleratorError, raised as it is
+        queued or, at the latest, at the wait for its copies) is run again
+        on the same path from the generator state saved before it, up to
+        `max_retries` times a block, so a recovered chain equals an
+        unfaulted one bitwise; then the error is raised, the chain file
+        holding the blocks before it. A block queued behind a faulted one
+        is thrown away and queued again after it; a fault met while queuing
+        the next block leaves the block before it to be recorded first.
+        Shape, type and value errors propagate at once. A fault that
+        poisons the CUDA context fails again and is raised.
         """
         pos = torch.as_tensor(pos, dtype=self.dtype, device=self.device)
         lnp = (self.lnp0(pos) if lnp0 is None
                else torch.as_tensor(lnp0, dtype=self.dtype, device=self.device))
-        timer = BlockTimer(self.device)
-        done = 0
-        while done < nsteps:
-            block = min(checkpoint_every, nsteps - done)
-            with span("sampler/block") as blk:
-                saved = generator.get_state()
-                for attempt in range(max_retries + 1):
+        timer, copies = BlockTimer(self.device), HostCopies(self.device)
+        outer = innermost_span()
+        open_spans: dict[int, span] = {}        # first step -> its sampler/block span
+        faults = collections.Counter()          # first step -> device errors met
+        queue: collections.deque[_Block] = collections.deque()
+        queued = done = 0
+        try:
+            while done < nsteps:
+                while queued < nsteps and len(queue) <= self.queue_ahead:
+                    n = min(checkpoint_every, nsteps - queued)
+                    if queued not in open_spans:
+                        open_spans[queued] = span("sampler/block", parent=outer).__enter__()
+                    block = _Block(queued, n, open_spans[queued], generator.get_state(),
+                                   pos, lnp)
                     try:
-                        with timer, span("sampler/enqueue"):
-                            chain, lnps, accepted, (new_pos, new_lnp) = self._run_block(
-                                pos, lnp, generator, block, thin)
-                        with span("sampler/fetch"):
-                            # a fault in the block surfaces at the first copy
-                            chain_host = to_host(chain, blk)
-                            lnps_host = to_host(lnps, blk)
-                            n_accepted = int(to_host(accepted.sum(), blk))
-                        break
+                        self._queue_block(block, generator, thin, timer, copies,
+                                          chain_file is not None)
                     except DEVICE_ERRORS:
-                        if attempt == max_retries:
+                        if not self._retry(faults, block, max_retries):
                             raise
-                        logger.warning("device error in the MCMC block at step %d; running "
-                                       "it again from its saved random state (%d/%d)",
-                                       done, attempt + 1, max_retries)
-                        generator.set_state(saved)
-                blk.add(**timer.read())
-                pos, lnp = new_pos, new_lnp
-                with span("sampler/record", host=True):
-                    # device (K, W, D) -> emcee layout (W, K, D)
-                    self._chain_blocks.append(chain_host.transpose(1, 0, 2))
-                    self._lnp_blocks.append(lnps_host.T)
-                    self.accepted += n_accepted
-                    self.total_proposals += block * thin * self.nwalkers
-                    done += block
+                        generator.set_state(block.saved)
+                        if queue:
+                            break           # the blocks before it go first
+                        continue
+                    queue.append(block)
+                    pos, lnp = block.final
+                    queued += n
+                block = queue.popleft()
+                try:
+                    with span("sampler/fetch", parent=block.span):
+                        host = copies.wait(block.copies, block.span)
+                except DEVICE_ERRORS:
+                    if not self._retry(faults, block, max_retries):
+                        raise
+                    timer.drop()            # the blocks behind it are thrown away
+                    queue.clear()
+                    generator.set_state(block.saved)
+                    pos, lnp, queued = block.pos0, block.lnp0, block.start
+                    continue
+                block.span.add(ahead=int(bool(queue) and not faults[block.start]),
+                               **timer.read())
+                with span("sampler/record", host=True, parent=block.span):
+                    self._chain_blocks.append(host["chain"])
+                    self._lnp_blocks.append(host["lnps"])
+                    self.accepted += int(host["accepted"])
+                    self.total_proposals += block.nsteps * thin * self.nwalkers
+                    done += block.nsteps
                 if chain_file is not None:
-                    rng = self._rng_sidecar(generator, blk)
+                    rng = self._rng_sidecar(block.rng, block.span)
                     if self.writes_files:
-                        state = dict(pos=to_host(pos, blk), lnp=to_host(lnp, blk))
-                        self._save_checkpoint(chain_file, state, rng)
-            if progress:
-                print(f"MCMC sampling: {done}/{nsteps} steps "
-                      f"(acceptance {self.acceptance_fraction:.3f})", flush=True)
+                        self._save_checkpoint(chain_file, dict(pos=host["pos"], lnp=host["lnp"]),
+                                              rng, block.span)
+                open_spans.pop(block.start).__exit__(None, None, None)
+                if progress:
+                    print(f"MCMC sampling: {done}/{nsteps} steps "
+                          f"(acceptance {self.acceptance_fraction:.3f})", flush=True)
+        finally:
+            for blk in open_spans.values():     # the blocks an error left open
+                blk.__exit__(None, None, None)
         return pos.cpu().numpy(), lnp.cpu().numpy()
 
-    def _save_checkpoint(self, chain_file: str, state: dict, rng: dict):
+    def _queue_block(self, block: _Block, generator, thin: int, timer: BlockTimer,
+                     copies: HostCopies, sidecar: bool):
+        """Queue `block` on the device and its copies to the host: the
+        chain and lnps in the emcee layout ((W, K, D), (W, K)), the
+        accepted count, and the final positions and lnprob where a
+        sidecar is written. Records in `block` its final state, its copies
+        and, for a sidecar, the generator state after its draws."""
+        with span("sampler/enqueue", parent=block.span):
+            with timer:
+                chain, lnps, accepted, block.final = self._run_block(
+                    block.pos0, block.lnp0, generator, block.nsteps, thin)
+            if sidecar:
+                block.rng = self._rng_state(generator)
+            tensors = dict(chain=chain.transpose(0, 1), lnps=lnps.transpose(0, 1),
+                           accepted=accepted.sum())
+            if sidecar and self.writes_files:
+                tensors.update(pos=block.final[0], lnp=block.final[1])
+            block.copies = copies.queue(tensors)
+
+    @staticmethod
+    def _retry(faults: collections.Counter, block: _Block, max_retries: int) -> bool:
+        """Count a device error met by `block`; whether it may run again."""
+        faults[block.start] += 1
+        if faults[block.start] > max_retries:
+            return False
+        logger.warning("device error in the MCMC block at step %d; running it again from "
+                       "its saved random state (%d/%d)", block.start, faults[block.start],
+                       max_retries)
+        return True
+
+    def _save_checkpoint(self, chain_file: str, state: dict, rng: dict, blk: span):
         """Write the cumulative chain and the sidecar (`state`: the block's
-        last positions and lnprob on the host; `rng`: _rng_sidecar's)."""
-        with span("sampler/checkpoint", host=True) as ckpt:
+        last positions and lnprob on the host; `rng`: _rng_sidecar's),
+        under the block's span `blk`."""
+        with span("sampler/checkpoint", host=True, parent=blk) as ckpt:
             np.save(chain_file, self.chain)
             np.savez(_state_path(chain_file), **state, accepted=self.accepted,
                      total_proposals=self.total_proposals, package=PACKAGE_TAG, **rng)
@@ -408,10 +535,16 @@ class EnsembleSampler:
         """Whether this process writes the chain and the sidecar."""
         return True
 
-    def _rng_sidecar(self, generator, counted: span) -> dict:
-        """The sidecar's random-state fields (a copy from the device is
-        counted on `counted`, as to_host counts it)."""
-        return dict(rng_state=generator.get_state().numpy())
+    def _rng_state(self, generator) -> torch.Tensor:
+        """The state to continue from after a block, taken right after the
+        block's draws."""
+        return generator.get_state()
+
+    def _rng_sidecar(self, state: torch.Tensor, counted: span) -> dict:
+        """The sidecar's random-state fields from `_rng_state`'s `state` (a
+        copy from the device is counted on `counted`, as to_host counts
+        it)."""
+        return dict(rng_state=state.numpy())
 
     def _rng_restore(self, state, state_path: str):
         """The generator state to continue with, from a loaded sidecar."""

@@ -42,8 +42,9 @@ from torch.autograd import profiler as _autograd_profiler
 from torch.autograd.profiler import record_function
 
 __all__ = ["BlockTimer", "SpanLog", "SpanRecord", "Throughput", "first_launch",
-           "kernel_launches", "launch_counters", "new_trace_id", "register_launches", "span",
-           "span_totals", "spans", "spans_dropped", "trace", "trace_profile"]
+           "innermost_span", "kernel_launches", "launch_counters", "new_trace_id",
+           "register_launches", "span", "span_totals", "spans", "spans_dropped", "trace",
+           "trace_profile"]
 
 #: The LAUNCHES dict of every kernel module imported so far, each
 #: registered by its module (register_launches).
@@ -143,16 +144,25 @@ class _ThreadSpans(threading.local):
 _THREAD = _ThreadSpans()
 
 
+#: span's default `parent`: the innermost span open on the thread.
+_INNERMOST = object()
+
+
 class span:
     """A span named `<layer>/<phase>`, entered with `with`; `host=True`
     where the region enqueues nothing on the card (then mirrored to an
-    open profiler window). See the module's docstring."""
+    open profiler window). Its parent is the innermost span open on the
+    thread, or `parent` where given (a span, or None for none): spans that
+    overlap in time without nesting, such as the blocks of a pipelined
+    loop, name theirs. See the module's docstring."""
 
-    __slots__ = ("name", "host", "counts", "id", "parent", "trace", "t0", "_mirror")
+    __slots__ = ("name", "host", "counts", "id", "parent", "trace", "t0", "_mirror",
+                 "_outer")
 
-    def __init__(self, name: str, *, host: bool = False):
+    def __init__(self, name: str, *, host: bool = False, parent=_INNERMOST):
         self.name, self.host, self.counts = name, host, {}
         self._mirror = None
+        self._outer = parent
 
     def add(self, **counts) -> span:
         """Add to the span's counts (summed into its name's totals when
@@ -164,8 +174,10 @@ class span:
 
     def __enter__(self) -> span:
         thread = _THREAD
-        if thread.open:
-            outer = thread.open[-1]
+        outer = self._outer
+        if outer is _INNERMOST:
+            outer = innermost_span()
+        if outer is not None:
             self.parent, self.trace = outer.id, outer.trace
         else:
             self.parent = None
@@ -186,6 +198,11 @@ class span:
         _THREAD.open.remove(self)
         _LOG.close((self.id, self.name, self.t0, t1, self.parent, self.trace, self.counts))
         return False
+
+
+def innermost_span() -> span | None:
+    """The innermost span open on this thread, or None."""
+    return _THREAD.open[-1] if _THREAD.open else None
 
 
 def new_trace_id() -> int:
@@ -231,48 +248,67 @@ class BlockTimer:
     (FusedEnsemble: drawing the block's randomness and laying it out, while
     the card idles) calls `first_launch()` just before that launch, which
     records the start there instead; once a runner has done so, the timer
-    records no start at the enqueue. Once the block's own host
-    synchronisation has passed, `read()` (which adds none) gives
-    `device_s`, the block's span on the device from start to stop, and
-    `gap_s`, the device's time from the previous block's stop to this
-    block's start (absent for the first block). So for such a runner the
-    device work before its mark (the draws and their layout) and the copies
-    to the host after the stop fall in `gap_s`, not in `device_s`. On a CPU
-    device it records nothing and reads {}."""
+    records no start at the enqueue. Each block queued keeps a start and a
+    stop event of its own until it is read, so a loop may queue the next
+    block before it waits on this one. Once a block's own host
+    synchronisation has passed, `read()` (which adds none) gives, for the
+    oldest block not yet read, `device_s`, its span on the device from
+    start to stop, and `gap_s`, the device's time from the previous block's
+    stop to this block's start (absent for the first block). So for such a
+    runner the device work before its mark (the draws and their layout) and
+    the copies to the host after the stop fall in `gap_s`, not in
+    `device_s`. A block whose enqueue raised keeps no events; `drop()`
+    forgets the queued blocks not yet read (a loop that throws them away).
+    On a CPU device it records nothing and reads {}."""
 
     def __init__(self, device):
         device = torch.device(device)
-        self._events = None
-        self._has_last = False
-        self._marked = False      # the runner calls first_launch()
-        if device.type == "cuda":
+        self._cuda = device.type == "cuda"
+        self._queued = collections.deque()   # (start, stop) of each block not yet read
+        self._free = []                       # event pairs to reuse
+        self._last = None                     # the last block read's pair
+        self._marked = False                  # the runner calls first_launch()
+        if self._cuda:
             self._stream = torch.cuda.current_stream(device)
-            # start, stop, and the previous block's stop
-            self._events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
 
     def __enter__(self) -> BlockTimer:
-        if self._events is not None:
+        if self._cuda:
+            pair = self._free.pop() if self._free else tuple(
+                torch.cuda.Event(enable_timing=True) for _ in range(2))
+            self._queued.append(pair)
             if not self._marked:
-                self._events[0].record(self._stream)
+                pair[0].record(self._stream)
             _THREAD.timer = self
         return self
 
     def __exit__(self, *exc):
         _THREAD.timer = None
-        if self._events is not None and exc[0] is None:
-            self._events[1].record(self._stream)
+        if self._cuda:
+            if exc[0] is None:
+                self._queued[-1][1].record(self._stream)
+            else:
+                self._free.append(self._queued.pop())
         return False
 
+    def _first_launch(self):
+        self._queued[-1][0].record(self._stream)
+        self._marked = True
+
     def read(self) -> dict:
-        if self._events is None:
+        if not self._cuda:
             return {}
-        start, stop, last_stop = self._events
+        start, stop = pair = self._queued.popleft()
         out = {"device_s": start.elapsed_time(stop) * 1e-3}
-        if self._has_last:
-            out["gap_s"] = last_stop.elapsed_time(start) * 1e-3
-        self._events[1], self._events[2] = last_stop, stop
-        self._has_last = True
+        if self._last is not None:
+            out["gap_s"] = self._last[1].elapsed_time(start) * 1e-3
+            self._free.append(self._last)
+        self._last = pair
         return out
+
+    def drop(self):
+        """Forget the blocks queued and not yet read."""
+        self._free.extend(self._queued)
+        self._queued.clear()
 
 
 def first_launch():
@@ -280,8 +316,7 @@ def first_launch():
     the thread's active BlockTimer, if any, moves the block's start here."""
     timer = _THREAD.timer
     if timer is not None:
-        timer._events[0].record(timer._stream)
-        timer._marked = True
+        timer._first_launch()
 
 
 # -- the fit's measurement -----------------------------------------------------

@@ -37,7 +37,10 @@ launched over the same chains (chains and acceptances bitwise, lnps rtol
 grid_chi2 in f64 equal to the CPU call (625 flagship points, rtol 1e-12),
 run_adaptive_metropolis in f64 bitwise equal to the CPU run on the same
 injected draws, and the dense Metropolis through the K4a block lnprob
-launching K4a once a proposal batch. Every test here needs a CUDA device and nvcc, and skips without
+launching K4a once a proposal batch. The sampler's block loop on the card:
+FusedEnsembleSampler.run_mcmc one block ahead through K1 and K3, bitwise
+against the same blocks run one at a time, one host synchronisation a
+block; BlockTimer's device time. Every test here needs a CUDA device and nvcc, and skips without
 them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -593,6 +596,72 @@ def test_dense_block_metropolis_launches_k4a_once_a_batch(dense_cases):
     counts = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
     assert counts == {"opacity_block": 2 * 32 + 64 + 1}, counts
     assert torch.isfinite(chain).all() and 0.0 < acc < 1.0
+
+
+@pytest.mark.parametrize("kind", ["K1", "K3"])
+def test_run_mcmc_one_block_ahead_equals_blocks_run_one_at_a_time(cuda_cases, dense_cases,
+                                                                 kind, tmp_path):
+    """FusedEnsembleSampler.run_mcmc queues block b + 1 before it waits on
+    block b's copies, which go to pinned host buffers: over 4 blocks (three
+    of 32 steps, one of 16) through K1 and through K3, its chain, its
+    lnprobability, its acceptance and the checkpoint equal bitwise the same
+    blocks run one at a time through run_fn from the same generator; the
+    chain is C-contiguous; each block counts one host synchronisation,
+    `ahead` 1 but the last, and its device time."""
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsemble, FusedEnsembleSampler
+    from cha1_mcmc_tpu_torch.sampler.fused_gather import GatherFusedEnsemble
+    from cha1_mcmc_tpu_torch.utils import metrics
+
+    import chip_smoke
+
+    if kind == "K1":
+        case = cuda_cases["analytic-4d"]
+        (st, tb), _ = chip_smoke.flagship_tables(case)
+        run = FusedEnsemble(tb, st)
+        pos0 = chip_smoke.flagship_pos0(case[3].ndim, dtype=torch.float32)
+    else:
+        case = dense_cases["cheb-split-4d"]
+        _, (st, tb), _, plans = chip_smoke.dense_tables(case)
+        run = GatherFusedEnsemble(tb, st, plans[torch.float32])
+        pos0 = chip_smoke.dense_pos0(case).to(torch.float32)
+    W, D = pos0.shape
+    sizes = [32, 32, 32, 16]
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2 ** 33 + 17)
+    pos, lnp, chains, lnpss, accepted = pos0, run.lnprob(pos0), [], [], 0
+    for n in sizes:
+        chain, lnps, acc, (pos, lnp) = run(pos, lnp, n, 16, generator=gen)
+        chains.append(chain.transpose(0, 1).cpu().numpy())
+        lnpss.append(lnps.transpose(0, 1).cpu().numpy())
+        accepted += int(acc.sum())
+    rng_after = gen.get_state().numpy()
+
+    sampler = FusedEnsembleSampler(lnprob_fn=None, nwalkers=W, ndim=D, dtype=torch.float32,
+                                   device="cuda", run_fn=run, k_steps=16)
+    gen.manual_seed(2 ** 33 + 17)
+    chain_file = str(tmp_path / "chain.npy")
+    with metrics.span("test/run_mcmc") as caller:
+        final = sampler.run_mcmc(pos0, sum(sizes), gen, checkpoint_every=32,
+                                 chain_file=chain_file)
+    assert sampler.chain.flags.c_contiguous and sampler.chain.shape == (W, sum(sizes), D)
+    np.testing.assert_array_equal(sampler.chain, np.concatenate(chains, axis=1))
+    np.testing.assert_array_equal(sampler.lnprobability, np.concatenate(lnpss, axis=1))
+    assert sampler.accepted == accepted > 0
+    np.testing.assert_array_equal(np.load(chain_file), sampler.chain)
+    side = np.load(str(tmp_path / "chain.state.npz"))
+    np.testing.assert_array_equal(side["pos"], pos.cpu().numpy())
+    np.testing.assert_array_equal(side["lnp"], lnp.cpu().numpy())
+    np.testing.assert_array_equal(side["rng_state"], rng_after)
+    np.testing.assert_array_equal(final[0], pos.cpu().numpy())
+
+    blocks = [r for r in metrics.spans() if r.name == "sampler/block" and r.parent == caller.id]
+    assert [b.counts["syncs"] for b in blocks] == [1, 1, 1, 1]
+    assert [b.counts["ahead"] for b in blocks] == [1, 1, 1, 0]
+    for b, n in zip(blocks, sizes):          # chain, lnps, the float32 sum, pos, lnp
+        assert b.counts["d2h_bytes"] == 4 * (n * W * D + n * W + 1 + W * D + W)
+        assert b.counts["device_s"] > 0.0
+    assert all(b.counts["gap_s"] >= 0.0 for b in blocks[1:])
 
 
 def test_block_timer_spans_a_block_from_its_first_launch():

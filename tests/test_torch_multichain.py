@@ -483,6 +483,45 @@ def test_device_error_is_retried_with_the_same_randomness(k1_run, tmp_path, kind
         np.testing.assert_array_equal(a[key], b[key])
 
 
+@pytest.mark.parametrize("error", ["DeviceError", "AcceleratorError"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_device_error_at_a_wait_throws_away_the_block_queued_behind(k1_run, tmp_path,
+                                                                    monkeypatch, kind, error):
+    """A device error that surfaces at the wait for block 1's copies, once,
+    while block 2 is queued behind it: block 2 is thrown away and both run
+    again from block 1's saved generator state, so the chain, the
+    lnprobability and the sidecar equal an unfaulted run's bitwise."""
+    from cha1_mcmc_tpu_torch.sampler.stretch import HostCopies
+    from cha1_mcmc_tpu_torch.utils import DeviceError
+
+    err = DeviceError("injected") if error == "DeviceError" else torch.AcceleratorError("x")
+    clean, clean_double, pos0 = _faulty_sampler(kind, k1_run)
+    _run_blocks(clean, pos0, str(tmp_path / "clean.npy"))
+    faulted, double, pos0 = _faulty_sampler(kind, k1_run)
+    real, calls_at_wait = HostCopies.wait, []
+
+    def wait(self, queued, counted):
+        calls_at_wait.append(double.calls)
+        if len(calls_at_wait) == 2:        # the wait for block 1
+            raise err
+        return real(self, queued, counted)
+
+    monkeypatch.setattr(HostCopies, "wait", wait)
+    _run_blocks(faulted, pos0, str(tmp_path / "faulted.npy"))
+    assert len(calls_at_wait) == 4             # blocks 0, 1, 1 again, 2
+    # at the fault all three blocks had been queued, block 2 behind block 1,
+    # and both ran again
+    assert calls_at_wait[1] == clean_double.calls < double.calls
+    np.testing.assert_array_equal(faulted.chain, clean.chain)
+    np.testing.assert_array_equal(faulted.lnprobability, clean.lnprobability)
+    np.testing.assert_array_equal(np.load(str(tmp_path / "faulted.npy")), clean.chain)
+    assert faulted.accepted == clean.accepted > 0
+    a, b = (np.load(str(tmp_path / f"{n}.state.npz")) for n in ("faulted", "clean"))
+    assert set(a.files) == set(b.files)
+    for key in a.files:
+        np.testing.assert_array_equal(a[key], b[key])
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_third_device_error_is_raised(k1_run, tmp_path, kind):
     """max_retries=2: a block that faults three times raises the third

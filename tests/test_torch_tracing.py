@@ -131,8 +131,8 @@ def test_run_mcmc_records_each_block_with_its_counts(log, tmp_path):
     blocks = [r for r in recs if r.name == "sampler/block"]
     assert len(blocks) == 4
     per_block = 16 * W * D * 8 + 16 * W * 8 + 8    # chain, lnps (f64), the int64 sum
-    for b in blocks:
-        assert b.counts == {"syncs": 3, "d2h_bytes": per_block}   # no device_s on the CPU
+    for b in blocks:   # no device_s on the CPU; the last block has no successor queued
+        assert b.counts == {"syncs": 3, "d2h_bytes": per_block, "ahead": int(b != blocks[-1])}
         kids = [r.name for r in recs if r.parent == b.id]
         assert kids == ["sampler/enqueue", "sampler/fetch", "sampler/record"]
     assert len({r.trace for r in recs}) == 1
@@ -152,6 +152,30 @@ def test_run_mcmc_records_each_block_with_its_counts(log, tmp_path):
     assert ckpt.parent == block.id
     assert ckpt.counts["bytes"] == (os.path.getsize(chain_file)
                                     + os.path.getsize(str(tmp_path / "chain.state.npz")))
+
+
+def test_each_block_but_the_last_runs_with_its_successor_queued(log, tmp_path):
+    """run_mcmc queues block b + 1 before it waits on block b: every block's
+    span but the last counts `ahead` 1, the next block's enqueue ends before
+    this block's fetch begins, and each block's enqueue, fetch, record and
+    checkpoint are children of its own span, though the blocks' spans
+    overlap; the blocks are children of the span run_mcmc was called in."""
+    with metrics.span("test/caller") as caller:
+        _gaussian_sampler().run_mcmc(_pos(), 64, torch.Generator().manual_seed(4),
+                                     checkpoint_every=16,
+                                     chain_file=str(tmp_path / "chain.npy"))
+    recs = metrics.spans()
+    blocks = [r for r in recs if r.name == "sampler/block"]
+    assert [b.counts["ahead"] for b in blocks] == [1, 1, 1, 0]
+    assert all(b.parent == caller.id and b.trace == caller.trace for b in blocks)
+    kids = {b.id: {r.name: r for r in recs if r.parent == b.id} for b in blocks}
+    for b in blocks:
+        assert list(kids[b.id]) == ["sampler/enqueue", "sampler/fetch", "sampler/record",
+                                    "sampler/checkpoint"]
+        assert all(b.t0 <= r.t0 <= r.t1 <= b.t1 for r in kids[b.id].values())
+    for b, after in zip(blocks, blocks[1:]):
+        assert kids[after.id]["sampler/enqueue"].t1 <= kids[b.id]["sampler/fetch"].t0
+        assert after.t0 < b.t1
 
 
 def test_syncs_are_the_copies_to_the_host_a_block_makes(log, monkeypatch, tmp_path):
