@@ -54,7 +54,7 @@ def calibrate(bench: Bench, cell: dict, seeds, seconds: float, control_seeds: in
             time_builds(config["kernel_sources"], device)
             first = drivers.Driver(traffic, fitkw, config, seeds[0], workdir, device)
             first.setup()
-        ref = check.Reference(fitkw, config["partition"], device)
+        ref = check.Reference(fitkw, config, device)
         a = fitkw.get("stretch_a", 2.0)
         for k, seed in enumerate(seeds):
             d = drivers.Driver(traffic, fitkw, config, seed, workdir, device)

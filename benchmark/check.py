@@ -20,14 +20,10 @@ the previous chain ended in.
 
 from __future__ import annotations
 
-import os
+import importlib
 
-import numpy as np
 import torch
 
-from benchmark.reference.catalog import parse_catalog
-from benchmark.reference.model import Posterior
-from benchmark.reference.reduction import reduce
 from benchmark.reference.stretch import Stream, control_step, follow
 
 #: What `judge` can put in the program's place: the reference in
@@ -41,27 +37,34 @@ def blocks_of(n: int, every: int) -> list[int]:
 
 
 class Reference:
-    """The reference's view of a configuration's problem: the catalog, the
-    reduction of the spectrum and the posterior, worked out from the
-    problem's files."""
+    """The reference's view of a configuration's problem: the posterior
+    that the configuration's reference module builds from the problem's
+    files (`"reference"`: benchmark/reference/<name>.py, whose
+    `build(fitkw, config, device, dtype)` returns it; default "model",
+    the single-component fit), with the catalog (`cat`) and the reduction
+    (`grid`) it was built from. `config` is the configuration; a Q(T)
+    alone (a `partition` entry, which has a `kind`; no configuration has
+    one) stands for a configuration of the default reference with that
+    partition."""
 
-    def __init__(self, fitkw: dict, partition: dict, device):
-        self.fitkw, self.device = fitkw, device
-        self.cat = parse_catalog(os.path.join(fitkw["cat_folder"],
-                                              fitkw["mol_name"] + ".cat"), partition)
-        data = np.load(fitkw["data_path"], allow_pickle=True)
-        f = fitkw
-        self.grid = reduce(self.cat, data, ll=f["lower_limit"], ul=f["upper_limit"],
-                           aligned_velocity=f["aligned_velocity"], dish_size=f["dish_size"],
-                           source_size=f["fixed_source_size"])
-        self.post = Posterior(self.cat, self.grid, fitkw, device=device)
+    def __init__(self, fitkw: dict, config: dict, device):
+        if "kind" in config:
+            config = {"partition": config}
+        self.fitkw, self.config, self.device = fitkw, config, device
+        self.build = importlib.import_module(
+            f"benchmark.reference.{config.get('reference', 'model')}").build
+        self.post = self.build(fitkw, config, device)
+        self.cat, self.grid = self.post.cat, self.post.grid
+        self._lower = None
 
-    def stand_in(self, kind: str) -> tuple[Posterior, bool]:
+    def stand_in(self, kind: str) -> tuple:
         """(posterior, whether the acceptance keeps (D - 1) ln z) of a
         STAND_INS entry."""
         if kind == "bfloat16":
-            return Posterior(self.cat, self.grid, self.fitkw, device=self.device,
-                             dtype=torch.bfloat16), True
+            if self._lower is None:
+                self._lower = self.build(self.fitkw, self.config, self.device,
+                                         dtype=torch.bfloat16)
+            return self._lower, True
         if kind == "no_lnz":
             return self.post, False
         raise ValueError(f"no stand-in {kind!r}: one of {STAND_INS}")

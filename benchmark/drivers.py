@@ -3,12 +3,21 @@ mix file under benchmark/traffic names (`"kind": "chain"`), driven
 through the program's public API in a closed loop (one user, the next
 chain once the last one is done).
 
-Set-up runs one short `SpectralFit(cfg).init_setup()` + `.fit(grid)` on
-the cell's configuration, then one chain of the window's length. The
+Set-up runs one short `fit_class(config(...)).init_setup()` + `.fit(grid)`
+on the cell's configuration, then one chain of the window's length. The
 window runs chains of `nsteps` steps in blocks of `block` through
 `run_mcmc` of a fresh sampler of the class and kernel the set-up fit
 chose, each starting from the state the previous one ended in; no chain
 file.
+
+The fit is the one the configuration names: `"fit_class"`, a name in
+cha1_mcmc_tpu_torch's `__all__` (default "SpectralFit"; or
+"MultiComponentFit"). Its configuration class is the one its
+constructor's `config` annotation names (FitConfig, MultiFitConfig: both
+take the same run fields), built from the fit's fields (the
+configuration's `fit` with the problem's files) and the traffic's
+walkers, block and seed; the fit exposes `.sampler` and reduces to a
+Datagrid.
 
 A chain in flight when the window closes is finished and counted. The
 work is fixed by the mix and the seed only orders the draws: every seed
@@ -20,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import typing
 
 import numpy as np
 import torch
@@ -35,6 +45,20 @@ def derive_seed(seed: int, *keys: int) -> int:
 def launches() -> dict:
     from cha1_mcmc_tpu_torch.utils.metrics import kernel_launches
     return kernel_launches()
+
+
+def fit_classes(config: dict):
+    """(fit class, its configuration class): the class of
+    cha1_mcmc_tpu_torch's public API that the configuration's
+    `fit_class` names (default "SpectralFit"), and the class its
+    constructor's `config` argument is annotated with."""
+    import cha1_mcmc_tpu_torch as program
+
+    name = config.get("fit_class", "SpectralFit")
+    if name not in program.__all__:
+        raise ValueError(f"fit_class {name!r} is not a name in cha1_mcmc_tpu_torch.__all__")
+    fit_class = getattr(program, name)
+    return fit_class, typing.get_type_hints(fit_class.__init__)["config"]
 
 
 class Driver:
@@ -59,17 +83,16 @@ class Driver:
                                "configuration's kernel path")
 
     def setup(self):
-        from cha1_mcmc_tpu_torch import FitConfig, SpectralFit
-
+        fit_class, config_class = fit_classes(self.config)
         if self.traffic["kind"] != "chain":
             raise ValueError(f"traffic kind {self.traffic['kind']!r}: the generator runs "
                              "\"chain\" only")
         before = launches()
         tr = self.traffic
-        cfg = FitConfig(**self.fitkw, nwalkers=tr["nwalkers"], nruns=tr["block"],
-                        checkpoint_every=tr["block"], seed=derive_seed(self.seed, 0),
-                        device=self.device, fit_folder=os.path.join(self.workdir, "fit"))
-        fit = SpectralFit(cfg)
+        cfg = config_class(**self.fitkw, nwalkers=tr["nwalkers"], nruns=tr["block"],
+                           checkpoint_every=tr["block"], seed=derive_seed(self.seed, 0),
+                           device=self.device, fit_folder=os.path.join(self.workdir, "fit"))
+        fit = fit_class(cfg)
         with record_function("bench/init_setup"):
             grid = fit.init_setup()
         with record_function("bench/fit"):

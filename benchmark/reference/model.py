@@ -20,14 +20,30 @@ float64 for the reference, bfloat16 for the lower-precision control.
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
-from benchmark.reference.catalog import KCM, Catalog
-from benchmark.reference.reduction import CKM, H, K, T_CMB, dilution
+from benchmark.reference.catalog import KCM, Catalog, parse_catalog
+from benchmark.reference.reduction import CKM, H, K, T_CMB, dilution, reduce
 
 CCM = 2.998e10
+
+
+def build(fitkw: dict, config: dict, device, dtype=torch.float64) -> "Posterior":
+    """The default reference of a configuration (see check.Reference): the
+    catalog parsed with the configuration's Q(T) (`partition`), the
+    spectrum reduced at the fit's fixed source size, and the posterior in
+    `dtype`."""
+    cat = parse_catalog(os.path.join(fitkw["cat_folder"], fitkw["mol_name"] + ".cat"),
+                        config["partition"])
+    data = np.load(fitkw["data_path"], allow_pickle=True)
+    f = fitkw
+    grid = reduce(cat, data, ll=f["lower_limit"], ul=f["upper_limit"],
+                  aligned_velocity=f["aligned_velocity"], dish_size=f["dish_size"],
+                  source_size=f["fixed_source_size"])
+    return Posterior(cat, grid, fitkw, device=device, dtype=dtype)
 
 
 class Posterior:
@@ -39,15 +55,33 @@ class Posterior:
     an lnprob or a decision wrong by several nats."""
 
     def __init__(self, cat: Catalog, grid, fit: dict, *, device, dtype=torch.float64):
+        self.bounds = {k: tuple(map(float, v)) for k, v in fit["bounds"].items()}
+        t = self._lines_and_channels(cat, grid, fit, offset=fit["aligned_velocity"],
+                                     center=fit["aligned_velocity"],
+                                     dv_max=self.bounds["dV"][1], device=device, dtype=dtype)
+        self.chan_dil = t(dilution(grid[0], fit["fixed_source_size"], fit["dish_size"]))
+        means, stds = fit["template_means"], fit["template_stds"]
+        if len(means) == 5:      # a fixed source size drops the first entry
+            means, stds = means[1:], stds[1:]
+        _, m_tex, m_vlsr, m_dv = means
+        self.gauss = [(1, m_tex, stds[1]), (2, m_vlsr, 0.8 * m_dv), (3, m_dv, 0.3 * m_dv)]
+
+    def _lines_and_channels(self, cat: Catalog, grid, fit: dict, *, offset, center, dv_max,
+                            device, dtype):
+        """Set what every posterior here holds of the covered lines and the
+        reduced channels: the sparse (line, channel) terms within 10
+        `dv_max` of `center` (a term's velocity (nu_l - f_c) / nu_l c +
+        `offset`), the lines' factors of tau, the channels' Planck terms,
+        the data and its weights, and Q(T)'s table. Returns the function
+        that makes a tensor of the posterior's device and dtype."""
         freqs, ints, yerrs, covered = grid
+        self.cat, self.grid = cat, grid
         self.device, self.dtype = torch.device(device), dtype
         i, _ = cat.trim(fit["lower_limit"], fit["upper_limit"])
         sel = i + np.asarray(covered, dtype=np.int64)
         lf = cat.frequency[sel]
-        vel = (lf[:, None] - freqs[None, :]) / lf[:, None] * CKM + fit["aligned_velocity"]
-        center = fit["aligned_velocity"]
-        self.bounds = {k: tuple(map(float, v)) for k, v in fit["bounds"].items()}
-        line, chan = np.nonzero(np.abs(vel - center) < 10.0 * self.bounds["dV"][1])
+        vel = (lf[:, None] - freqs[None, :]) / lf[:, None] * CKM + offset
+        line, chan = np.nonzero(np.abs(vel - center) < 10.0 * dv_max)
 
         def t(x, dt=dtype):
             return torch.as_tensor(np.asarray(x), device=self.device).to(dt)
@@ -67,7 +101,6 @@ class Posterior:
         x = H * freqs * 1e6 / K
         self.chan_x = t(x)
         self.chan_jbg = t(x / (np.exp(x / T_CMB) - 1.0 + 1e-10))
-        self.chan_dil = t(dilution(freqs, fit["fixed_source_size"], fit["dish_size"]))
         self.y = t(ints)
         self.inv_s2 = t(1.0 / yerrs ** 2)
         self.log_inv_s2 = t(np.log(1.0 / yerrs ** 2))
@@ -75,11 +108,7 @@ class Posterior:
         if cat.q["kind"] == "states":
             g, E = cat.state_table()
             self.q_g, self.q_E = t(g), t(E)
-        means, stds = fit["template_means"], fit["template_stds"]
-        if len(means) == 5:      # a fixed source size drops the first entry
-            means, stds = means[1:], stds[1:]
-        _, m_tex, m_vlsr, m_dv = means
-        self.gauss = [(1, m_tex, stds[1]), (2, m_vlsr, 0.8 * m_dv), (3, m_dv, 0.3 * m_dv)]
+        return t
 
     def partition(self, Tex):
         if self.q["kind"] == "linear":
@@ -108,20 +137,32 @@ class Posterior:
     def _lnprob(self, th):
         Ncol, Tex, vlsr, dV = (th[:, j:j + 1] for j in range(4))
         Q = self.partition(Tex[:, 0])[:, None]
+        opac = self._opacity(Ncol, Tex, Q, vlsr, dV)
+        model = self.chan_dil * self._radiance(Tex) * (1.0 - torch.exp(-opac))
+        return self._finish(model, self.lnprior(th))
+
+    def _opacity(self, Ncol, Tex, Q, vlsr, dV):
+        """opac (..., C) on the reduced channels: Ncol and vlsr (..., 1) of
+        one component each, Tex, Q and dV (..., 1) broadcast against them."""
         Nl = Ncol * self.line_glow * torch.exp(-self.line_elower / (0.695 * Tex)) / Q
         tau = (self.line_a * Nl * (1.0 - torch.exp(-self.line_hnu_k / Tex))
-               / (self.line_den * dV * self.line_glow))                       # (n, L)
+               / (self.line_den * dV * self.line_glow))                       # (..., L)
         z = (self.pair_vel - vlsr) / (dV / 2.355)
         g = torch.where(self.pair_dist < 10.0 * dV, torch.exp(-0.5 * z * z),
                         torch.zeros((), dtype=z.dtype, device=z.device))
-        terms = tau[:, self.pair_line] * g
-        opac = torch.zeros((th.shape[0], self.n_channels), dtype=th.dtype,
-                           device=th.device).index_add_(1, self.pair_chan, terms)
+        terms = tau[..., self.pair_line] * g
+        return torch.zeros(terms.shape[:-1] + (self.n_channels,), dtype=terms.dtype,
+                           device=terms.device).index_add_(-1, self.pair_chan, terms)
+
+    def _radiance(self, Tex):
+        """J(Tex) - J(2.7) (N, C) on the reduced channels, Tex (N, 1)."""
         jt = self.chan_x / (torch.exp(self.chan_x / Tex) - 1.0 + 1e-10)
-        model = self.chan_dil * (jt - self.chan_jbg) * (1.0 - torch.exp(-opac))
+        return jt - self.chan_jbg
+
+    def _finish(self, model, lp):
+        """(lnp, scale) of the model (N, C) and the ln prior (N,)."""
         r2 = (self.y - model) ** 2 * self.inv_s2
         ll = -0.5 * torch.sum(r2 - self.log_inv_s2, dim=1)
-        lp = self.lnprior(th)
         ok = torch.isfinite(ll) & torch.isfinite(lp)
         lnp = torch.where(ok, lp + ll, torch.full_like(ll, -math.inf))
         scale = 0.5 * torch.sum(r2, dim=1) + lp.abs()

@@ -6,11 +6,24 @@ from the root of a checkout, on a machine with an NVIDIA GPU. The cell
 (an entry of BENCHMARK.json's `workloads`) names a configuration
 (benchmark/configs/<config>.json: the problem, its writer and data seed,
 the fit's settings, the limits of the comparison) and a traffic mix
-(benchmark/traffic/<traffic>.json, read by benchmark/drivers.py). The run
-writes the problem under $TMPDIR, warms up the cell's shapes (set-up),
-runs the traffic for --seconds (the window), then judges what the window
-produced against the plain reference (benchmark/check.py) and prints one
-JSON line last on standard output: `correct`, `attempted`, `failed`,
+(benchmark/traffic/<traffic>.json, read by benchmark/drivers.py).
+
+Besides its problem writer (`problem`: benchmark/problems/<module>.py), a
+configuration may name, each optional:
+
+* `fit_class`: the fit, a name in cha1_mcmc_tpu_torch's `__all__`
+  (default "SpectralFit"); its configuration class is the one its
+  constructor takes (benchmark/drivers.py);
+* `reference`: the module of benchmark/reference/ whose
+  `build(fitkw, config, device, dtype)` makes the posterior the run is
+  judged against (default "model", the single-component posterior).
+
+dV is theta's last column in every fit (Run.traced_dv).
+
+The run writes the problem under $TMPDIR, warms up the cell's shapes
+(set-up), runs the traffic for --seconds (the window), then judges what
+the window produced against the plain reference (benchmark/check.py) and
+prints one JSON line last on standard output: `correct`, `attempted`, `failed`,
 `metrics` (with --trace 0 the cell's end-to-end metrics, with --trace 1
 its per-layer metrics, each read by benchmark/metrics/<metric>.py),
 `device`, with --trace 1 `breakdown`, and last `checks`, each number
@@ -224,7 +237,7 @@ def run_cell(bench: Bench, cell: dict, seed: int, seconds: float, trace: bool,
         if device != "cpu":
             torch.cuda.empty_cache()
 
-        ref = check.Reference(fitkw, config["partition"], device)
+        ref = check.Reference(fitkw, config, device)
         pick_rng = np.random.default_rng(drivers.derive_seed(seed, 4))
         numbers, per_request = check.judge(ref, records, traffic, pick_rng,
                                            a=fitkw.get("stretch_a", 2.0))

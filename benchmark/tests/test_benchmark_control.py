@@ -25,7 +25,8 @@ from benchmark.calibrate import calibrate  # noqa: E402
 from benchmark.tests.small_cells import run_small, small  # noqa: E402
 
 
-@pytest.mark.parametrize("cell", ["hc5n-cha1:chains-64k", "dense-rotor:chains-16k"])
+@pytest.mark.parametrize("cell", ["hc5n-cha1:chains-64k", "dense-rotor:chains-16k",
+                                  "hc9n-gotham:chains-64k"])
 def test_control_fails_where_the_program_passes(cell):
     bench, cell, config, traffic = small(cell)
     limits = config["limits"]
@@ -75,7 +76,8 @@ def _half_left_out(real):
 FAULTS = ["unchanged", "half_left_out", "lnp_altered", "position_altered", "no_lnz"]
 
 
-CASES = [(cell, fault) for cell in ("hc5n-cha1:chains-64k", "dense-rotor:chains-16k")
+CASES = [(cell, fault) for cell in ("hc5n-cha1:chains-64k", "dense-rotor:chains-16k",
+                                    "hc9n-gotham:chains-64k")
          for fault in FAULTS]
 
 
