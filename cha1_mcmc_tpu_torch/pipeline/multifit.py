@@ -194,6 +194,18 @@ class MultiComponentFit:
                 and fused_multi_supported(model, self.spec, cfg.dv_bound,
                                           nwalkers=cfg.nwalkers // cfg.n_chains))
 
+    def _k2_runner(self, model: SpectralModel, grid: Datagrid, prior_means, prior_stds):
+        """K2's runner (its statics and tables), in a `pipeline/k2_plan`
+        span that counts the cluster plan of one ensemble's launch
+        (MultiFusedEnsemble.plan_counts at nwalkers / n_chains walkers)."""
+        cfg = self.config
+        with span("pipeline/k2_plan") as s:
+            run_fn = make_fused_ensemble_multi(
+                model, self.spec, grid.ints, grid.yerrs, prior_means,
+                prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
+            s.add(**run_fn.plan_counts(cfg.nwalkers // cfg.n_chains))
+        return run_fn
+
     def build_model(self, grid: Datagrid) -> SpectralModel:
         cfg = self.config
         if self.catalog is None:
@@ -291,9 +303,7 @@ class MultiComponentFit:
                         use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
                     run_fn = None
                     if self._fused_eligible(model):
-                        run_fn = make_fused_ensemble_multi(
-                            model, self.spec, grid.ints, grid.yerrs, prior_means,
-                            prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
+                        run_fn = self._k2_runner(model, grid, prior_means, prior_stds)
                     self.sampler = MultiChainSampler(lnprob_fn=lnprob, n_chains=cfg.n_chains,
                                                      run_fn=run_fn, **common)
                 elif self._fused_eligible(model):
@@ -302,9 +312,7 @@ class MultiComponentFit:
                     lnprob = build_lnprob_batched(
                         model, self.spec, grid.ints, grid.yerrs, lnprior,
                         use_pallas=True, pallas_kernel="gather", dv_max=cfg.dv_bound)
-                    run_fn = make_fused_ensemble_multi(
-                        model, self.spec, grid.ints, grid.yerrs, prior_means,
-                        prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
+                    run_fn = self._k2_runner(model, grid, prior_means, prior_stds)
                     self.sampler = FusedEnsembleSampler(lnprob_fn=lnprob, run_fn=run_fn,
                                                         **common)
                 elif cfg.use_sparse_opacity:

@@ -524,6 +524,23 @@ class MultiFusedEnsemble(FusedEnsemble):
         return multi_step_block(coords, lnp, perm, z_u, pair, acc_u,
                                 self.tables, self.statics)
 
+    def plan_counts(self, nwalkers: int) -> dict:
+        """What a step launch of one ensemble of `nwalkers` walkers takes,
+        found without a card: the components, the CTAs of its cluster
+        (cluster_plan's choice with the card's occupancy left unasked: the
+        largest size whose plan fits a CTA, which the launch takes where
+        the card places such a cluster), whether the tables are staged in
+        shared memory (1) or read from device memory (0), the shared
+        memory of a CTA and the tables' bytes."""
+        lines, vel = self.tables[0], self.tables[1]
+        plan, _ = cluster.cluster_plan(
+            "K2 steps", lambda n: plan_multi_cluster(
+                nwalkers, self.statics.ncomp, lines.shape[1], vel.shape[1], vel.shape[0],
+                vel.dtype, cluster=n), lambda plan: 1)
+        return dict(components=self.statics.ncomp, ctas=plan.cluster, staged=int(plan.staged),
+                    smem_bytes=plan.smem_bytes,
+                    table_bytes=sum(t.numel() * t.element_size() for t in self.tables))
+
 
 def make_fused_ensemble_multi(model, spec, grid_ints, grid_yerrs, prior_means,
                               prior_stds, *, dv_max: float, a: float = 2.0,

@@ -40,7 +40,8 @@ injected draws, and the dense Metropolis through the K4a block lnprob
 launching K4a once a proposal batch. The sampler's block loop on the card:
 FusedEnsembleSampler.run_mcmc one block ahead through K1 and K3, bitwise
 against the same blocks run one at a time, one host synchronisation a
-block; BlockTimer's device time. Every test here needs a CUDA device and nvcc, and skips without
+block; BlockTimer's device time. A float32 multifit through K2 records one
+`pipeline/k2_plan` span counting the cluster plan its launches took. Every test here needs a CUDA device and nvcc, and skips without
 them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -705,3 +706,47 @@ def test_block_timer_spans_a_block_from_its_first_launch():
         assert r["device_s"] > kernel_s + 0.015, (r, kernel_s)
         assert 0.005 < r.get("gap_s", 0.01) < 0.02, r
     first_launch()                 # outside a timed block: nothing to move
+
+
+def test_multifit_k2_plan_span_counts_the_plan_k2_launches(tmp_path):
+    """A float32 MultiComponentFit through K2 on the card (the real
+    factory, the configuration's 66 lines x 1,138 channels) records one
+    `pipeline/k2_plan` inside a `pipeline/model`: its counts are
+    plan_multi_cluster's at 128 walkers and 16 CTAs, the plan the launch
+    took (cluster_plan's)."""
+    _require_card()
+    import contextlib
+    import io
+
+    from cha1_mcmc_tpu_torch import MultiComponentFit, MultiFitConfig
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsembleSampler
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (LAUNCHES, cluster_plan,
+                                                         plan_multi_cluster)
+    from cha1_mcmc_tpu_torch.utils import metrics
+    from tests.port_problems import write_hc9n_problem
+
+    p = write_hc9n_problem(str(tmp_path))
+    cfg = MultiFitConfig(mol_name="hc9n_hfs", template_run=True,
+                         cat_folder=p["cat_folder"], data_path=p["data_path"],
+                         fit_folder=str(tmp_path / "fit"), nwalkers=128, nruns=64,
+                         checkpoint_every=64, device="cuda")
+    fit = MultiComponentFit(cfg)
+    before = LAUNCHES["multi_steps"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        fit.fit(fit.init_setup())
+    assert isinstance(fit.sampler, FusedEnsembleSampler)
+    assert LAUNCHES["multi_steps"] == before + 4
+    tables = fit.sampler.run_fn.tables
+    lines, vel = tables[:2]
+    shape = (lines.shape[1], vel.shape[1], vel.shape[0])
+    assert shape[:2] == (66, 1138)
+    plan = plan_multi_cluster(128, 4, *shape, torch.float32, cluster=16)
+    launched, _ = cluster_plan("steps", 128, 4, *shape, torch.float32, vel.device)
+    assert launched.cluster == 16 and launched.layout == plan.layout
+    want = dict(components=4, ctas=16, staged=int(plan.staged), smem_bytes=plan.smem_bytes,
+                table_bytes=sum(t.numel() * t.element_size() for t in tables))
+    ours = [r for r in metrics.spans() if r.trace == fit.throughput.trace_id]
+    (k2,) = [r for r in ours if r.name == "pipeline/k2_plan"]
+    parent = next(r for r in ours if r.id == k2.parent)
+    assert parent.name == "pipeline/model" and parent.t0 <= k2.t0 <= k2.t1 <= parent.t1
+    assert k2.counts == want

@@ -3,8 +3,9 @@ on the CPU: nesting, parents and trace ids, the ring's bound and drop
 count, the mirroring of host-only spans to an open torch.profiler window
 (and no profiler call without one), run_mcmc's spans and counts a block,
 its syncs counted where each copy to the host happens, a split and
-resumed run bitwise equal to an unsplit one with the spans on, and a
-fit's throughput.json holding every span name it ran."""
+resumed run bitwise equal to an unsplit one with the spans on, a
+fit's throughput.json holding every span name it ran, and the multifit's
+`pipeline/k2_plan` span counting the cluster plan of K2's launch."""
 
 import collections
 import contextlib
@@ -272,3 +273,46 @@ def test_multifit_throughput_json_holds_its_spans(tmp_path, log):
     with open(os.path.join(cfg.mol_folder, "throughput.json")) as fh:
         spans = json.load(fh)["spans"]
     assert set(spans) == (set(PIPELINE) - {"pipeline/mle"}) | set(SAMPLER)
+
+
+@pytest.mark.parametrize("n_chains", [1, 2])
+def test_multifit_k2_plan_span_counts_the_plan_of_its_launch(tmp_path, log, monkeypatch,
+                                                             n_chains):
+    """K2's set-up on the CPU, its eligibility forced (its runner's tables
+    and its plain steps run there): one `pipeline/k2_plan` inside a
+    `pipeline/model`, counting the cluster plan of one ensemble of 128
+    walkers, on the one-ensemble path and the K-chain path."""
+    from cha1_mcmc_tpu_torch import MultiComponentFit, MultiFitConfig
+    from cha1_mcmc_tpu_torch.pipeline import multifit
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+    from tests.port_problems import write_hc9n_problem
+
+    p = write_hc9n_problem(str(tmp_path), n_multiplets=2)
+    cfg = MultiFitConfig(mol_name="hc9n_hfs", template_run=True,
+                         cat_folder=p["cat_folder"], data_path=p["data_path"],
+                         fit_folder=str(tmp_path / "fit"), nwalkers=128 * n_chains,
+                         n_chains=n_chains, nruns=4, checkpoint_every=4, device="cpu")
+    fit = MultiComponentFit(cfg)
+    monkeypatch.setattr(fit, "_fused_eligible", lambda model: True)
+    made = []
+    real = multifit.make_fused_ensemble_multi
+    monkeypatch.setattr(multifit, "make_fused_ensemble_multi",
+                        lambda *args, **kw: made.append(real(*args, **kw)) or made[-1])
+    with contextlib.redirect_stdout(io.StringIO()):
+        fit.fit(fit.init_setup())
+    (runner,) = made
+    lines, vel = runner.tables[:2]
+    plan = plan_multi_cluster(128, 4, lines.shape[1], vel.shape[1], vel.shape[0],
+                              torch.float32, cluster=16)
+    want = dict(components=4, ctas=16, staged=1, smem_bytes=plan.smem_bytes,
+                table_bytes=sum(t.numel() * t.element_size() for t in runner.tables))
+    assert plan.fits and plan.staged
+    ours = [r for r in metrics.spans() if r.trace == fit.throughput.trace_id]
+    (k2,) = [r for r in ours if r.name == "pipeline/k2_plan"]
+    parent = next(r for r in ours if r.id == k2.parent)
+    assert parent.name == "pipeline/model" and parent.t0 <= k2.t0 <= k2.t1 <= parent.t1
+    assert k2.counts == want
+    with open(os.path.join(cfg.mol_folder, "throughput.json")) as fh:
+        spans = json.load(fh)["spans"]
+    assert spans["pipeline/k2_plan"]["count"] == 1
+    assert spans["pipeline/k2_plan"]["counts"] == want
