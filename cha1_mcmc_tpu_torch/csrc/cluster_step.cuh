@@ -6,6 +6,9 @@
 // cluster reads its chain from blockIdx.y (chain_offsets). No barrier
 // crosses clusters, so K may exceed the clusters the card holds at once;
 // the rest run in later waves. K5a and K5c launch one cluster (K = 1).
+// K2's wide path (multi_step.cu: wide_steps, h CTAs a chain in one
+// cooperative launch) takes its layout and chain_offsets from here, not
+// its clusters.
 //
 //  * CTA `rank` of n owns proposals [rank h / n, (rank + 1) h / n) of a
 //    half-update (owned_slice): a balanced, possibly ragged split in which
@@ -83,13 +86,14 @@ __device__ Carve<T> carve(unsigned char* smem, const SmemLayout& L) {
           t(L.prop),  t(L.zz),    i(L.line_idx), i(L.group), i(L.flag),  i(L.acc)};
 }
 
-// threads a CTA, warp groups a CTA, warps a group, per-channel constants,
-// sizeof(SmemLayout): what sampler/cluster.py sizes the regions by,
-// checked by the binding when a library loads.
-inline void layout_geometry(int* out) {
+// threads a CTA, warp groups a CTA, chi^2 partials a group (one a warp
+// unless the library's lnprob sums more lanes than a group has threads),
+// per-channel constants, sizeof(SmemLayout): what sampler/cluster.py sizes
+// the regions by, checked by the binding when a library loads.
+inline void layout_geometry(int* out, int partials = kGroupWarps) {
   out[0] = kThreads;
   out[1] = kGroups;
-  out[2] = kGroupWarps;
+  out[2] = partials;
   out[3] = kChanConsts;
   out[4] = (int)sizeof(SmemLayout);
 }

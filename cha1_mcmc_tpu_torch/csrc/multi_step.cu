@@ -18,30 +18,52 @@
 //   opac_k,c = sum_l tau_k,l 1{|v_lc - v0| < 10 dV} exp2(aa (v_lc - vlsr_k)^2),
 // and accepting when ln u < (D - 1) ln z + lnp_new - lnp_s.
 //
-// What bounds it on this card: latency. At the GOTHAM size (128 walkers,
-// K = 4, 66 lines x ~1,133 channels, ~3 lines per channel) a half-update
-// evaluates 64 proposals x 1,133 channels x 3 lines x 4 components ~ 870k
-// windowed exp2 plus ~300k exp and divides of the radiative transfer; on
-// one SM that alone is ~56 us of special-function issue, over the card
-// under 1 us. The half-updates depend on each other, so the time of one
-// is the time of its longest chain: each lane walks its ~9 channels in
-// series, a dependent chain of table loads, exp2, exp and divides per
-// channel. So one ensemble is spread over a thread-block cluster
-// (cluster_step.cuh) and the chain is kept short:
-//  * one cluster of n = 16 CTAs (8 where the card cannot place 16), each
-//    with a full copy of the (W, D+1) state in shared memory; CTA r owns
-//    proposals [r h / n, (r + 1) h / n) of every half;
-//  * K independent ensembles (MultiChainSampler, the JAX package's vmap
-//    over chains) run in one launch, one cluster each (grid (n, K);
-//    cluster_step.cuh: chain_offsets): each cluster offsets its walkers,
-//    randomness and outputs by its chain and reads the shared tables, so
-//    K chains pay one launch per k steps, and a chain's trajectory is the
-//    one it takes launched alone, bitwise; clusters past those the card
-//    holds at once run in later waves;
-//  * four warps per proposal, 128 lanes striding the channels; their chi^2
-//    partials are reduced per warp and added in warp order (no float
-//    atomics: a theta's lnprob is one function of theta, the same in the
-//    lnprob entry, in K2 and in K5c, whatever the cluster size);
+// What bounds it on this card: the throughput of the SMs that run it,
+// then each lane's latency. At the GOTHAM size (128 walkers, K = 4, 66
+// lines x ~1,138 channels, ~3 lines per channel) a half-update evaluates
+// 64 proposals x 1,138 channels x 3 lines x 4 components ~ 870k windowed
+// exp2 plus ~300k exp and divides of the radiative transfer and 64 x 264
+// tau sticks; on one SM that alone is ~56 us of special-function issue,
+// over the card under 1 us. The cluster path puts a chain on 16 SMs, four
+// proposals an SM: their issue and special-function slots, shared by the
+// live proposals (the ordered-velocity prior refuses some before the
+// likelihood runs, which frees the slots), and each lane's dependent
+// chain of table loads, exp2, exp and divides over its ~9 channels set a
+// K2 step at ~38 us, with 116 of the card's 132 SMs idle. Two paths,
+// chosen by the binding from what the launch can observe (its K chains of
+// h = W / 2 proposals and the card's co-resident CTAs of the wide kernel,
+// fused_multi.py:steps_plan):
+//  * the wide path, where K h CTAs fit on the card at once: one
+//    cooperative launch of grid (h, K), CTA j of chain c owning proposal
+//    j of every half-update with all 16 warps (512 threads over ~2.2
+//    channels and ~0.5 tau sticks each), so one live proposal an SM and a
+//    lane's chain four times shorter. The state stays in device memory:
+//    each CTA reads its walker's and its partner's rows from the chain
+//    output (wide_steps), writes its walker's row, and one grid.sync() a
+//    half-update publishes the rows to the next half;
+//  * the cluster path otherwise (many chains, thousands of walkers): one
+//    cluster of n = 16 CTAs a chain (8 where the card cannot place 16),
+//    each with a full copy of the (W, D+1) state in shared memory, CTA r
+//    owning proposals [r h / n, (r + 1) h / n) of every half, four at a
+//    time, four warps each (cluster_step.cuh); the owner of a proposal
+//    accepts it and writes the row into every CTA's copy through
+//    distributed shared memory, then cluster.sync(); accepted counts are
+//    integer atomics into rank 0's shared memory; clusters past those the
+//    card holds at once run in later waves;
+//  * both run K independent ensembles (MultiChainSampler, the JAX
+//    package's vmap over chains) in one launch (cluster_step.cuh:
+//    chain_offsets): each chain's CTAs offset its walkers, randomness and
+//    outputs by its chain and read the shared tables, so K chains pay one
+//    launch per k steps, and a chain's trajectory is the one it takes
+//    launched alone, on either path, bitwise;
+//  * one lnprob function over kLanes = 512 lanes (MultiGroupLnProb): lane
+//    v sums the channels v, v + 512, ... in order, each warp of lanes is
+//    reduced by warp_sum and the 16 warp sums added in order (no float
+//    atomics). The wide path's CTA runs it a lane a thread; the cluster
+//    path, the lnprob entry and K5c in groups of four warps, four lanes a
+//    thread (four independent sums, the same bits), four proposals a CTA
+//    at once. So a theta's lnprob is one function of theta: the same in
+//    the lnprob entry, on both step paths and in K5c;
 //  * where they fit (a "staged" launch: up to ~3,200 GOTHAM-shaped
 //    channels in f32, ~1,900 in f64, at 128 walkers and K = 4), every
 //    table the loop reads (lines, the (M, C) entry tables, chans) is
@@ -56,10 +78,7 @@
 //    constants in the loop (chan_consts, cluster_step.cuh: the same
 //    function, so the same bits); their shared memory does not grow with
 //    the channel count;
-//  * the owner of a proposal accepts it and writes the row into every
-//    CTA's copy through distributed shared memory, then cluster.sync();
-//    accepted counts are integer atomics into rank 0's shared memory;
-//    each walker's chain row is written by the owner of its proposal;
+//  * each walker's chain row is written by the owner of its proposal;
 //  * the lines that can touch a channel come from the channel-major
 //    tables (M, C) of the gather formulation (build_opacity_gather:
 //    active-line index and velocity per entry, padding at velocity 1e30)
@@ -90,6 +109,9 @@
 // launch):
 //   k2_fused_steps_{f32,f64}: k whole steps of K ensembles, one cluster
 //                             each (grid (n, K));
+//   k2_wide_steps_{f32,f64}:  the same on the wide path (grid (h, K), one
+//                             cooperative launch);
+//   k2_wide_capacity_{f32,f64}: the wide kernel's co-resident CTAs;
 //   k2_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch,
 //                             kGroups thetas per CTA, no cluster;
 //   k5c_half_{f32,f64}:       one sharded half-step (K5c), state in place;
@@ -142,7 +164,7 @@ template <typename T>
 __device__ void channel_constants(const MultiStatics<T>& st, const MultiTables<T>& tb,
                                   T* cc) {
   const int C = tb.C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const ChanConsts<T> k = chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
     cc[c] = k.x;
     cc[C + c] = k.jbg;
@@ -151,24 +173,39 @@ __device__ void channel_constants(const MultiStatics<T>& st, const MultiTables<T
   }
 }
 
-// K2's lnprob as a CTA-cooperative functor: every thread of the CTA calls
-// it once per round with its warp group's theta (nullptr: none this round);
-// thread 0 of each group with a theta writes the value to `out`. Ends on a
-// CTA barrier. kStaged: `tb` and `cc` are in shared memory; else `tb` is
-// in device memory and the constants are computed per channel.
-template <typename T, bool kStaged>
+// The lanes of K2's lnprob: a theta's channels c = v, v + kLanes, ... are
+// summed by lane v in channel order, each 32 lanes' sums are reduced by
+// warp_sum's tree, and the kLaneWarps warp sums are added in order. A
+// group of n threads runs kLanes / n lanes a thread (thread t: lanes t,
+// t + n, ...), each with its own sum, so any n computes the same bits.
+constexpr int kLanes = kThreads;
+constexpr int kLaneWarps = kLanes / 32;
+
+// K2's lnprob as a CTA-cooperative functor, a proposal to each group of
+// kGroupN threads: kThreads threads in one group on the wide path; four
+// groups of 128 (four lanes a thread) in the cluster path's rounds, the
+// lnprob entry and K5c. Every thread calls it once per round with its
+// group's theta (nullptr: none this round); thread 0 of each group with a
+// theta writes the value to `out`. Ends on a CTA barrier. kStaged: `tb` and
+// `cc` are in shared memory; else `tb` is in device memory and the
+// constants are computed per channel. Every K2 entry evaluates a theta
+// over the same kLanes lanes, so a theta's lnprob is one function of theta
+// whatever launched it.
+template <typename T, bool kStaged, int kGroupN = kGroupThreads>
 struct MultiGroupLnProb {
+  static constexpr int kPerThread = kLanes / kGroupN;   // lanes a thread
+  static_assert(kLanes % kGroupN == 0 && kGroupN % 32 == 0, "whole warps of lanes");
   const MultiStatics<T>& st;
   MultiTables<T> tb;
   const T* cc;   // (kChanConsts, C) per-channel constants (kStaged)
-  T* tau;        // kGroups x (K x La) stick opacities
-  T* part;       // kGroups x kGroupWarps chi^2 partials
+  T* tau;        // a group's (K x La) stick opacities, group by group
+  T* part;       // a group's kLaneWarps chi^2 partials, group by group
 
   __device__ void operator()(const T* th, T* out) const {
-    const int tid = threadIdx.x, grp = tid / kGroupThreads, gt = tid - grp * kGroupThreads;
+    const int tid = threadIdx.x, grp = tid / kGroupN, gt = tid - grp * kGroupN;
     const int lane = tid & 31, K = st.ncomp, C = tb.C;
     T* tg = tau + (size_t)grp * K * tb.La;
-    T* pg = part + grp * kGroupWarps;
+    T* pg = part + grp * kLaneWarps;
     T ss2[kMaxComp], vl[kMaxComp];
     T lp = T(0), Tex = T(0), dV = T(0);
     bool ok = th != nullptr;
@@ -206,11 +243,11 @@ struct MultiGroupLnProb {
     // Stick opacities per (component, active line), over the group.
     if (ok) {
       const T Q = q_of(Tex, st, tb.qst, tb.S, lane);
-      for (int i = gt; i < K * tb.La; i += kGroupThreads) {
+      for (int i = gt; i < K * tb.La; i += kGroupN) {
         const int k = i / tb.La, l = i - k * tb.La;
         tg[i] = tau_stick(tb.lines[l], tb.lines[tb.La + l], tb.lines[2 * tb.La + l],
-                          tb.lines[3 * tb.La + l], tb.lines[4 * tb.La + l], Q,
-                          th[K + k], Tex, dV);
+                           tb.lines[3 * tb.La + l], tb.lines[4 * tb.La + l], Q,
+                           th[K + k], Tex, dV);
       }
     }
     __syncthreads();
@@ -219,54 +256,14 @@ struct MultiGroupLnProb {
       const T sigma = dV / T(2.355);
       const T aa = T(-0.5 * 1.4426950408889634) / (sigma * sigma);
       const T win = T(10) * dV;
-      T p = T(0);
-      for (int c = gt; c < C; c += kGroupThreads) {
-        T opac[kMaxComp], gacc[kMaxComp];
 #pragma unroll
-        for (int k = 0; k < kMaxComp; ++k) opac[k] = gacc[k] = T(0);
-        int cur = -1;
-        for (int m = 0; m < tb.M; ++m) {
-          const T v = tb.vel[m * C + c];
-          if (ab(v - st.mask_center) < win) {
-            const int g = tb.group[m * C + c];
-            if (g != cur) {  // a new hfs group: add the finished group's sums
-#pragma unroll
-              for (int k = 0; k < kMaxComp; ++k) {
-                opac[k] = opac[k] + gacc[k];
-                gacc[k] = T(0);
-              }
-              cur = g;
-            }
-            const T* tl = tg + tb.line_idx[m * C + c];
-#pragma unroll
-            for (int k = 0; k < kMaxComp; ++k) {
-              if (k < K) {
-                const T d = v - vl[k];
-                gacc[k] = gacc[k] + tl[k * tb.La] * ex2(aa * (d * d));
-              }
-            }
-          }
-        }
-        ChanConsts<T> kc;
-        if constexpr (kStaged)
-          kc = {cc[c], cc[C + c], cc[2 * C + c], cc[3 * C + c]};
-        else
-          kc = chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
-        // planck_J(nu, Tex) from x, minus J(Tbg)
-        const T dJ = kc.x / (ex(kc.x / Tex) - T(1) + T(1e-10)) - kc.jbg;
-        T mdl = T(0);
-#pragma unroll
-        for (int k = 0; k < kMaxComp; ++k) {
-          if (k < K) {
-            const T o = opac[k] + gacc[k];
-            mdl = mdl + ss2[k] / add_rn(kc.b2, ss2[k]) * dJ * (T(1) - ex(-o));
-          }
-        }
-        const T resid = tb.chans[C + c] - mdl;
-        p += resid * resid * tb.chans[2 * C + c] - kc.lnisig;
+      for (int u = 0; u < kPerThread; ++u) {
+        const int v = gt + u * kGroupN;   // this sum's lane
+        T p = T(0);
+        for (int c = v; c < C; c += kLanes) p += chan_term(c, tg, vl, aa, win, Tex, ss2);
+        const T w = warp_sum(p);
+        if (lane == 0) pg[v >> 5] = w;
       }
-      const T w = warp_sum(p);
-      if (lane == 0) pg[gt >> 5] = w;
     }
     __syncthreads();
     if (th != nullptr && gt == 0) {
@@ -274,13 +271,64 @@ struct MultiGroupLnProb {
       if (ok) {
         T chi = pg[0];
 #pragma unroll
-        for (int w = 1; w < kGroupWarps; ++w) chi = chi + pg[w];
+        for (int w = 1; w < kLaneWarps; ++w) chi = chi + pg[w];
         const T v = lp + T(-0.5) * chi;
         if (isfinite(v)) val = v;
       }
       *out = val;
     }
     __syncthreads();  // tau and the partials are rewritten next round
+  }
+
+  // Channel c's chi^2 term (y - model)^2 / sigma^2 - ln(1 / sigma^2): per
+  // component the in-window lines of each hfs group summed in line order,
+  // the group sums added in group order, then the radiative transfer.
+  __device__ __forceinline__ T chan_term(int c, const T* tg, const T* vl, T aa, T win, T Tex,
+                                         const T* ss2) const {
+    const int K = st.ncomp, C = tb.C;
+    T opac[kMaxComp], gacc[kMaxComp];
+#pragma unroll
+    for (int k = 0; k < kMaxComp; ++k) opac[k] = gacc[k] = T(0);
+    int cur = -1;
+    for (int m = 0; m < tb.M; ++m) {
+      const T v = tb.vel[m * C + c];
+      if (ab(v - st.mask_center) < win) {
+        const int g = tb.group[m * C + c];
+        if (g != cur) {  // a new hfs group: add the finished group's sums
+#pragma unroll
+          for (int k = 0; k < kMaxComp; ++k) {
+            opac[k] = opac[k] + gacc[k];
+            gacc[k] = T(0);
+          }
+          cur = g;
+        }
+        const T* tl = tg + tb.line_idx[m * C + c];
+#pragma unroll
+        for (int k = 0; k < kMaxComp; ++k) {
+          if (k < K) {
+            const T d = v - vl[k];
+            gacc[k] = gacc[k] + tl[k * tb.La] * ex2(aa * (d * d));
+          }
+        }
+      }
+    }
+    ChanConsts<T> kc;
+    if constexpr (kStaged)
+      kc = {cc[c], cc[C + c], cc[2 * C + c], cc[3 * C + c]};
+    else
+      kc = chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
+    // planck_J(nu, Tex) from x, minus J(Tbg)
+    const T dJ = kc.x / (ex(kc.x / Tex) - T(1) + T(1e-10)) - kc.jbg;
+    T mdl = T(0);
+#pragma unroll
+    for (int k = 0; k < kMaxComp; ++k) {
+      if (k < K) {
+        const T o = opac[k] + gacc[k];
+        mdl = mdl + ss2[k] / add_rn(kc.b2, ss2[k]) * dJ * (T(1) - ex(-o));
+      }
+    }
+    const T resid = tb.chans[C + c] - mdl;
+    return resid * resid * tb.chans[2 * C + c] - kc.lnisig;
   }
 };
 
@@ -293,21 +341,110 @@ __device__ MultiTables<T> stage_tables(const MultiStatics<T>& st, const MultiTab
                                        const Carve<T>& s) {
   if constexpr (!kStaged) return g;
   const int C = g.C, MC = g.M * g.C;
-  for (int i = threadIdx.x; i < kChanRows * C; i += kThreads) s.chans[i] = g.chans[i];
-  for (int i = threadIdx.x; i < MC; i += kThreads) {
+  for (int i = threadIdx.x; i < kChanRows * C; i += blockDim.x) s.chans[i] = g.chans[i];
+  for (int i = threadIdx.x; i < MC; i += blockDim.x) {
     s.vel[i] = g.vel[i];
     s.line_idx[i] = g.line_idx[i];
     s.group[i] = g.group[i];
   }
-  for (int i = threadIdx.x; i < kLineRows * g.La; i += kThreads) s.lines[i] = g.lines[i];
+  for (int i = threadIdx.x; i < kLineRows * g.La; i += blockDim.x) s.lines[i] = g.lines[i];
   channel_constants(st, g, s.cc);
   return MultiTables<T>{s.lines, s.vel, s.line_idx, s.group, s.chans, g.qst,
                         g.La, g.M, g.C, g.S};
 }
 
-// K2: k whole steps of K independent ensembles, one cluster each: this
-// cluster runs chain blockIdx.y.
+// Half-updates whose proposal indices and draws a wide CTA holds at once.
+constexpr int kWideHalves = 32;
+
+// The wide path's k steps of chain blockIdx.y on gridDim.x = h CTAs, CTA
+// j owning proposal j of every half-update, all its warps on it. The
+// state is never copied whole: before step s walker w's row is row w of
+// step s - 1's chain output (of coords at s = 0), and after the half in
+// which w is active, row w of step s's. So a CTA reads only its walker's
+// row, its lnp and its partner's row (L2 loads: rows other CTAs wrote in
+// this launch), writes its walker's row of the step, and one grid barrier
+// a half-update orders those writes before the next half reads them; the
+// walker, partner and draws of its next kWideHalves halves are read into
+// shared memory ahead, so that after a barrier only the rows are waited
+// for. The accepted counts are float adds of whole numbers (exact in any
+// order) into out_acc, which CTA 0 zeroes before the first barrier; each
+// CTA adds its step's count after that barrier.
 template <typename T, bool kStaged>
+__device__ void wide_steps(const T* coords, const T* lnp0, const int32_t* perm, const T* zu,
+                           const int32_t* pair, const T* au, const MultiTables<T>& tb,
+                           T* out_chain, T* out_lnps, float* out_acc, int W, int D, int k,
+                           const SmemLayout& L, const MultiStatics<T>& st,
+                           unsigned char* smem) {
+  __shared__ int32_t s_walker[kWideHalves], s_partner[kWideHalves];
+  __shared__ T s_z[kWideHalves], s_dz[kWideHalves], s_lu[kWideHalves];
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x, j = blockIdx.x, h = W / 2;
+  const Carve<T> s = carve<T>(smem, L);
+  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
+  if (j == 0)
+    for (int i = tid; i < k; i += kThreads) out_acc[i] = 0.f;
+  const MultiGroupLnProb<T, kStaged, kThreads> lnprob{st, tables, s.cc, s.tau, s.part};
+  T* prop = s.prop;   // Y and, at [D], its lnprob
+  int accepted = 0;   // this CTA's accepted proposals of the step (thread D)
+  for (int r = 0; r < 2 * k; ++r) {
+    const int step = r >> 1, half = r & 1, slot = r % kWideHalves;
+    if (slot == 0) {
+      // this CTA's walker, partner, z, (D - 1) ln z and ln u of the next halves
+      if (r > 0) __syncthreads();
+      const int t = r + tid;
+      if (tid < kWideHalves && t < 2 * k) {
+        const int32_t* pm = perm + (size_t)(t >> 1) * W;
+        const int hf = t & 1;
+        const T z = stretch_z(zu[(size_t)t * h + j], st.a);
+        s_walker[tid] = pm[hf * h + j];
+        s_partner[tid] = pm[(1 - hf) * h + pair[(size_t)t * h + j]];
+        s_z[tid] = z;
+        s_dz[tid] = mul_rn(T(D - 1), lg(z));
+        s_lu[tid] = lg(au[(size_t)t * h + j]);
+      }
+      __syncthreads();
+    }
+    const T* prev = step == 0 ? coords : out_chain + (size_t)(step - 1) * W * D;
+    const T* prev_lnp = step == 0 ? lnp0 : out_lnps + (size_t)(step - 1) * W;
+    T* cur = out_chain + (size_t)step * W * D;
+    const int32_t w = s_walker[slot];
+    // the partner: of the other half, as it stands after the last half
+    const T* crow = (half == 0 ? prev : cur) + (size_t)s_partner[slot] * D;
+    T sd = T(0), lnp_s = T(0);
+    if (tid <= D) {
+      lnp_s = __ldcg(prev_lnp + w);
+      if (tid < D) {
+        sd = __ldcg(prev + (size_t)w * D + tid);
+        const T cd = __ldcg(crow + tid);
+        prop[tid] = fma_rn(s_z[slot], sub_rn(sd, cd), cd);
+      }
+    }
+    __syncthreads();
+    lnprob(prop, prop + D);
+    // every thread of the row decides alike: the plain version's test
+    if (tid <= D) {
+      const T lnp_new = prop[D];
+      const bool accept = s_lu[slot] < sub_rn(add_rn(s_dz[slot], lnp_new), lnp_s);
+      if (tid < D) {
+        cur[(size_t)w * D + tid] = accept ? prop[tid] : sd;
+      } else {
+        out_lnps[(size_t)step * W + w] = accept ? lnp_new : lnp_s;
+        accepted += accept;
+        if (half == 1) {   // past the first barrier, so after the zeroing
+          if (accepted) atomicAdd(out_acc + step, (float)accepted);
+          accepted = 0;
+        }
+      }
+    }
+    if (r + 1 < 2 * k) grid.sync();
+  }
+}
+
+// K2: k whole steps of K independent ensembles. kWide false: one cluster
+// a chain (grid (n, K)), this cluster running chain blockIdx.y; kWide
+// true: h CTAs a chain (grid (h, K), one cooperative
+// launch, wide_steps).
+template <typename T, bool kStaged, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 multi_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
                            const int32_t* __restrict__ perm, const T* __restrict__ zu,
@@ -317,9 +454,6 @@ multi_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ l
                            int W, int D, int k, SmemLayout L,
                            __grid_constant__ const MultiStatics<T> st) {
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x, h = W / 2, D1 = D + 1;
-  const int rank = (int)cluster.block_rank();
   const ChainOffsets at = chain_offsets(W, D, k);
   coords += at.walkers;
   lnp0 += at.lnp;
@@ -330,30 +464,38 @@ multi_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ l
   out_chain += at.chain;
   out_lnps += at.steps;
   out_acc += at.acc;
-  const Carve<T> s = carve<T>(smem, L);
-  for (int i = tid; i < W * D; i += kThreads) s.state[(i / D) * D1 + i % D] = coords[i];
-  for (int w = tid; w < W; w += kThreads) s.state[w * D1 + D] = lnp0[w];
-  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
-  if (tid < 2) s.acc[tid] = 0;
-  cluster.sync();  // every CTA resident and initialised before remote access
-  int* acc0 = cluster.map_shared_rank(s.acc, 0);
-  const MultiGroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
-  for (int step = 0; step < k; ++step) {
-    const int32_t* pm = perm + (size_t)step * W;
-    const ResidentCommit<T> commit{s.state, out_chain + (size_t)step * W * D,
-                                   out_lnps + (size_t)step * W, D};
-    for (int half = 0; half < 2; ++half) {
-      const int r = 2 * step + half;
-      const StateComplement<T> comp{s.state, pm + (1 - half) * h, D1};
-      cluster_half_update<T>(s.state, D, h, pm + half * h, comp, zu + r * h,
-                             pair + r * h, au + r * h, st.a, s.prop, s.zz, s.flag,
-                             acc0 + (step & 1), lnprob, commit);
-    }
-    // Every add of this step precedes the cluster.sync() just passed; the
-    // slot is next added to two steps on, after rank 0 has reset it.
-    if (rank == 0 && tid == 0) {
-      out_acc[step] = (float)s.acc[step & 1];
-      s.acc[step & 1] = 0;
+  if constexpr (kWide) {
+    wide_steps<T, kStaged>(coords, lnp0, perm, zu, pair, au, tb, out_chain, out_lnps,
+                           out_acc, W, D, k, L, st, smem);
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int tid = threadIdx.x, h = W / 2, D1 = D + 1;
+    const int rank = (int)cluster.block_rank();
+    const Carve<T> s = carve<T>(smem, L);
+    for (int i = tid; i < W * D; i += kThreads) s.state[(i / D) * D1 + i % D] = coords[i];
+    for (int w = tid; w < W; w += kThreads) s.state[w * D1 + D] = lnp0[w];
+    const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
+    if (tid < 2) s.acc[tid] = 0;
+    cluster.sync();  // every CTA resident and initialised before remote access
+    int* acc0 = cluster.map_shared_rank(s.acc, 0);
+    const MultiGroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
+    for (int step = 0; step < k; ++step) {
+      const int32_t* pm = perm + (size_t)step * W;
+      const ResidentCommit<T> commit{s.state, out_chain + (size_t)step * W * D,
+                                     out_lnps + (size_t)step * W, D};
+      for (int half = 0; half < 2; ++half) {
+        const int r = 2 * step + half;
+        const StateComplement<T> comp{s.state, pm + (1 - half) * h, D1};
+        cluster_half_update<T>(s.state, D, h, pm + half * h, comp, zu + r * h,
+                               pair + r * h, au + r * h, st.a, s.prop, s.zz, s.flag,
+                               acc0 + (step & 1), lnprob, commit);
+      }
+      // Every add of this step precedes the cluster.sync() just passed; the
+      // slot is next added to two steps on, after rank 0 has reset it.
+      if (rank == 0 && tid == 0) {
+        out_acc[step] = (float)s.acc[step & 1];
+        s.acc[step & 1] = 0;
+      }
     }
   }
 }
@@ -408,10 +550,17 @@ MultiTables<T> make_tables(const void* lines, const void* vel,
                         La, M, C, S};
 }
 
-// Each kernel's instance for a layout: staged or not.
+// Each kernel's instance for a layout: staged or not (and for the steps,
+// the cluster or the wide path).
 template <typename T>
 auto steps_kernel(const SmemLayout& L) {
-  return L.staged ? multi_cluster_steps_kernel<T, true> : multi_cluster_steps_kernel<T, false>;
+  return L.staged ? multi_cluster_steps_kernel<T, true, false>
+                  : multi_cluster_steps_kernel<T, false, false>;
+}
+template <typename T>
+auto wide_kernel(const SmemLayout& L) {
+  return L.staged ? multi_cluster_steps_kernel<T, true, true>
+                  : multi_cluster_steps_kernel<T, false, true>;
 }
 template <typename T>
 auto half_kernel(const SmemLayout& L) {
@@ -439,6 +588,68 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm,
                         make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S),
                         static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
                         static_cast<float*>(out_acc), W, D, k, L, st);
+}
+
+// The wide path: one cooperative launch of h = W / 2 CTAs a chain, grid
+// (h, chains); every CTA resident at once, or the launch is refused
+// (cudaErrorCooperativeLaunchTooLarge) and nothing runs.
+template <typename T>
+int launch_wide(const void* coords, const void* lnp0, const void* perm,
+                const void* zu, const void* pair, const void* au,
+                const void* lines, const void* vel, const void* line_idx,
+                const void* group, const void* chans, const void* qst,
+                void* out_chain, void* out_lnps, void* out_acc,
+                const void* statics, const void* layout, int W, int D, int La, int M,
+                int C, int S, int k, int chains, void* stream) {
+  MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
+  SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  if (W < 2 || W % 2 || k < 1 || chains < 1 || chains > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = wide_kernel<T>(L);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const T* a_coords = static_cast<const T*>(coords);
+  const T* a_lnp0 = static_cast<const T*>(lnp0);
+  const int32_t* a_perm = static_cast<const int32_t*>(perm);
+  const T* a_zu = static_cast<const T*>(zu);
+  const int32_t* a_pair = static_cast<const int32_t*>(pair);
+  const T* a_au = static_cast<const T*>(au);
+  MultiTables<T> tb = make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S);
+  T* a_chain = static_cast<T*>(out_chain);
+  T* a_lnps = static_cast<T*>(out_lnps);
+  float* a_acc = static_cast<float*>(out_acc);
+  void* args[] = {&a_coords, &a_lnp0, &a_perm, &a_zu, &a_pair, &a_au, &tb, &a_chain,
+                  &a_lnps,   &a_acc,  &W,      &D,    &k,      &L,    &st};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(W / 2, chains, 1),
+                                    dim3(kThreads, 1, 1), args, (size_t)L.bytes,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    (void)cudaGetLastError();   // a refused launch leaves no error for the next one
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The CTAs of the wide kernel at `layout` the card keeps resident at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs; 0 where the card
+// has no cooperative launch): the wide path runs K chains of h CTAs where
+// K h is at most this.
+template <typename T>
+int wide_capacity(const void* layout, int* out) {
+  const SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  const auto kernel = wide_kernel<T>(L);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L.bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  *out = coop ? per_sm * sms : 0;
+  return (int)cudaSuccess;
 }
 
 template <typename T>
@@ -493,8 +704,9 @@ int k2_statics_size_f32() { return (int)sizeof(MultiStatics<float>); }
 int k2_statics_size_f64() { return (int)sizeof(MultiStatics<double>); }
 const char* k2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// What sampler/cluster.py:smem_layout sizes the regions by (layout_geometry).
-void k2_geometry(int* out) { layout_geometry(out); }
+// What sampler/cluster.py:smem_layout sizes the regions by (layout_geometry):
+// kLaneWarps chi^2 partials a group (the wide path's one group too).
+void k2_geometry(int* out) { layout_geometry(out, kLaneWarps); }
 
 #define K2_ENTRIES(SFX, T)                                                            \
   int k2_fused_steps_##SFX(const void* coords, const void* lnp0, const void* perm,    \
@@ -508,6 +720,21 @@ void k2_geometry(int* out) { layout_geometry(out); }
     return launch_steps<T>(coords, lnp0, perm, zu, pair, au, lines, vel, line_idx,    \
                            group, chans, qst, out_chain, out_lnps, out_acc, statics,  \
                            layout, W, D, La, M, C, S, k, chains, cluster, stream);    \
+  }                                                                                   \
+  int k2_wide_steps_##SFX(const void* coords, const void* lnp0, const void* perm,     \
+                          const void* zu, const void* pair, const void* au,           \
+                          const void* lines, const void* vel, const void* line_idx,   \
+                          const void* group, const void* chans, const void* qst,      \
+                          void* out_chain, void* out_lnps, void* out_acc,             \
+                          const void* statics, const void* layout, int W, int D,      \
+                          int La, int M, int C, int S, int k, int chains,             \
+                          void* stream) {                                             \
+    return launch_wide<T>(coords, lnp0, perm, zu, pair, au, lines, vel, line_idx,     \
+                          group, chans, qst, out_chain, out_lnps, out_acc, statics,   \
+                          layout, W, D, La, M, C, S, k, chains, stream);              \
+  }                                                                                   \
+  int k2_wide_capacity_##SFX(const void* layout, int* out) {                          \
+    return wide_capacity<T>(layout, out);                                             \
   }                                                                                   \
   int k2_lnprob_##SFX(const void* theta, void* out, const void* lines,                \
                       const void* vel, const void* line_idx, const void* group,       \

@@ -196,14 +196,15 @@ class MultiComponentFit:
 
     def _k2_runner(self, model: SpectralModel, grid: Datagrid, prior_means, prior_stds):
         """K2's runner (its statics and tables), in a `pipeline/k2_plan`
-        span that counts the cluster plan of one ensemble's launch
-        (MultiFusedEnsemble.plan_counts at nwalkers / n_chains walkers)."""
+        span that counts the plan of its step launch
+        (MultiFusedEnsemble.plan_counts: n_chains chains of nwalkers /
+        n_chains walkers)."""
         cfg = self.config
         with span("pipeline/k2_plan") as s:
             run_fn = make_fused_ensemble_multi(
                 model, self.spec, grid.ints, grid.yerrs, prior_means,
                 prior_stds, dv_max=cfg.dv_bound, a=cfg.stretch_a)
-            s.add(**run_fn.plan_counts(cfg.nwalkers // cfg.n_chains))
+            s.add(**run_fn.plan_counts(cfg.nwalkers // cfg.n_chains, cfg.n_chains))
         return run_fn
 
     def build_model(self, grid: Datagrid) -> SpectralModel:

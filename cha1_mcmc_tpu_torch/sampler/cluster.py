@@ -3,7 +3,8 @@
 K1 and its sharded half-step K5a (csrc/fused_step.cu) and K2 and K5c
 (csrc/multi_step.cu) spread one ensemble over a thread-block cluster
 (csrc/cluster_step.cuh): n CTAs of 512 threads, CTA r owning proposals
-[r h / n, (r + 1) h / n) of every half-update, four warps a proposal.
+[r h / n, (r + 1) h / n) of every half-update, four warps a proposal
+(K2 also has a wide path of h CTAs a chain, sampler/fused_multi.py).
 This module is the one place that sizes those launches: `smem_layout`
 lays out each launch's shared-memory regions (the kernels only apply the
 offsets), `ClusterPlan` is one launch's geometry, `cluster_plan` takes the
@@ -77,12 +78,14 @@ class SmemLayout:
 @functools.lru_cache(maxsize=512)
 def smem_layout(dtype, ncomp: int, n_lines: int, n_channels: int, n_entries: int, *,
                 state_rows: int = 0, ndim: int = 0, per_cta: int = 0,
-                stage: bool | None = None, group_table: bool = True) -> SmemLayout:
+                stage: bool | None = None, group_table: bool = True, groups: int = GROUPS,
+                partials: int = GROUP_WARPS) -> SmemLayout:
     """The shared memory of a launch over `ncomp` components, La = n_lines
     active lines, C = n_channels and M = n_entries table entries a channel:
     [the (state_rows, D+1) state,] [the staged tables: chans (3, C), the
     per-channel constants (4, C), the entry velocities (M, C), lines (5,
-    La),] each warp group's (K, La) tau and chi^2 partials, the owned
+    La),] each of the `groups` warp groups' (K, La) tau and `partials`
+    chi^2 partials (one a warp for K1), the owned
     proposals (per_cta, D+1) and their stretch factors; [the entry line
     indices (M, C) and, with `group_table` (K2), hfs groups (M, C),]
     per_cta flags and two counters. Each region starts where the last
@@ -90,14 +93,15 @@ def smem_layout(dtype, ncomp: int, n_lines: int, n_channels: int, n_entries: int
     tables where the staged layout fits a CTA, else not: the unstaged
     layout does not grow with the channels."""
     if stage is None:
-        kw = dict(state_rows=state_rows, ndim=ndim, per_cta=per_cta, group_table=group_table)
+        kw = dict(state_rows=state_rows, ndim=ndim, per_cta=per_cta, group_table=group_table,
+                  groups=groups, partials=partials)
         staged = smem_layout(dtype, ncomp, n_lines, n_channels, n_entries, stage=True, **kw)
         return staged if staged.fits else smem_layout(
             dtype, ncomp, n_lines, n_channels, n_entries, stage=False, **kw)
     t, C, MC, D1 = int(stage), n_channels, n_entries * n_channels, ndim + 1
     sizes = dict(state=state_rows * D1, chans=t * CHAN_ROWS * C, cc=t * CHAN_CONSTS * C,
-                 vel=t * MC, lines=t * LINE_ROWS * n_lines, tau=GROUPS * ncomp * n_lines,
-                 part=GROUPS * GROUP_WARPS, prop=per_cta * D1, zz=per_cta,
+                 vel=t * MC, lines=t * LINE_ROWS * n_lines, tau=groups * ncomp * n_lines,
+                 part=groups * partials, prop=per_cta * D1, zz=per_cta,
                  line_idx=t * MC, group=t * MC * int(group_table), flag=per_cta, acc=2)
     offsets, at = [], 0
     for names, item in ((T_REGIONS, itemsize(dtype)), (I_REGIONS, 4)):
@@ -109,12 +113,14 @@ def smem_layout(dtype, ncomp: int, n_lines: int, n_channels: int, n_entries: int
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """The geometry of one cluster launch: `cluster` CTAs, each owning a
-    slice of the `proposals` (h = W / 2) of every half-update — at most
-    `per_cta` — evaluated by `warps_per_proposal` warps each, with the
+    """The geometry of one step launch: `cluster` CTAs a chain, each
+    owning a slice of the `proposals` (h = W / 2) of every half-update — at
+    most `per_cta` — evaluated by `warps_per_proposal` warps each, with the
     shared memory `layout`. `shape` is what the plan was made for (the
     kernel's sizes, the itemsize and whether the state is resident),
-    checked by the wrapper that launches it."""
+    checked by the wrapper that launches it. `wide` (K2 only): the h CTAs
+    of a chain run as one cooperative launch with no thread-block cluster,
+    one proposal each (sampler/fused_multi.py:plan_multi_wide)."""
 
     cluster: int
     proposals: int
@@ -122,6 +128,7 @@ class ClusterPlan:
     warps_per_proposal: int
     layout: SmemLayout
     shape: tuple
+    wide: bool = False
 
     def owned(self, rank: int) -> range:
         """The proposals CTA `rank` owns (csrc/cluster_step.cuh:owned_slice)."""
@@ -149,11 +156,12 @@ def make_plan(nwalkers: int, cluster: int, layout_of, shape: tuple) -> ClusterPl
     return ClusterPlan(cluster, h, per_cta, GROUP_WARPS, layout_of(per_cta), shape)
 
 
-def bind_cluster_entries(lib, prefix: str, source: str) -> None:
+def bind_cluster_entries(lib, prefix: str, source: str, partials: int = GROUP_WARPS) -> None:
     """Bind `<prefix>_cluster_occupancy_{f32,f64}` of a loaded library and
-    check `<prefix>_geometry` — threads a CTA, warp groups a CTA, warps a
-    group, per-channel constants and sizeof(SmemLayout) — against what
-    smem_layout sizes the regions by."""
+    check `<prefix>_geometry` — threads a CTA, warp groups a CTA, chi^2
+    partials a group (`partials`: K1's one a warp by default),
+    per-channel constants and sizeof(SmemLayout) — against what
+    smem_layout sizes the library's regions by."""
     for sfx in ("f32", "f64"):
         fn = getattr(lib, f"{prefix}_cluster_occupancy_{sfx}")
         fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
@@ -162,9 +170,9 @@ def bind_cluster_entries(lib, prefix: str, source: str) -> None:
     fn = getattr(lib, f"{prefix}_geometry")
     fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
     fn(geometry)
-    want = (THREADS, GROUPS, GROUP_WARPS, CHAN_CONSTS, 4 * (len(REGIONS) + 2))
+    want = (THREADS, GROUPS, partials, CHAN_CONSTS, 4 * (len(REGIONS) + 2))
     if tuple(geometry) != want:
-        raise RuntimeError(f"{source}: (threads, groups, warps a group, channel constants, "
+        raise RuntimeError(f"{source}: (threads, groups, partials a group, channel constants, "
                            f"sizeof(SmemLayout)) are {tuple(geometry)} in the library but "
                            f"{want} in the binding")
 

@@ -7,10 +7,14 @@ K-component ensemble (theta = [ss x K | Ncol x K | Tex | vlsr x K | dV],
 the GOTHAM / TMC-1 family, reference TMC1_four_component.py): both
 sequential half-updates of every step, each with its walker gathers, the
 K-component LTE model, the ordered-velocity prior and the acceptance
-write-back. The ensemble is spread over one thread-block cluster
+write-back. A launch takes one of two paths (`steps_plan`), each
+evaluating a proposal with the whole CTA: the wide path, where the K
+chains' h = W / 2 CTAs each fit the card at once — one cooperative launch,
+CTA j of a chain owning proposal j of every half-update
+(`plan_multi_wide`) — else one thread-block cluster a chain
 (csrc/cluster_step.cuh: 16 CTAs, or 8 where the card cannot place 16,
-each owning a slice of every half-update's proposals, four warps a
-proposal); `plan_multi_cluster` is its geometry. It reads the
+each owning a slice of every half-update's proposals;
+`plan_multi_cluster`). It reads the
 channel-major tables of the gather formulation (models/sparse_opacity.py):
 for each channel, the few lines whose ±10·dv_max window can touch it,
 with the hfs group of each, so the opacity sums run in the TPU kernel's
@@ -43,8 +47,8 @@ from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_D
 from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.sampler import cluster
-from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, SMEM_LIMIT, ClusterPlan,
-                                                 SmemLayout, itemsize, make_plan)
+from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, SMEM_LIMIT, THREADS,
+                                                 ClusterPlan, SmemLayout, itemsize, make_plan)
 from cha1_mcmc_tpu_torch.sampler.fused import (
     _AA, _MAX_CHEB, _MAX_POLY, _SUFFIX, FusedEnsemble,
     bind_kernel_library, chain_batched, check_step_block, check_tensor, gauss_norm,
@@ -52,12 +56,23 @@ from cha1_mcmc_tpu_torch.sampler.fused import (
 from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["window_extents", "fused_multi_supported", "MultiStatics",
-           "multi_statics_tables", "multi_lnprob_plain", "multi_steps_plain",
+           "multi_statics_tables", "multi_lnprob_plain", "multi_prior_plain",
+           "multi_steps_plain",
            "multi_lnprob", "multi_step_block", "MultiFusedEnsemble",
-           "make_fused_ensemble_multi", "smem_layout", "plan_multi_cluster", "cluster_occupancy", "cluster_plan", "checked_plan",
+           "make_fused_ensemble_multi", "K2_LANE_WARPS", "smem_layout",
+           "plan_multi_cluster", "plan_multi_wide", "cluster_occupancy", "cluster_plan",
+           "wide_capacity", "choose_steps_plan", "steps_plan", "checked_plan",
            "load_kernel_library", "LAUNCHES"]
 
 _MAX_COMP = 4   # kMaxComp of the kernel's MultiStatics (csrc/multi_step.cu)
+
+#: K2's lnprob (csrc/multi_step.cu: MultiGroupLnProb) is one function over
+#: 512 lanes, each warp of lanes' sum a chi^2 partial: K2_LANE_WARPS
+#: partials a proposal (checked against k2_geometry when the library
+#: loads). The cluster path, the lnprob entry and K5c run it in
+#: cluster.GROUPS groups of four warps a CTA, four lanes a thread; the wide
+#: path in one group of all 16 warps.
+K2_LANE_WARPS = 16
 
 #: Kernel launches per K2 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
@@ -93,15 +108,17 @@ def window_extents(vel_grid: np.ndarray, mask_center: float, dv_max: float):
 
 def smem_layout(dtype, ncomp: int, n_lines: int, n_channels: int, n_entries: int, *,
                 state_rows: int = 0, ndim: int = 0, per_cta: int = 0,
-                stage: bool | None = None) -> SmemLayout:
+                stage: bool | None = None, groups: int = cluster.GROUPS) -> SmemLayout:
     """The shared memory of a K2 / K5c / lnprob launch (cluster.smem_layout
     with the entries' hfs group table): [the (state_rows, D+1) state,]
-    [the staged tables,] each warp group's (K, La) tau and chi^2 partials,
-    the owned proposals and their stretch factors, [the entry line indices
-    and groups,] flags and counters. `stage` None stages the tables where
-    the staged layout fits a CTA, else not."""
+    [the staged tables,] each of the `groups` lnprob groups' (K, La) tau
+    and 16 chi^2 partials (four a CTA; one on the wide path), the owned
+    proposals and their stretch factors, [the entry line indices and
+    groups,] flags and counters. `stage` None stages the tables where the
+    staged layout fits a CTA, else not."""
     return cluster.smem_layout(dtype, ncomp, n_lines, n_channels, n_entries,
-                               state_rows=state_rows, ndim=ndim, per_cta=per_cta, stage=stage)
+                               state_rows=state_rows, ndim=ndim, per_cta=per_cta, stage=stage,
+                               groups=groups, partials=K2_LANE_WARPS)
 
 
 def plan_multi_cluster(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
@@ -120,6 +137,21 @@ def plan_multi_cluster(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
         dtype, ncomp, n_lines, n_channels, n_entries,
         state_rows=nwalkers if resident_state else 0, ndim=D, per_cta=per_cta,
         stage=stage), shape)
+
+
+def plan_multi_wide(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
+                    n_entries: int, dtype, stage: bool | None = None) -> ClusterPlan:
+    """The geometry of a K2 step launch on the wide path: h = W / 2 CTAs a
+    chain and no thread-block cluster, CTA j owning proposal j of every
+    half-update (owned(j) is [j, j + 1)) with all its 16 warps, one lnprob
+    group; no copy of the state in shared memory (the kernel reads the
+    rows it needs from the chain output), the tables staged where they fit
+    (`stage` None)."""
+    h = nwalkers // 2
+    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype), True)
+    layout = smem_layout(dtype, ncomp, n_lines, n_channels, n_entries, ndim=3 * ncomp + 2,
+                         per_cta=1, stage=stage, groups=1)
+    return ClusterPlan(h, h, 1, THREADS // 32, layout, shape, wide=True)
 
 
 def fused_multi_supported(model, spec, dv_max: float, *, nwalkers: int = 128,
@@ -291,9 +323,20 @@ def multi_lnprob_plain(theta, tables, st: MultiStatics):
         model = model + dil * (J_T - J_Tbg) * (1.0 - torch.exp(-opac[:, k]))
     resid = y - model
     ll = -0.5 * torch.sum(resid * resid * isig - torch.log(isig), dim=-1)
+    ok, lp = multi_prior_plain(theta, st)
+    val = lp + ll
+    return torch.where(ok & torch.isfinite(val), val, -torch.inf)
 
-    ok = torch.ones(N, dtype=torch.bool, device=dev)
-    lp = torch.zeros_like(ll)
+
+def multi_prior_plain(theta, st: MultiStatics):
+    """The ordered-velocity prior of K2's lnprob, (N, D) -> (ok (N,) bool,
+    ln prior (N,)), in _make_multi_lnprob's order: the kernel refuses a
+    theta whose `ok` is False before its likelihood runs."""
+    K = st.ncomp
+    ss, Ncol = theta[:, :K], theta[:, K:2 * K]
+    Tex, vlsr, dV = theta[:, 2 * K], theta[:, 2 * K + 1:3 * K + 1], theta[:, 3 * K + 1]
+    ok = torch.ones(theta.shape[0], dtype=torch.bool, device=theta.device)
+    lp = torch.zeros(theta.shape[0], dtype=theta.dtype, device=theta.device)
     lo_ss, hi_ss = st.ss_bounds
     lo_n, hi_n = st.ncol_bounds
     for k in range(K):
@@ -310,8 +353,7 @@ def multi_lnprob_plain(theta, tables, st: MultiStatics):
     for x, mu, sd in ((Tex, st.mean_tex, st.std_tex), (dV, st.mean_dv, st.std_dv)):
         u = (x - mu) / sd
         lp = lp + (gauss_norm(sd) - 0.5 * (u * u))
-    val = lp + ll
-    return torch.where(ok & torch.isfinite(val), val, -torch.inf)
+    return ok, lp
 
 
 def multi_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables,
@@ -353,7 +395,13 @@ def load_kernel_library():
     if _library is None:
         lib, log = bind_kernel_library("multi_step.cu", "k2", (17, 9), (10, 6),
                                        _STATICS, "k5c_half", (15, 7))
-        cluster.bind_cluster_entries(lib, "k2", "multi_step.cu")
+        cluster.bind_cluster_entries(lib, "k2", "multi_step.cu", K2_LANE_WARPS)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for sfx in _SUFFIX.values():
+            fn = getattr(lib, f"k2_wide_steps_{sfx}")
+            fn.argtypes, fn.restype = [P] * 17 + [I] * 8 + [P], I
+            fn = getattr(lib, f"k2_wide_capacity_{sfx}")
+            fn.argtypes, fn.restype = [P, ctypes.POINTER(I)], I
         _library = lib, log
     return _library
 
@@ -383,16 +431,62 @@ def cluster_plan(entry: str, nwalkers: int, ncomp: int, n_lines: int, n_channels
         lambda plan: cluster_occupancy(entry, plan, dtype, device))
 
 
+@functools.lru_cache(maxsize=64)
+def wide_capacity(layout: SmemLayout, dtype, device: torch.device) -> int:
+    """The CTAs of the wide K2 kernel at `layout` that the card keeps
+    resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs;
+    0 where the card has no cooperative launch)."""
+    lib, _ = load_kernel_library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(lib, f"k2_wide_capacity_{_SUFFIX[dtype]}")(
+            ctypes.addressof(layout.packed), ctypes.byref(out))
+    raise_on(err, lib.k2_error_string, "wide capacity", "K2")
+    return out.value
+
+
+def choose_steps_plan(wide: ClusterPlan, chains: int, capacity: int, cluster_of) -> ClusterPlan:
+    """The path of a K2 step launch of `chains` chains: the wide plan
+    `wide` where it fits a CTA and the chains' CTAs, chains x h, fit the
+    `capacity` CTAs the card keeps resident at once (wide_capacity); else
+    `cluster_of()`, a cluster plan."""
+    if wide.fits and chains * wide.cluster <= capacity:
+        return wide
+    return cluster_of()
+
+
+@functools.lru_cache(maxsize=64)
+def steps_plan(nwalkers: int, chains: int, ncomp: int, n_lines: int, n_channels: int,
+               n_entries: int, dtype, device: torch.device) -> ClusterPlan:
+    """The plan a K2 step launch of `chains` chains of nwalkers walkers
+    takes on this card: the wide path where its chains x h CTAs fit the card
+    at once (choose_steps_plan), else cluster_plan's."""
+    sizes = (ncomp, n_lines, n_channels, n_entries, dtype)
+    wide = plan_multi_wide(nwalkers, *sizes)
+    capacity = wide_capacity(wide.layout, dtype, device) if wide.fits else 0
+    return choose_steps_plan(wide, chains, capacity, lambda: cluster_plan(
+        "steps", nwalkers, *sizes, device)[0])
+
+
 def checked_plan(entry: str, plan: ClusterPlan | None, nwalkers: int, ncomp: int,
-                 n_lines: int, n_channels: int, n_entries: int, dtype, device) -> ClusterPlan:
-    """The plan a K2 ("steps") or K5c ("half") launch runs: cluster_plan's,
-    or the caller's `plan` (a geometry chosen with plan_multi_cluster, as
-    the card tests choose 8 CTAs or unstaged tables) after checking it was
+                 n_lines: int, n_channels: int, n_entries: int, dtype, device,
+                 chains: int = 1) -> ClusterPlan:
+    """The plan a K2 ("steps", of `chains` chains) or K5c ("half") launch
+    runs: steps_plan's / cluster_plan's, or the caller's `plan` (a geometry
+    chosen with plan_multi_wide or plan_multi_cluster, as the card tests
+    choose the wide path, 8 CTAs or unstaged tables) after checking it was
     made for these sizes and fits a CTA."""
     shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype),
              entry == "steps")
-    return cluster.checked_plan(f"K2 {entry}", plan, shape, lambda: cluster_plan(
-        entry, nwalkers, ncomp, n_lines, n_channels, n_entries, dtype, device)[0])
+    if entry == "steps":
+        def default():
+            return steps_plan(nwalkers, chains, ncomp, n_lines, n_channels, n_entries, dtype,
+                              device)
+    else:
+        def default():
+            return cluster_plan(entry, nwalkers, ncomp, n_lines, n_channels, n_entries, dtype,
+                                device)[0]
+    return cluster.checked_plan(f"K2 {entry}", plan, shape, default)
 
 
 @functools.lru_cache(maxsize=16)
@@ -442,26 +536,27 @@ def _check_dims(D, st: MultiStatics, dtype):
 
 
 def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
-    """One K2 launch of K chains, one cluster each (fused.check_step_block's
-    layout): chain (K, k*W, D), lnps (K, k*W), acc (K, k)."""
+    """One K2 launch of K chains on the plan's path, h CTAs or one
+    cluster a chain (fused.check_step_block's layout): chain (K, k*W, D),
+    lnps (K, k*W), acc (K, k). A wide launch the card refuses raises."""
     lib, _ = load_kernel_library()
     dtype, dev = coords.dtype, coords.device
     K, W, D, k = check_step_block(coords, lnp, perm, z_u, pair, acc_u, "K2")
     _check_dims(D, st, dtype)
     La, M, C, S = _check_tables(tables, dtype, dev)
-    plan = checked_plan("steps", plan, W, st.ncomp, La, C, M, dtype, dev)
+    plan = checked_plan("steps", plan, W, st.ncomp, La, C, M, dtype, dev, chains=K)
     packed = _pack_statics(st, dtype)
     out_chain = torch.empty((K, k * W, D), dtype=dtype, device=dev)
     out_lnps = torch.empty((K, k * W), dtype=dtype, device=dev)
     out_acc = torch.empty((K, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k2_fused_steps_{_SUFFIX[dtype]}")(
-            coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
-            pair.data_ptr(), acc_u.data_ptr(),
-            *(t.data_ptr() for t in tables),
+    ptrs = (coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
+            pair.data_ptr(), acc_u.data_ptr(), *(t.data_ptr() for t in tables),
             out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
-            ctypes.addressof(packed), ctypes.addressof(plan.layout.packed),
-            W, D, La, M, C, S, k, K, plan.cluster,
+            ctypes.addressof(packed), ctypes.addressof(plan.layout.packed))
+    entry, tail = ("wide_steps", ()) if plan.wide else ("fused_steps", (plan.cluster,))
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"k2_{entry}_{_SUFFIX[dtype]}")(
+            *ptrs, W, D, La, M, C, S, k, K, *tail,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k2_error_string, "multi_steps", "K2")
     LAUNCHES["multi_steps"] += 1
@@ -503,8 +598,8 @@ def multi_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: MultiStatics, plan: ClusterPlan | None = None):
     """k whole steps (layout as in fused.steps_plain) of one ensemble, or
     of K with a leading chain axis: one CUDA kernel launch for CUDA
-    tensors, one cluster a chain — with cluster_plan's geometry, or `plan`
-    — the plain version for CPU tensors."""
+    tensors — on steps_plan's path, or `plan`'s — the plain version for
+    CPU tensors."""
     if route(coords, "K2") == "cuda":
         return chain_batched(_launch_steps, coords, lnp, perm, z_u, pair, acc_u,
                              tables, st, plan)
@@ -515,30 +610,52 @@ def multi_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
 class MultiFusedEnsemble(FusedEnsemble):
     """K2's runner: FusedEnsemble's run(pos0, lnp0, nsteps, k_steps)
     contract, each k steps one K2 launch (`make_fused_ensemble_multi`), for
-    one ensemble or K (a leading chain axis)."""
+    one ensemble or K (a leading chain axis). `wide_launches` counts its
+    step launches that took the wide path."""
+
+    wide_launches: int = dataclasses.field(default=0, compare=False)
 
     def lnprob(self, theta):
         return multi_lnprob(theta, self.tables, self.statics)
 
-    def step_block(self, coords, lnp, perm, z_u, pair, acc_u):
-        return multi_step_block(coords, lnp, perm, z_u, pair, acc_u,
-                                self.tables, self.statics)
-
-    def plan_counts(self, nwalkers: int) -> dict:
-        """What a step launch of one ensemble of `nwalkers` walkers takes,
-        found without a card: the components, the CTAs of its cluster
-        (cluster_plan's choice with the card's occupancy left unasked: the
-        largest size whose plan fits a CTA, which the launch takes where
-        the card places such a cluster), whether the tables are staged in
-        shared memory (1) or read from device memory (0), the shared
-        memory of a CTA and the tables' bytes."""
+    def launch_plan(self, coords) -> ClusterPlan:
+        """The plan of the step launch of `coords` ((W, D) or (K, W, D) on
+        the card): steps_plan's at its walkers and chains."""
         lines, vel = self.tables[0], self.tables[1]
-        plan, _ = cluster.cluster_plan(
-            "K2 steps", lambda n: plan_multi_cluster(
-                nwalkers, self.statics.ncomp, lines.shape[1], vel.shape[1], vel.shape[0],
-                vel.dtype, cluster=n), lambda plan: 1)
-        return dict(components=self.statics.ncomp, ctas=plan.cluster, staged=int(plan.staged),
-                    smem_bytes=plan.smem_bytes,
+        chains = coords.shape[0] if coords.dim() == 3 else 1
+        return steps_plan(coords.shape[-2], chains, self.statics.ncomp, lines.shape[1],
+                          vel.shape[1], vel.shape[0], coords.dtype, coords.device)
+
+    def step_block(self, coords, lnp, perm, z_u, pair, acc_u):
+        plan = self.launch_plan(coords) if route(coords, "K2") == "cuda" else None
+        out = multi_step_block(coords, lnp, perm, z_u, pair, acc_u, self.tables,
+                               self.statics, plan=plan)
+        if plan is not None and plan.wide:
+            object.__setattr__(self, "wide_launches", self.wide_launches + 1)
+        return out
+
+    def plan_counts(self, nwalkers: int, n_chains: int = 1, capacity: int | None = None) -> dict:
+        """What a step launch of `n_chains` ensembles of `nwalkers` walkers
+        takes: the components, the CTAs a chain, whether it takes the wide
+        path (1) or a cluster (0), whether the tables are staged in shared
+        memory (1) or read from device memory (0), the shared memory of a
+        CTA and the tables' bytes. The wide path where the chains' CTAs fit
+        `capacity` (choose_steps_plan; None: the card's wide_capacity where
+        the tables are on one, else 0, as no launch is made off the card),
+        else cluster_plan's choice with the card's occupancy left unasked:
+        the largest size whose plan fits a CTA, which the launch takes where
+        the card places such a cluster."""
+        lines, vel = self.tables[0], self.tables[1]
+        sizes = (self.statics.ncomp, lines.shape[1], vel.shape[1], vel.shape[0], vel.dtype)
+        wide = plan_multi_wide(nwalkers, *sizes)
+        if capacity is None:
+            capacity = (wide_capacity(wide.layout, vel.dtype, vel.device)
+                        if vel.is_cuda and wide.fits else 0)
+        plan = choose_steps_plan(wide, n_chains, capacity, lambda: cluster.cluster_plan(
+            "K2 steps", lambda n: plan_multi_cluster(nwalkers, *sizes, cluster=n),
+            lambda plan: 1)[0])
+        return dict(components=self.statics.ncomp, ctas=plan.cluster, wide=int(plan.wide),
+                    staged=int(plan.staged), smem_bytes=plan.smem_bytes,
                     table_bytes=sum(t.numel() * t.element_size() for t in self.tables))
 
 

@@ -331,15 +331,17 @@ def run_blocks(step, pos0, lnp0, rnd, tables, st):
     return torch.cat(chain, dim=-2), torch.cat(lnps, dim=-1), torch.cat(acc, dim=-1)
 
 
-def event_ms(fn, warm=None):
+def event_ms(fn, warm=None, lead=None):
     """ms of one fn() call by CUDA events, after a warm() call where one is
-    given."""
+    given; `lead` is queued on the card just before the first event."""
     import torch
 
     if warm is not None:
         warm()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if lead is not None:
+        lead()
     t0.record()
     fn()
     t1.record()
@@ -347,16 +349,24 @@ def event_ms(fn, warm=None):
     return t0.elapsed_time(t1)
 
 
-def block_us(step, pos0, lnp0, rb, tables, st):
+def block_us(step, pos0, lnp0, rb, tables, st, queued=False):
     """us per step of the blocks `rb` through `step` from pos0 (W, D) or
-    (K, W, D) (step_blocks), by CUDA events after a warm-up block."""
+    (K, W, D) (step_blocks), by CUDA events after a warm-up block. With
+    `queued`, the card first sleeps for ~20 ms, long enough for the host to
+    queue every launch: the events then time the card alone, not the
+    host's launch path where a launch takes less than its enqueue."""
+    import torch
+
     def run():
         for _ in step_blocks(step, pos0, lnp0, rb, tables, st):
             pass
 
+    def warm():
+        step(pos0, lnp0, *(t[0] for t in rb), tables, st)
+
     nb = rb[0].shape[0]
-    warm = (lambda: step(pos0, lnp0, *(t[0] for t in rb), tables, st))
-    return 1e3 * event_ms(run, warm) / (nb * K_STEPS)
+    lead = (lambda: torch.cuda._sleep(40_000_000)) if queued else None
+    return 1e3 * event_ms(run, warm, lead) / (nb * K_STEPS)
 
 
 def check_kernel(label, fns, t32, t64, th, pos0, yerrs, gen, errs, n_f32_steps):
@@ -563,6 +573,8 @@ def cluster_family(kind):
 
     def plan(tb, st, nwalkers, cluster, stage, resident):
         La, M, C = sizes(tb)
+        if cluster == "wide":   # K2's wide path: a step launch only
+            return fm.plan_multi_wide(nwalkers, st.ncomp, La, C, M, tb[0].dtype, stage=stage)
         return fm.plan_multi_cluster(nwalkers, st.ncomp, La, C, M, tb[0].dtype,
                                      cluster=cluster, resident_state=resident, stage=stage)
 
@@ -578,10 +590,14 @@ def cluster_plans(kind, tb, st, nwalkers, cluster, stage):
     """The step kernel's and the half-step's plans of `kind` (K1 / K2) for
     `nwalkers` walkers on the tables `tb` at `cluster` CTAs, tables staged
     (True), read from device memory (False) or as they fit (None); (None,
-    None) for cluster=None: cluster_plan's."""
+    None) for cluster=None: the card's choice. cluster="wide" (K2): the
+    wide step path beside the half-step's own choice (K5c has no wide
+    path)."""
     if cluster is None:
         return None, None
     fam = cluster_family(kind)
+    if cluster == "wide":
+        return fam["plan"](tb, st, nwalkers, cluster, stage, True), None
     return tuple(fam["plan"](tb, st, nwalkers, cluster, stage, r) for r in (True, False))
 
 
@@ -648,6 +664,50 @@ def check_cluster_chains(kind, label, tb, st, pos0, seed, geometries, errs):
         assert np.array_equal(l5.reshape(-1), lk), f"{where}: lnps differ from {kind}'s"
 
 
+def check_k2_f32_paths(case, errs, nwalkers=W, seed=7):
+    """Phase 3: K2's float32 paths against each other, 64 steps from the
+    walker ball: the wide path (one group of 16 warps, a lnprob lane a
+    thread), the 16- and 8-CTA clusters and K5c at world size 1 (groups of
+    four warps, four lanes a thread), chains, lnps and acceptances
+    bitwise, and the lnprob entry equal to the in-chain lnps of every
+    walker that moved: one float32 lnprob whatever runs it. Returns the
+    runs compared."""
+    import functools
+
+    import numpy as np
+    import torch
+    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
+    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    label, m32, m64, spec, means, stds, pert, grid = case
+    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
+    pos0 = multi_pos0(means, pert, seed=seed)[:nwalkers].to(torch.float32)
+    lnp0 = fm.multi_lnprob(pos0, tb, st)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    rnd = draw_randomness(64, nwalkers, gen, device=DEVICE, dtype=torch.float32)
+    runs = {}
+    for name, n in (("wide", "wide"), ("16 CTAs", 16), ("8 CTAs", 8)):
+        plan = cluster_plans("K2", tb, st, nwalkers, n, None)[0]
+        runs[name] = [t.cpu().numpy() for t in run_blocks(
+            functools.partial(fm.multi_step_block, plan=plan), pos0, lnp0, rnd, tb, st)]
+    c5, l5, a5, _ = run_k5(sf.sharded_multi_half, (tb, st), pos0, lnp0, rnd)
+    runs["K5c"] = [c5.reshape(-1, pos0.shape[1]).cpu().numpy(), l5.reshape(-1).cpu().numpy(),
+                   a5.cpu().numpy()]
+    cw, lw, aw = runs["wide"]
+    assert 0 < aw.sum() < 64 * nwalkers, f"K2 {label} f32: no proposal or every one accepted"
+    for name, (c, l, a) in runs.items():
+        assert np.array_equal(c, cw) and np.array_equal(a, aw), f"K2 {label} f32 {name}"
+        assert np.array_equal(l, lw), f"K2 {label} f32 {name}: lnps differ from the wide path's"
+    moved = (cw[-nwalkers:] != pos0.cpu().numpy()).any(axis=1)
+    entry = fm.multi_lnprob(torch.as_tensor(cw[-nwalkers:], device=DEVICE), tb, st)
+    assert np.array_equal(entry.cpu().numpy()[moved], lw[-nwalkers:][moved]), \
+        f"K2 {label} f32: the lnprob entry differs from the in-chain lnps"
+    errs["K2 f32 paths"] = float(moved.mean())
+    return list(runs)
+
+
 def flagship_pos0(ndim, nwalkers=W, seed=0, dtype=None):
     """The flagship's walker ball: 1% around the injected truth (source
     size 52 in 5 dims), f64 (or `dtype`) on the card."""
@@ -675,10 +735,14 @@ def check_geometries(flagship_case, gotham_case, wide_case, errs):
     64-step chains at W walkers (check_cluster_chains). K1 and K5a on the
     flagship case, K2 and K5c on the GOTHAM case: 8 CTAs (the size taken
     where a card places no cluster of 16) and 16 CTAs with the tables read
-    from device memory. On the wide GOTHAM-shaped problem
-    (WIDE_MULTIPLETS multiplets), whose f64 tables do not fit a CTA:
-    cluster_plan's own geometry for K2, which must read them from device
-    memory (K2, K5c and the lnprob entry)."""
+    from device memory, and for K2 16 CTAs staged (its cluster path, off
+    the main path where one chain takes the wide one) and its wide path
+    with the tables in device memory. On the wide GOTHAM-shaped problem
+    (WIDE_MULTIPLETS multiplets), whose f64 tables do not fit a cluster
+    CTA: the card's own choice for K2 (the wide path, whose CTA holds no
+    state and stages them) and K5c (which must read them from device
+    memory), the lnprob entry (device memory too) and the wide path
+    unstaged."""
     import torch
     from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
 
@@ -691,8 +755,10 @@ def check_geometries(flagship_case, gotham_case, wide_case, errs):
     phase(3, "check", f"K1 and K5a {label} ({La} lines x {C} channels x {M} entries, f64, "
           f"{W} walkers) at " + ", ".join(n for n, _, _ in plans) + ": 64-step chains "
           "bitwise vs plain and K5a vs K1, lnprob entry = in-chain lnps")
-    for case, geometries in ((gotham_case, off_main),
-                             (wide_case, (("cluster_plan's", None, None),))):
+    wide_unstaged = ("wide, unstaged", "wide", False)
+    k2_off_main = (("16 CTAs, staged", 16, True),) + off_main + (wide_unstaged,)
+    for case, geometries in ((gotham_case, k2_off_main),
+                             (wide_case, (("the card's choice", None, None), wide_unstaged))):
         label, m32, m64, spec, means, stds, pert, grid = case
         _, (st, tb) = multi_tables(m32, m64, spec, means, stds, grid)
         (M, C), La = tb[1].shape, tb[0].shape[1]
@@ -735,11 +801,21 @@ def staging_limits(tb, ncomp):
     return out
 
 
-def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16):
+#: The geometries phase 4 times a cluster step kernel at: (name, CTAs,
+#: staged); K2 also on its wide path.
+TIMED_GEOMETRIES = (("16 CTAs, staged", 16, True), ("8 CTAs, staged", 8, True),
+                    ("16 CTAs, unstaged", 16, False))
+K2_TIMED_GEOMETRIES = (("wide", "wide", None),) + TIMED_GEOMETRIES
+
+
+def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16,
+                    geometries=TIMED_GEOMETRIES, rb=None, where="", queued=False):
     """Phase 4: a cluster step kernel (`kind`, K1 or K2) in f32 from the
-    walkers pos0 at 16 CTAs (the main path's geometry), at 8 CTAs and at
-    16 CTAs with the tables read from device memory, in turns over `nb`
-    launches of 16 steps: (name, median, q1, q3 us/step) per geometry."""
+    walkers pos0 at each of `geometries` (16 CTAs, the flagship's main
+    path; 8 CTAs; 16 CTAs with the tables read from device memory; K2's
+    wide path), in turns over `nb` launches of 16 steps of the block
+    randomness `rb` (drawn where None), by block_us (`queued`: the card's
+    time alone): (name, median, q1, q3 us/step) per geometry."""
     import functools
 
     from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
@@ -749,19 +825,104 @@ def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16):
     lnp0 = fam["lnprob_plain"](pos0, tb, st)
     w = pos0.shape[0]
     steps = {name: functools.partial(fam["step"], plan=cluster_plans(
-        kind, tb, st, w, n, stage)[0]) for name, n, stage in (
-            ("16 CTAs, staged", 16, True), ("8 CTAs, staged", 8, True),
-            ("16 CTAs, unstaged", 16, False))}
-    rb = block_randomness(draw_randomness(nb * K_STEPS, w, gen, device=DEVICE), K_STEPS)
+        kind, tb, st, w, n, stage)[0]) for name, n, stage in geometries}
+    if rb is None:
+        rb = block_randomness(draw_randomness(nb * K_STEPS, w, gen, device=DEVICE), K_STEPS)
+    nb = rb[0].shape[0]
     times = {name: [] for name in steps}
     order = list(steps)
     for _ in range(TIMING_PAIRS):   # in turns, forwards then backwards
         for name in order + order[::-1]:
-            times[name].append(block_us(steps[name], pos0, lnp0, rb, tb, st))
+            times[name].append(block_us(steps[name], pos0, lnp0, rb, tb, st, queued))
     out = [(name, *quartiles(ts)) for name, ts in times.items()]
-    phase(4, "time", f"{kind} {label} by geometry, {w} walkers, f32, median [q1, q3] of "
-          f"{2 * TIMING_PAIRS} runs of {nb} launches: " + "; ".join(
+    phase(4, "time", f"{kind} {label} by geometry{where}, {w} walkers, f32, median [q1, q3] "
+          f"of {2 * TIMING_PAIRS} runs of {nb} launches: " + "; ".join(
               f"{n} {m:.2f} [{a:.2f}, {b:.2f}] us/step" for n, m, a, b in out) + f"; {device}")
+    return out
+
+
+#: The steps of a `hc9n-chain` chain: the state K2's paths are timed from
+#: besides the walker ball.
+CELL_STEPS = 65_536
+
+
+def k2_cell_state(tb, st, pos0, gen, nsteps=CELL_STEPS, block=512):
+    """The walkers after `nsteps` f32 steps of K2's main path from pos0 (a
+    chain of the benchmark cell's length), in blocks of `block` steps of
+    which only the state is kept."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler import MultiFusedEnsemble
+
+    run = MultiFusedEnsemble(tb, st)
+    pos, lnp = pos0, run.lnprob(pos0)
+    for _ in range(nsteps // block):
+        _, _, _, (pos, lnp) = run(pos, lnp, block, K_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    return pos
+
+
+def k2_refusal_share(tb, st, pos0, rb, nb=2):
+    """The share of the proposals of the first `nb` launches of the block
+    randomness `rb` from pos0 that the ordered-velocity prior refuses
+    before the likelihood runs: the plain version's steps in f32 on the
+    host, each proposal batch counted by multi_prior_plain."""
+    from cha1_mcmc_tpu_torch.sampler.fused import steps_plain
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import multi_lnprob_plain, multi_prior_plain
+
+    tables = tuple(t.cpu() for t in tb)
+    counts = [0, 0]
+
+    def counted(theta):
+        ok, _ = multi_prior_plain(theta, st)
+        counts[0] += int((~ok).sum())
+        counts[1] += theta.shape[0]
+        return multi_lnprob_plain(theta, tables, st)
+
+    pos = pos0.cpu()
+    lnp = multi_lnprob_plain(pos, tables, st)
+    w = pos.shape[0]
+    for b in range(nb):
+        chain, lnps, _ = steps_plain(counted, st.a, pos, lnp, *(t[b].cpu() for t in rb))
+        pos, lnp = chain[-w:].contiguous(), lnps[-w:].contiguous()
+    return counts[0] / counts[1]
+
+
+def time_k2_paths(case, gen, device, nb=16):
+    """Phase 4: K2 on a GOTHAM case in f32 at W walkers, each path and
+    cluster geometry (wide; 16 and 8 CTAs staged; 16 CTAs unstaged) timed in
+    turns (time_geometries) from the walker ball, from the state after a
+    chain of the cell's length (CELL_STEPS steps) and from walkers all
+    outside the prior box (dV near 1 against the 0.3 bound: every proposal
+    refused before its likelihood, so a step is the grid barriers or
+    cluster syncs, the row loads and the acceptance alone: the floor); the
+    prior's refusal share of each start's first two launches on the host.
+    Returns {start: (refusal share, [(name, median, q1, q3 us/step)])}."""
+    import torch
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
+
+    label, m32, m64, spec, means, stds, pert, grid = case
+    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
+    ball = multi_pos0(means, pert, seed=1).to(torch.float32)
+    t0 = time.perf_counter()
+    cell = k2_cell_state(tb, st, ball, gen)
+    chain_s = time.perf_counter() - t0
+    floor = ball.clone()
+    floor[:, -1] = 1.0 + 0.1 * torch.rand(W, generator=gen, device=DEVICE)
+    out = {}
+    for name, pos0, geometries in (
+            ("the walker ball", ball, K2_TIMED_GEOMETRIES),
+            (f"a {CELL_STEPS}-step chain's state", cell, K2_TIMED_GEOMETRIES),
+            ("walkers outside the prior box (the floor)", floor,
+             (K2_TIMED_GEOMETRIES[0], K2_TIMED_GEOMETRIES[1]))):
+        rb = block_randomness(draw_randomness(nb * K_STEPS, W, gen, device=DEVICE), K_STEPS)
+        refused = k2_refusal_share(tb, st, pos0, rb)
+        times = time_geometries("K2", label, tb, st, pos0, gen, device, geometries=geometries,
+                                rb=rb, queued=True, where=f" from {name} (prior refuses "
+                                f"{refused:.4f} of the proposals; the card's time alone)")
+        out[name] = (refused, times)
+    phase(4, "time", f"K2 {label}: the {CELL_STEPS}-step chain to the second start took "
+          f"{chain_s:.2f} s on the main path ({k2_path(tb, st, W, 1)}); {device}")
     return out
 
 
@@ -1640,6 +1801,15 @@ def cluster_geometry(kind, label, tb, st, device):
               f"{'staged' if plan.staged else 'in device memory'}; "
               f"cudaOccupancyMaxActiveClusters: 16 CTAs {answers[16]}, "
               f"8 CTAs {answers[8]} ({device})")
+    if kind == "K2":
+        wide = fam["plan"](tb, st, W, "wide", None, True)
+        capacity = fam["module"].wide_capacity(wide.layout, dtype, dev)
+        phase(2, "build", f"K2 wide path, {label}, {W} walkers, f32: {wide.cluster} CTAs a "
+              f"chain x 512 threads in one cooperative launch, one proposal a CTA "
+              f"({wide.warps_per_proposal} warps), {wide.smem_bytes} B shared memory a CTA, "
+              f"tables {'staged' if wide.staged else 'in device memory'}; the card keeps "
+              f"{capacity} such CTAs resident, so a launch of up to "
+              f"{capacity // wide.cluster} chains of {W} walkers takes it ({device})")
 
 
 def k1_entries(case, device):
@@ -1987,7 +2157,17 @@ def chain_starts(kind, case, n_chains, stuck=True):
     return pos
 
 
-def check_chains(kind, case, errs):
+def k2_path(tb, st, nwalkers, chains):
+    """'wide' or 'cluster': the path a K2 step launch of `chains` chains
+    of nwalkers walkers takes on the tables `tb` (fused_multi.steps_plan)."""
+    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+
+    La, M, C = cluster_family("K2")["sizes"](tb)
+    plan = fm.steps_plan(nwalkers, chains, st.ncomp, La, C, M, tb[0].dtype, tb[0].device)
+    return "wide" if plan.wide else "cluster"
+
+
+def check_chains(kind, case, errs, ks=None):
     """Phase 3: K independent chains in one launch of a cluster step kernel
     (K1 on a flagship case, K2 on a GOTHAM case) at W walkers a chain, 64
     steps in blocks of 16, at K = 1, 3 and one past the clusters the card
@@ -1998,7 +2178,8 @@ def check_chains(kind, case, errs):
     plain version chain by chain (chain and acceptances bitwise, lnps rtol
     1e-12). Walker 3 of every chain starts outside the prior box and keeps
     lnp = -inf at every step, never NaN (F4). One launch a block for all K
-    chains. Returns the chain counts checked."""
+    chains. `ks`: other chain counts instead. Returns the chain counts
+    checked."""
     import numpy as np
     import torch
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
@@ -2009,8 +2190,10 @@ def check_chains(kind, case, errs):
     tabs = dict(zip((torch.float32, torch.float64),
                     flagship_tables(case) if kind == "K1" else multi_tables(*case[1:6],
                                                                            case[7])))
-    occupancy = max(chain_occupancy(kind, tb, st) for st, tb in tabs.values())
-    ks = tuple(sorted({1, 3, occupancy + 1}))
+    if ks is None:
+        occupancy = max(chain_occupancy(kind, tb, st) for st, tb in tabs.values())
+        ks = (1, 3, occupancy + 1)
+    ks = tuple(sorted(set(ks)))
     n = ks[-1]
     for dtype in (torch.float64, torch.float32):
         st, tb = tabs[dtype]
@@ -2108,6 +2291,10 @@ class FaultOnce:
     def __init__(self, run_fn, at):
         self.run_fn, self.at, self.calls, self.raised = run_fn, at, 0, 0
         self.lnprob = run_fn.lnprob
+
+    def __getattr__(self, name):
+        # the rest of the runner's interface (a K2 runner's plan_counts)
+        return getattr(self.run_fn, name)
 
     def __call__(self, *args, **kwargs):
         from cha1_mcmc_tpu_torch.utils import DeviceError
@@ -3350,11 +3537,14 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3e}" for k, v in errs_g.items()) + f" ({device})")
         errs_c = {}
         ks1 = check_chains("K1", all_cases[0], errs_c)
-        ks2 = check_chains("K2", gotham[0], errs_c)
+        occ2 = chain_occupancy("K2", tb2, st2)
+        ks2 = check_chains("K2", gotham[0], errs_c, ks=(1, 2, 3, 4, occ2 + 1))
+        paths2 = ", ".join(f"K={K} {k2_path(tb2, st2, W, K)}" for K in ks2)
         phase(3, "check", f"K chains of {W} walkers in one launch, 64 steps: K1 "
-              f"{all_cases[0][0]} at K = {ks1}, K2 {gotham[0][0]} at K = {ks2} (the last past "
-              "the clusters the card holds at once): each chain bitwise equal to it launched "
-              "alone in f32 and f64 and to the plain version in f64 (lnps rtol 1e-12; max "
+              f"{all_cases[0][0]} at K = {ks1}, K2 {gotham[0][0]} at K = {ks2} ({paths2}; "
+              "the last past the clusters the card holds at once): each chain bitwise equal "
+              "to it launched alone in f32 and f64 and to the plain version in f64 (lnps "
+              "rtol 1e-12; max "
               f"|kernel - plain| K1 {errs_c['K1']:.3e}, K2 {errs_c['K2']:.3e}), walker 3 of "
               f"every chain at lnp = -inf every step (F4), one launch a block ({device})")
         for case in dense:
@@ -3395,9 +3585,7 @@ def main() -> int:
         t2, w2 = time_multi(gotham[0], gen)
         t2 = report_times("K2", t2, f"K=4, {m9.n_lines} lines x {m9.n_channels} channels",
                           "16 launches a run", device)
-        glabel, _, _, _, gmeans, _, gpert, _ = gotham[0]
-        time_geometries("K2", glabel, tb2, st2,
-                        multi_pos0(gmeans, gpert, seed=1).to(torch.float32), gen, device)
+        time_k2_paths(gotham[0], gen, device)
         tc1 = time_chains("K1", all_cases[0], gen, device)
         tc2 = time_chains("K2", gotham[0], gen, device)
         t3, _, w3, _ = time_dense(dense[0], gen, device)

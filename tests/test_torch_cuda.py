@@ -23,11 +23,14 @@ cluster launches of K1 and K2 over walker counts whose proposals split
 raggedly over their CTAs, at 16 CTAs, 8 CTAs and 16 CTAs with the tables
 in device memory: f64 64-step chains bitwise against the plain version —
 K1 at W = 64, 96, 100, 256 and 2048 in analytic 4 dims and state-sum 5
-dims, K2 at W = 64, 96, 100 and 256 for K = 1, 2 and 4 (lnps rtol 1e-12;
-the lnprob entry equal to the in-chain lnps; K5a / K5c at the same W) —
-and K5a / K5c at W_l = 32, 40 and 64 bitwise against their plain versions
-and against K1 / K2; and K2 and K5c on a problem too wide for their f64
-tables to be staged. K chains of 128 walkers in one K1 / K2 launch (one
+dims, K2 at W = 64, 96, 100 and 256 for K = 1, 2 and 4, also on its wide
+path of W / 2 CTAs (lnps rtol 1e-12; the lnprob entry equal to the
+in-chain lnps; K5a / K5c at the same W) — and K5a / K5c at W_l = 32, 40
+and 64 bitwise against their plain versions and against K1 / K2; K2's
+float32 paths bitwise against each other; K2 and K5c on a problem too
+wide for their f64 tables to be staged; the path K2 takes by the chains
+the card holds at once, and a wide launch too large for the card
+raising. K chains of 128 walkers in one K1 / K2 launch (one
 cluster a chain) at K = 1, 3 and one past the clusters the card holds at
 once: each chain bitwise equal to it launched alone (f32, f64) and to the
 plain version (f64), the -inf walkers per chain, one kernel event a block
@@ -136,6 +139,8 @@ def _k2_case(gotham_cases, ncomp):
 #: cluster of 16, and 16 CTAs with the tables read from device memory (the
 #: layout of problems too wide to stage).
 GEOMETRIES = {"16": (16, True), "8": (8, True), "16-unstaged": (16, False)}
+#: K2's besides: its wide path (h CTAs a chain, one cooperative launch).
+K2_GEOMETRIES = {**GEOMETRIES, "wide": ("wide", None)}
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
@@ -177,17 +182,19 @@ def test_k5a_cluster_chains_bitwise(k5_cases, w_local, geometry):
                                     [(geometry, *plans)], {})
 
 
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@pytest.mark.parametrize("geometry", list(K2_GEOMETRIES))
 @pytest.mark.parametrize("ncomp", [1, 2, 4])
 @pytest.mark.parametrize("nwalkers", [64, 96, 100, 256])
 def test_k2_cluster_chains_bitwise(gotham_cases, k5_cases, nwalkers, ncomp, geometry):
     """K2's cluster launch against the plain version, f64, 64 steps, at
     walker counts whose h = W / 2 proposals split over 16 CTAs as 2, 3,
-    3 or 4 (W = 100: ragged) and 8 (W = 256: two rounds of four a CTA),
-    over 8 CTAs as 4, 6, 6 or 7 and 16: chains and acceptances bitwise,
-    lnps rtol 1e-12; the lnprob entry gives the in-chain lnps of every
-    walker that moved bitwise (one device lnprob); K5c at the same walker
-    count and geometry bitwise against its plain version and K2
+    3 or 4 (W = 100: ragged) and 8 (W = 256: eight rounds of one a CTA),
+    over 8 CTAs as 4, 6, 6 or 7 and 16; and on its wide path, h = 32, 48,
+    50 (ragged) and 128 CTAs of one proposal: chains and acceptances
+    bitwise, lnps rtol 1e-12; the lnprob entry gives the in-chain lnps of
+    every walker that moved bitwise (one device lnprob); K5c at the same
+    walker count (at its cluster geometry, or the card's choice beside the
+    wide path) bitwise against its plain version and K2
     (chip_smoke.check_cluster_chains)."""
     import chip_smoke
 
@@ -196,8 +203,25 @@ def test_k2_cluster_chains_bitwise(gotham_cases, k5_cases, nwalkers, ncomp, geom
     rng = np.random.default_rng(nwalkers + ncomp)
     pos0 = torch.as_tensor(means + pert * rng.standard_normal((nwalkers, means.size)),
                            dtype=torch.float64, device="cuda")
-    plans = chip_smoke.cluster_plans("K2", tb, st, nwalkers, *GEOMETRIES[geometry])
+    plans = chip_smoke.cluster_plans("K2", tb, st, nwalkers, *K2_GEOMETRIES[geometry])
+    assert (plans[0] is not None and plans[0].wide) == (geometry == "wide")
     chip_smoke.check_cluster_chains("K2", label, tb, st, pos0, 11, [(geometry, *plans)], {})
+
+
+@pytest.mark.parametrize("label", ["analytic-4c", "states-4c", "analytic-1c"])
+@pytest.mark.parametrize("nwalkers", [100, 128])
+def test_k2_f32_paths_bitwise(gotham_cases, k5_cases, nwalkers, label):
+    """K2's float32 paths, 64 steps: the wide path (one group of 16 warps,
+    a lnprob lane a thread), the 16- and 8-CTA clusters and K5c (groups of
+    four warps, four lanes a thread) give the same chains, lnps and
+    acceptances bitwise, and the lnprob entry the in-chain lnps of the
+    walkers that moved (chip_smoke.check_k2_f32_paths)."""
+    import chip_smoke
+
+    errs = {}
+    assert chip_smoke.check_k2_f32_paths(gotham_cases[label], errs, nwalkers=nwalkers) == [
+        "wide", "16 CTAs", "8 CTAs", "K5c"]
+    assert 0 < errs["K2 f32 paths"] <= 1     # the share of walkers that moved
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
@@ -231,18 +255,20 @@ def wide_case(tmp_path_factory):
 def test_k2_k5c_read_the_tables_from_device_memory_past_the_staging_limit(
         cuda_cases, gotham_cases, k5_cases, wide_case):
     """On a GOTHAM-shaped problem of ~2,100 channels, whose f64 tables do
-    not fit a CTA's shared memory, the geometry the card takes for K2, K5c
-    and the lnprob entry reads them from device memory, and the chains
-    stay bitwise (chip_smoke.check_geometries, as phase 3 runs it: the
-    flagship's and the GOTHAM case's 8-CTA and unstaged geometries
-    included)."""
+    not fit a cluster CTA's shared memory, K5c and the lnprob entry read
+    them from device memory, K2's wide path (the card's choice, its CTA
+    holding no state) stages them, and the chains stay bitwise, the wide
+    path unstaged too (chip_smoke.check_geometries, as phase 3 runs it:
+    the flagship's and the GOTHAM case's 8-CTA and unstaged geometries and
+    K2's 16-CTA cluster included)."""
     import chip_smoke
 
     errs = {}
     chip_smoke.check_geometries(cuda_cases["analytic-4d"], gotham_cases["analytic-4c"],
                                 wide_case, errs)
-    assert set(errs) == {"K1 8 CTAs, staged", "K1 16 CTAs, unstaged", "K2 8 CTAs, staged",
-                         "K2 16 CTAs, unstaged", "K2 cluster_plan's"}
+    assert set(errs) == {"K1 8 CTAs, staged", "K1 16 CTAs, unstaged", "K2 16 CTAs, staged",
+                         "K2 8 CTAs, staged", "K2 16 CTAs, unstaged", "K2 wide, unstaged",
+                         "K2 the card's choice"}
 
 
 @pytest.fixture(scope="module")
@@ -450,6 +476,60 @@ def test_chains_in_one_launch_equal_each_chain_alone(cuda_cases, gotham_cases, k
     case = (cuda_cases if kind == "K1" else gotham_cases)[label]
     ks = chip_smoke.check_chains(kind, case, {})
     assert len(ks) == 3 and ks[-1] > 3
+
+
+@pytest.mark.parametrize("chains", ["2", "4", "past capacity"])
+def test_k2_chains_take_the_path_their_ctas_fit(gotham_cases, chains):
+    """K chains of 128 walkers in one K2 launch take the wide path exactly
+    where their K x 64 CTAs fit the card's co-resident CTAs of the wide
+    kernel (2 chains on an H100's 132 SMs; 4 chains where the card holds
+    fewer than 256), else the cluster path (the least K past the capacity
+    always): each chain bitwise equal to it launched alone (the wide path
+    at K = 1) in f32 and f64 and to the plain version in f64, the -inf
+    walker per chain, one launch a block (chip_smoke.check_chains)."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+
+    case = gotham_cases["analytic-4c"]
+    (st, tb), _ = chip_smoke.multi_tables(*case[1:6], case[7])
+    La, M, C = chip_smoke.cluster_family("K2")["sizes"](tb)
+    wide = fm.plan_multi_wide(chip_smoke.W, st.ncomp, La, C, M, torch.float32)
+    capacity = fm.wide_capacity(wide.layout, torch.float32, tb[0].device)
+    assert capacity >= 2 * wide.cluster, capacity
+    K = capacity // wide.cluster + 1 if chains == "past capacity" else int(chains)
+    path = chip_smoke.k2_path(tb, st, chip_smoke.W, K)
+    assert path == ("wide" if K * wide.cluster <= capacity else "cluster")
+    assert chip_smoke.k2_path(tb, st, chip_smoke.W, 1) == "wide"
+    assert chip_smoke.check_chains("K2", case, {}, ks=(1, K)) == (1, K)
+
+
+def test_k2_wide_launch_past_the_card_raises(gotham_cases):
+    """A wide plan handed in for more chains than the card holds at once is
+    refused by the card (a cooperative launch too large): the wrapper
+    raises DeviceError, counts no launch and runs nothing else."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
+    from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
+    from cha1_mcmc_tpu_torch.utils import DeviceError
+
+    case = gotham_cases["analytic-4c"]
+    (st, tb), _ = chip_smoke.multi_tables(*case[1:6], case[7])
+    La, M, C = chip_smoke.cluster_family("K2")["sizes"](tb)
+    wide = fm.plan_multi_wide(chip_smoke.W, st.ncomp, La, C, M, torch.float32)
+    K = fm.wide_capacity(wide.layout, torch.float32, tb[0].device) // wide.cluster + 1
+    pos0 = chip_smoke.chain_starts("K2", case, K, stuck=False).to(torch.float32)
+    lnp0 = torch.stack([fm.multi_lnprob(p, tb, st) for p in pos0])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    rnd = draw_chain_randomness(K, chip_smoke.K_STEPS, chip_smoke.W, gen, device="cuda")
+    rb = tuple(t[0] for t in block_randomness(rnd, chip_smoke.K_STEPS))
+    before = fm.LAUNCHES["multi_steps"]
+    with pytest.raises(DeviceError, match="multi_steps"):
+        fm.multi_step_block(pos0, lnp0, *rb, tb, st, plan=wide)
+    assert fm.LAUNCHES["multi_steps"] == before
+    out = fm.multi_step_block(pos0, lnp0, *rb, tb, st)      # the card's choice runs
+    assert fm.LAUNCHES["multi_steps"] == before + 1 and out[0].shape[0] == K
 
 
 @pytest.mark.parametrize("kind", ["K1", "K2"])
@@ -712,16 +792,16 @@ def test_multifit_k2_plan_span_counts_the_plan_k2_launches(tmp_path):
     """A float32 MultiComponentFit through K2 on the card (the real
     factory, the configuration's 66 lines x 1,138 channels) records one
     `pipeline/k2_plan` inside a `pipeline/model`: its counts are
-    plan_multi_cluster's at 128 walkers and 16 CTAs, the plan the launch
-    took (cluster_plan's)."""
+    plan_multi_wide's at 128 walkers (64 CTAs, `wide` 1), the plan every
+    launch took (steps_plan's), and the runner counts each of its launches
+    as wide."""
     _require_card()
     import contextlib
     import io
 
     from cha1_mcmc_tpu_torch import MultiComponentFit, MultiFitConfig
     from cha1_mcmc_tpu_torch.sampler import FusedEnsembleSampler
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import (LAUNCHES, cluster_plan,
-                                                         plan_multi_cluster)
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import LAUNCHES, plan_multi_wide, steps_plan
     from cha1_mcmc_tpu_torch.utils import metrics
     from tests.port_problems import write_hc9n_problem
 
@@ -740,10 +820,12 @@ def test_multifit_k2_plan_span_counts_the_plan_k2_launches(tmp_path):
     lines, vel = tables[:2]
     shape = (lines.shape[1], vel.shape[1], vel.shape[0])
     assert shape[:2] == (66, 1138)
-    plan = plan_multi_cluster(128, 4, *shape, torch.float32, cluster=16)
-    launched, _ = cluster_plan("steps", 128, 4, *shape, torch.float32, vel.device)
-    assert launched.cluster == 16 and launched.layout == plan.layout
-    want = dict(components=4, ctas=16, staged=int(plan.staged), smem_bytes=plan.smem_bytes,
+    plan = plan_multi_wide(128, 4, *shape, torch.float32)
+    launched = steps_plan(128, 1, 4, *shape, torch.float32, vel.device)
+    assert launched == plan and launched.wide
+    assert fit.sampler.run_fn.wide_launches == 4
+    want = dict(components=4, ctas=64, wide=1, staged=int(plan.staged),
+                smem_bytes=plan.smem_bytes,
                 table_bytes=sum(t.numel() * t.element_size() for t in tables))
     ours = [r for r in metrics.spans() if r.trace == fit.throughput.trace_id]
     (k2,) = [r for r in ours if r.name == "pipeline/k2_plan"]

@@ -454,17 +454,17 @@ def test_k2_shared_memory_gate(reduced, port_k2):
     # GOTHAM full size: 128 walkers x 14 dims, 66 lines, 1,138 channels, 3
     # entries a channel, f32, 16 CTAs: per CTA the state, the staged chans
     # (3 rows), 4 constants a channel, the entry velocities (3, 1138) and the
-    # lines (5, 66), 4 groups' (4, 66) tau, 16 partials, 4 owned proposals
-    # and stretch factors; the entry indices and groups (2, 3, 1138), 4
-    # flags and 2 counters
+    # lines (5, 66), 4 groups' (4, 66) tau and 16 partials each (the lnprob's
+    # 512 lanes as 16 warps' sums), 4 owned proposals and stretch factors;
+    # the entry indices and groups (2, 3, 1138), 4 flags and 2 counters
     plan = plan_multi_cluster(128, 4, 66, 1138, 3, torch.float32)
     assert (plan.cluster, plan.per_cta, plan.warps_per_proposal) == (16, 4, 4)
-    assert plan.staged
+    assert plan.staged and not plan.wide
     assert plan.smem_bytes == (4 * (128 * 15 + 7 * 1138 + 3 * 1138 + 5 * 66 + 4 * 4 * 66
-                                    + 16 + 4 * 15 + 4) + 4 * (2 * 3 * 1138 + 4 + 2))
+                                    + 4 * 16 + 4 * 15 + 4) + 4 * (2 * 3 * 1138 + 4 + 2))
     # unstaged: no table, no per-channel constant
     unstaged = plan_multi_cluster(128, 4, 66, 1138, 3, torch.float32, stage=False)
-    assert unstaged.smem_bytes == (4 * (128 * 15 + 4 * 4 * 66 + 16 + 4 * 15 + 4)
+    assert unstaged.smem_bytes == (4 * (128 * 15 + 4 * 4 * 66 + 4 * 16 + 4 * 15 + 4)
                                    + 4 * (4 + 2))
     model = port_model(jax_gotham_model(*reduced, "float32"), torch.float32)
     assert fused_multi_supported(model, ParamSpec(ncomp=4), DV_BOUND)
@@ -527,7 +527,7 @@ def test_k2_cluster_plan_fits_gotham(dtype, cluster):
     assert k2.smem_bytes - k5c.smem_bytes == item * 128 * 15
     P = 64 // cluster
     tables = 7 * 1138 + 3 * 1138 + 5 * 66
-    assert k5c.smem_bytes == (item * (tables + 4 * 4 * 66 + 16 + P * 15 + P)
+    assert k5c.smem_bytes == (item * (tables + 4 * 4 * 66 + 4 * 16 + P * 15 + P)
                               + 4 * (2 * 3 * 1138 + P + 2))
 
 
@@ -551,7 +551,7 @@ def test_k2_smem_layout_regions_tile_the_bytes(dtype, resident, stage):
     t = int(stage)
     sizes = dict(state=item * W * D1 * resident, chans=item * 3 * C * t,
                  cc=item * 4 * C * t, vel=item * M * C * t, lines=item * 5 * La * t,
-                 tau=item * 4 * K * La, part=item * 16, prop=item * P * D1, zz=item * P,
+                 tau=item * 4 * K * La, part=item * 4 * 16, prop=item * P * D1, zz=item * P,
                  line_idx=4 * M * C * t, group=4 * M * C * t, flag=4 * P, acc=8)
     offsets = dict(zip(_T_REGIONS + _I_REGIONS, plan.layout.offsets))
     at = 0
@@ -563,6 +563,104 @@ def test_k2_smem_layout_regions_tile_the_bytes(dtype, resident, stage):
     wider = plan_multi_cluster(W, K, La, 10 * C, M, dtype, cluster=n, resident_state=resident,
                                stage=stage)
     assert (wider.smem_bytes == plan.smem_bytes) == (not stage)
+
+
+@pytest.mark.parametrize("nwalkers", [64, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_wide_plan_gives_each_proposal_a_cta(dtype, nwalkers):
+    """K2's wide plan: h = W / 2 CTAs a chain, CTA j owning proposal j of
+    every half-update with all 16 warps, one lnprob group, no copy of the
+    state in shared memory — the K5c layout of one proposal a CTA at one
+    group — the tables staged at the GOTHAM size."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (plan_multi_cluster, plan_multi_wide,
+                                                         smem_layout)
+
+    h = nwalkers // 2
+    wide = plan_multi_wide(nwalkers, 4, 66, 1138, 3, dtype)
+    assert wide.wide and (wide.cluster, wide.proposals, wide.per_cta) == (h, h, 1)
+    assert wide.warps_per_proposal == 16 and wide.fits and wide.staged
+    assert [j for r in range(h) for j in wide.owned(r)] == list(range(h))
+    assert wide.shape == plan_multi_cluster(nwalkers, 4, 66, 1138, 3, dtype).shape
+    assert wide.layout == smem_layout(dtype, 4, 66, 1138, 3, ndim=14, per_cta=1, groups=1)
+    one_a_cta = plan_multi_cluster(2, 4, 66, 1138, 3, dtype, cluster=1, resident_state=False)
+    item = torch.empty((), dtype=dtype).element_size()
+    assert one_a_cta.smem_bytes - wide.smem_bytes == item * 3 * (4 * 66 + 16)
+
+
+@pytest.mark.parametrize("nwalkers,chains,capacity,wide", [
+    (128, 1, 132, True), (128, 2, 132, True), (128, 3, 132, False), (128, 4, 132, False),
+    (128, 4, 264, True), (128, 5, 264, False), (100, 2, 100, True), (100, 2, 99, False),
+    (256, 1, 132, True), (256, 2, 132, False), (2048, 1, 132, False), (128, 1, 0, False)])
+def test_k2_wide_path_is_taken_exactly_when_the_chains_fit(nwalkers, chains, capacity, wide):
+    """choose_steps_plan takes the wide plan exactly where the launch's
+    chains x h CTAs fit the co-resident CTAs it is given (0: a card with
+    no cooperative launch), else the cluster plan it is handed."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (choose_steps_plan, plan_multi_cluster,
+                                                         plan_multi_wide)
+
+    wide_plan = plan_multi_wide(nwalkers, 4, 66, 1138, 3, torch.float32)
+    clustered = plan_multi_cluster(nwalkers, 4, 66, 1138, 3, torch.float32)
+    chosen = choose_steps_plan(wide_plan, chains, capacity, lambda: clustered)
+    assert (chosen is wide_plan) == wide and (chosen is clustered) == (not wide)
+    assert wide == (chains * (nwalkers // 2) <= capacity)
+
+
+def test_k2_wide_path_needs_a_plan_that_fits():
+    """Past what a CTA's shared memory holds the wide plan is not taken,
+    whatever the card's capacity."""
+    import dataclasses
+
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import choose_steps_plan, plan_multi_wide
+
+    wide = plan_multi_wide(128, 4, 66, 113_800, 3, torch.float32, stage=True)
+    assert not wide.fits
+    assert choose_steps_plan(wide, 1, 10_000, lambda: "cluster") == "cluster"
+    fits = dataclasses.replace(wide, layout=plan_multi_wide(128, 4, 66, 1138, 3,
+                                                            torch.float32).layout)
+    assert choose_steps_plan(fits, 1, 10_000, lambda: "cluster") is fits
+
+
+@pytest.mark.parametrize("n_chains,capacity,want", [
+    (1, 132, (64, 1)), (2, 132, (64, 1)), (4, 132, (16, 0)), (4, 264, (64, 1)),
+    (1, None, (16, 0))])
+def test_k2_plan_counts_report_the_path(port_k2, n_chains, capacity, want):
+    """MultiFusedEnsemble.plan_counts (the `pipeline/k2_plan` span's counts)
+    at 128 walkers a chain: the CTAs a chain and `wide` 1 where the chains
+    fit the capacity given, else the 16-CTA cluster and 0; on CPU tables
+    with no capacity given, where no launch is made, the cluster plan."""
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster, plan_multi_wide
+
+    counts = port_k2.plan_counts(128, n_chains, capacity=capacity)
+    lines, vel = port_k2.tables[:2]
+    sizes = (4, lines.shape[1], vel.shape[1], vel.shape[0], vel.dtype)
+    plan = (plan_multi_wide(128, *sizes) if want[1]
+            else plan_multi_cluster(128, *sizes, cluster=16))
+    assert (counts["ctas"], counts["wide"]) == want
+    assert counts["smem_bytes"] == plan.smem_bytes and counts["staged"] == int(plan.staged)
+    assert counts["components"] == 4
+    assert port_k2.wide_launches == 0     # nothing launched on the CPU
+
+
+def test_k1_geometry_and_layout_are_unchanged():
+    """K1 keeps its four 4-warp groups a CTA (sampler/cluster.py's
+    constants, which K1's library is checked against) and its layout at
+    the flagship size; K2's cluster plans take four groups of four warps
+    too, each with 16 chi^2 partials (its lnprob's 512 lanes)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_multi
+
+    assert (cluster.THREADS, cluster.GROUPS, cluster.GROUP_WARPS) == (512, 4, 4)
+    assert fused_multi.K2_LANE_WARPS == 16
+    assert fused_multi.plan_multi_cluster(128, 4, 66, 1138, 3,
+                                          torch.float32).warps_per_proposal == 4
+    plan = fused.plan_fused_cluster(128, 4, 9, 561, 2, torch.float32)
+    assert (plan.cluster, plan.per_cta, plan.warps_per_proposal) == (16, 4, 4)
+    assert not plan.wide and plan.staged
+    # the state (128, 5), the staged chans (3, 561), 4 constants a channel,
+    # the entry velocities (2, 561), the lines (5, 9), 4 groups' (9,) tau and
+    # 16 partials, 4 proposals (4, 5) and stretch factors; the entry indices
+    # (2, 561), 4 flags and 2 counters
+    assert plan.smem_bytes == (4 * (128 * 5 + 7 * 561 + 2 * 561 + 5 * 9 + 4 * 9 + 16
+                                    + 4 * 5 + 4) + 4 * (2 * 561 + 4 + 2)) == 27_752
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
