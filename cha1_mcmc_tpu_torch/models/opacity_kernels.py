@@ -45,7 +45,8 @@ import torch
 
 from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_DV
 from cha1_mcmc_tpu_torch.models.sparse_opacity import TC, TL, window_is_exact
-from cha1_mcmc_tpu_torch.sampler.fused import _AA, check_tensor, raise_on, route
+from cha1_mcmc_tpu_torch.sampler.cluster import check_tensor, raise_on, route
+from cha1_mcmc_tpu_torch.sampler.fused import _AA
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 

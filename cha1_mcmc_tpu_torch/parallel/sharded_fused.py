@@ -14,8 +14,9 @@ communication. Per ensemble step, per half:
 
 The half-step is K5a (csrc/fused_step.cu: K1's lnprob over its entry
 tables), K5c (csrc/multi_step.cu: K2's multi-component lnprob), each K1's
-or K2's cluster half-update on one cluster of 16 or 8 CTAs, or
-K5b (csrc/gather_step.cu: K3's persistent cooperative half-step over the
+or K2's cluster half-update on one cluster of 16 or 8 CTAs, launched by
+the cluster binding (sampler/cluster.py:launch_half), or K5b
+(csrc/gather_step.cu: K3's persistent cooperative half-step over the
 channel-major gather tables, spread over the card). The runners are
 ShardedRunner's (parallel/sharded.py): the same split, pairing,
 randomness and global outputs as the general sharded runner; only the
@@ -47,8 +48,9 @@ import torch
 
 from cha1_mcmc_tpu_torch.parallel.sharded import (CHAIN_AXIS, LINE_AXIS, WALKER_AXIS,
                                                   Mesh, ShardedRunner, shard_lnprob)
-from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
-from cha1_mcmc_tpu_torch.sampler.fused import (_SUFFIX, check_tensor, raise_on, route)
+from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_gather, fused_multi
+from cha1_mcmc_tpu_torch.sampler.cluster import (_SUFFIX, check_half, launch_half, raise_on,
+                                                 route)
 from cha1_mcmc_tpu_torch.sampler.stretch import half_step
 from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
@@ -76,11 +78,12 @@ def _local_walkers(mesh: Mesh, nwalkers: int) -> int | None:
 
 def fused_sharded_supported(model, mesh: Mesh, nwalkers: int, *, ndim: int = 4) -> bool:
     """Can K5a run this mesh's half-steps? One line shard, and K1's gate
-    (fused_fits) at the rank's walker count with K5a's cluster plan (the
-    state stays in device memory; the JAX version tests VMEM)."""
+    (cluster.admits) at the rank's walker count with K5a's cluster plan
+    (the state stays in device memory; the JAX version tests VMEM)."""
     w_local = _local_walkers(mesh, nwalkers)
-    return w_local is not None and fused.fused_fits(w_local, ndim, model.n_lines,
-                                                    model.dtype, resident_state=False)
+    return w_local is not None and cluster.admits(fused.FAMILY, w_local, 1, ndim,
+                                                  model.n_lines, model.dtype,
+                                                  resident_state=False)
 
 
 def fused_multi_sharded_supported(model, spec, dv_max: float, mesh: Mesh,
@@ -140,72 +143,9 @@ def sharded_gather_half_plain(state, active, comp, z_u, pair, acc_u, tables, st,
 
 # -- the CUDA kernels --------------------------------------------------------
 
-def _check_half(kernel, state, active, comp, z_u, pair, acc_u, ndim):
-    """Check a half-step's operands; returns (W_l, D, n_comp)."""
-    dtype, dev = state.dtype, state.device
-    if dtype not in _SUFFIX:
-        raise ValueError(f"{kernel} takes float32 or float64 walkers, not {dtype}")
-    W, D1 = state.shape
-    D, h, n = D1 - 1, W // 2, comp.shape[0]
-    if W % 2 or D != ndim:
-        raise ValueError(f"{kernel}: a ({W}, {D1}) state for a {ndim}-dim problem "
-                         "(takes an even walker count)")
-    check_tensor(state, "state", dtype, (W, D1), dev, kernel)
-    check_tensor(active, "active", torch.int32, (h,), dev, kernel)
-    check_tensor(comp, "comp", dtype, (n, D), dev, kernel)
-    for name, t in (("z_u", z_u), ("acc_u", acc_u)):
-        check_tensor(t, name, dtype, (h,), dev, kernel)
-    check_tensor(pair, "pair", torch.int32, (h,), dev, kernel)
-    return W, D, n
-
-
-def _operands(state, active, comp, z_u, pair, acc_u):
-    return tuple(t.data_ptr() for t in (state, active, comp, z_u, pair, acc_u))
-
-
-def _launch_half(state, active, comp, z_u, pair, acc_u, tables, st, plan):
-    lib, _ = fused.load_kernel_library()
-    W, D, _ = _check_half("K5a", state, active, comp, z_u, pair, acc_u,
-                          len(st.bounds_lo))
-    dtype, dev = state.dtype, state.device
-    tb, (La, M, C, S) = fused.kernel_tables(tables, dtype, dev, "K5a")
-    plan = fused.checked_plan("half", plan, W, D, La, C, M, dtype, dev)
-    out_acc = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k5a_half_{_SUFFIX[dtype]}")(
-            *_operands(state, active, comp, z_u, pair, acc_u),
-            *(t.data_ptr() for t in tb), out_acc.data_ptr(),
-            ctypes.addressof(fused._pack_statics(st, dtype)),
-            ctypes.addressof(plan.layout.packed), W, D, La, M, C, S, plan.cluster,
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, lib.k1_error_string, "sharded_half", "K5a")
-    LAUNCHES["sharded_half"] += 1
-    return out_acc
-
-
-def _launch_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan):
-    lib, _ = fused_multi.load_kernel_library()
-    W, D, _ = _check_half("K5c", state, active, comp, z_u, pair, acc_u, st.ndim)
-    dtype, dev = state.dtype, state.device
-    La, M, C, S = fused_multi._check_tables(tables, dtype, dev)
-    plan = fused_multi.checked_plan("half", plan, W, st.ncomp, La, C, M, dtype, dev)
-    out_acc = torch.empty(1, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k5c_half_{_SUFFIX[dtype]}")(
-            *_operands(state, active, comp, z_u, pair, acc_u),
-            *(t.data_ptr() for t in tables), out_acc.data_ptr(),
-            ctypes.addressof(fused_multi._pack_statics(st, dtype)),
-            ctypes.addressof(plan.layout.packed), W, D, La, M, C, S, plan.cluster,
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, lib.k2_error_string, "sharded_multi_half", "K5c")
-    LAUNCHES["sharded_multi_half"] += 1
-    return out_acc
-
-
 def _launch_gather_half(state, active, comp, z_u, pair, acc_u, tables, st, geom):
     lib, _ = fused_gather.load_kernel_library()
-    W, D, _ = _check_half("K5b", state, active, comp, z_u, pair, acc_u,
-                          len(st.bounds_lo))
+    W, D, _ = check_half("K5b", state, active, comp, z_u, pair, acc_u, st.ndim)
     dtype, dev = state.dtype, state.device
     if W > fused_gather._MAX_WALKERS:
         raise ValueError(f"K5b: {W} local walkers (takes up to "
@@ -215,7 +155,7 @@ def _launch_gather_half(state, active, comp, z_u, pair, acc_u, tables, st, geom)
     out_acc = torch.empty(1, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = getattr(lib, f"k5b_half_{_SUFFIX[dtype]}")(
-            *_operands(state, active, comp, z_u, pair, acc_u), *ptrs, *scratch,
+            *(t.data_ptr() for t in (state, active, comp, z_u, pair, acc_u)), *ptrs, *scratch,
             out_acc.data_ptr(), ctypes.addressof(fused._pack_statics(st, dtype)), W, D,
             *ints, torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, lib.k3_error_string, "sharded_gather_half", "K5b")
@@ -226,20 +166,22 @@ def _launch_gather_half(state, active, comp, z_u, pair, acc_u, tables, st, geom)
 def sharded_half(state, active, comp, z_u, pair, acc_u, tables, st, plan=None):
     """K5a: one half-step of the (W_l, D+1) state in place (operands as in
     half_update_plain; K1's tables and statics). One kernel launch for
-    CUDA tensors — with fused.cluster_plan's geometry, or `plan`, one of
-    plan_fused_cluster(resident_state=False) — the plain version for CPU
-    tensors. Returns the accepted count, (1,) float32."""
+    CUDA tensors — with cluster.cluster_plan's geometry, or `plan`, one of
+    cluster.plan_cluster(fused.FAMILY, ..., resident_state=False) — the plain
+    version for CPU tensors. Returns the accepted count, (1,) float32."""
     if route(state, "K5a") == "cuda":
-        return _launch_half(state, active, comp, z_u, pair, acc_u, tables, st, plan)
+        return launch_half(fused.FAMILY, LAUNCHES, state, active, comp, z_u, pair, acc_u,
+                           tables, st, plan)
     return sharded_half_plain(state, active, comp, z_u, pair, acc_u, tables, st)
 
 
 def sharded_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan=None):
-    """K5c: sharded_half over K2's tables and statics (`plan`: a cluster
-    geometry of plan_multi_cluster(resident_state=False) instead of
-    cluster_plan's)."""
+    """K5c: sharded_half over K2's tables and statics (`plan`: one of
+    cluster.plan_cluster(fused_multi.FAMILY, ..., resident_state=False)
+    instead of cluster_plan's)."""
     if route(state, "K5c") == "cuda":
-        return _launch_multi_half(state, active, comp, z_u, pair, acc_u, tables, st, plan)
+        return launch_half(fused_multi.FAMILY, LAUNCHES, state, active, comp, z_u, pair,
+                           acc_u, tables, st, plan)
     return sharded_multi_half_plain(state, active, comp, z_u, pair, acc_u, tables, st)
 
 

@@ -60,7 +60,7 @@ from cha1_mcmc_tpu_torch.sampler import (
 )
 from cha1_mcmc_tpu_torch.parallel.sharded import (make_sharded_sampler, sharded_device,
                                                   writes_files)
-from cha1_mcmc_tpu_torch.sampler.fused import fused_fits
+from cha1_mcmc_tpu_torch.sampler import cluster, fused
 from cha1_mcmc_tpu_torch.sampler.fused_gather import (make_fused_ensemble_gather,
                                                       plan_fused_gather)
 from cha1_mcmc_tpu_torch.reduce.datagrid import (
@@ -164,12 +164,12 @@ class SpectralFit:
         """The K1 selection rule (JAX fit.py:319-339, and :275-281 for K
         chains): CUDA, one component, float32, and K1's cluster plan for
         one ensemble (nwalkers / n_chains walkers) at 8 CTAs within a CTA's
-        shared memory (fused_fits: no channel limit)."""
+        shared memory (cluster.admits: no channel limit)."""
         cfg = self.config
         return (cfg.use_fused_step and self.device.type == "cuda"
                 and self.spec.ncomp == 1 and self.dtype == torch.float32
-                and fused_fits(cfg.nwalkers // cfg.n_chains, self.spec.ndim,
-                               model.n_lines, self.dtype))
+                and cluster.admits(fused.FAMILY, cfg.nwalkers // cfg.n_chains, 1,
+                                   self.spec.ndim, model.n_lines, self.dtype))
 
     def _use_fused_gather(self, model: SpectralModel) -> bool:
         """The K3 selection rule (JAX fit.py:292-296), for the sparse

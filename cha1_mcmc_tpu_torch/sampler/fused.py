@@ -8,7 +8,9 @@ acceptance write-back — so a fit at the flagship size (128 walkers, ~9
 lines x 561 channels) pays one launch per k steps instead of hundreds of
 small ones per step. The ensemble is spread over one thread-block cluster
 (csrc/cluster_step.cuh: 16 CTAs, or 8 where the card cannot place 16, four
-warps a proposal); `plan_fused_cluster` is its geometry. The kernel walks,
+warps a proposal). `FAMILY` declares what K1 and its sharded half-step
+K5a need of the cluster binding (sampler/cluster.py), which plans, checks
+and launches them; this module keeps the mathematics. The kernel walks,
 per channel, only the lines whose window at the prior's dV bound can
 reach it (the channel-major entry tables of models/sparse_opacity.py:
 build_opacity_gather), in line order.
@@ -38,21 +40,16 @@ from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_D
 from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.sampler import cluster
-from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, ClusterPlan, SmemLayout,
-                                                 itemsize, make_plan)
+from cha1_mcmc_tpu_torch.sampler.cluster import (GROUP_WARPS, ClusterPlan, check_tensor,
+                                                 launch_lnprob, launch_steps, route)
 from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_chain_randomness,
                                                  draw_randomness, half_step)
-from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
-from cha1_mcmc_tpu_torch.utils.device import DeviceError
 from cha1_mcmc_tpu_torch.utils.metrics import first_launch, register_launches
 
 __all__ = ["FusedStatics", "single_statics_tables", "fused_lnprob_plain", "prior_box",
            "steps_plain", "fused_steps_plain", "fused_lnprob", "fused_step_block",
            "FusedEnsemble", "make_fused_ensemble", "FusedEnsembleSampler",
-           "fused_fits", "smem_layout", "plan_fused_cluster", "cluster_occupancy",
-           "cluster_plan", "checked_plan", "kernel_tables", "load_kernel_library",
-           "block_randomness", "check_step_block", "chain_batched",
-           "LAUNCHES"]
+           "kernel_tables", "FAMILY", "block_randomness", "LAUNCHES"]
 
 # Limits of the kernel's Statics struct (csrc/single_statics.cuh).
 _MAX_DIM, _MAX_POLY, _MAX_CHEB = 5, 8, 65
@@ -90,6 +87,14 @@ class FusedStatics:
 
     def q_model(self) -> QModel:
         return statics_q_model(self)
+
+    #: K1's one component; with `ndim`, what the cluster binding sizes a
+    #: launch by (as MultiStatics has them).
+    ncomp = 1
+
+    @property
+    def ndim(self) -> int:
+        return len(self.bounds_lo)
 
     @property
     def ncol_idx(self) -> int:
@@ -303,52 +308,7 @@ def _statics_type(real):
 
 _STATICS = {torch.float32: _statics_type(ctypes.c_float),
             torch.float64: _statics_type(ctypes.c_double)}
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _Q_KIND = {"analytic": 0, "cheb": 1, "states": 2}
-
-_library = None
-
-
-def bind_kernel_library(source_name: str, prefix: str, steps_args, lnprob_args,
-                        statics_types, half_entry: str, half_args):
-    """Build `csrc/<source_name>` (at first use) and bind its C entries:
-    <prefix>_fused_steps_{f32,f64}, <prefix>_lnprob_{f32,f64} and the
-    sharded half-step <half_entry>_{f32,f64} (K5), each taking (pointers,
-    ints) = steps_args / lnprob_args / half_args counts then the stream
-    and returning a CUDA error code; <prefix>_statics_size_*, checked
-    against the ctypes statics struct per dtype; and
-    <prefix>_error_string. Returns (library, nvcc build log, empty when a
-    cached build was loaded)."""
-    path, log = build_library(source_name)
-    lib = ctypes.CDLL(str(path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for dtype, sfx in _SUFFIX.items():
-        for entry, (n_ptr, n_int) in ((f"{prefix}_fused_steps", steps_args),
-                                      (f"{prefix}_lnprob", lnprob_args),
-                                      (half_entry, half_args)):
-            fn = getattr(lib, f"{entry}_{sfx}")
-            fn.argtypes, fn.restype = [P] * n_ptr + [I] * n_int + [P], I
-        size = getattr(lib, f"{prefix}_statics_size_{sfx}")
-        size.argtypes, size.restype = [], I
-        if size() != ctypes.sizeof(statics_types[dtype]):
-            raise RuntimeError(f"{source_name}: the {sfx} statics struct is "
-                               f"{size()} bytes in the library but "
-                               f"{ctypes.sizeof(statics_types[dtype])} in the binding")
-    error_string = getattr(lib, f"{prefix}_error_string")
-    error_string.argtypes, error_string.restype = [I], ctypes.c_char_p
-    return lib, log
-
-
-def load_kernel_library():
-    """Build K1 and K5a (at first use) and load them: returns (ctypes
-    library, nvcc build log, empty when a cached build was loaded)."""
-    global _library
-    if _library is None:
-        lib, log = bind_kernel_library("fused_step.cu", "k1", (16, 9), (9, 6), _STATICS,
-                                       "k5a_half", (14, 7))
-        cluster.bind_cluster_entries(lib, "k1", "fused_step.cu")
-        _library = lib, log
-    return _library
 
 
 def pack_q(s, st, kernel: str = "K1"):
@@ -391,99 +351,6 @@ def _pack_statics(st: FusedStatics, dtype):
     return s
 
 
-def smem_layout(dtype, n_lines: int, n_channels: int, n_entries: int, *,
-                state_rows: int = 0, ndim: int = 0, per_cta: int = 0,
-                stage: bool | None = None) -> SmemLayout:
-    """The shared memory of a K1 / K5a / lnprob launch over La = n_lines
-    active lines, C = n_channels and M = n_entries table entries a channel
-    (cluster.smem_layout for one component, no hfs group table): [the
-    (state_rows, D+1) state,] [the staged tables and per-channel
-    constants,] each warp group's (La,) tau and chi^2 partials, the owned
-    proposals and their stretch factors, [the entry line indices,] flags
-    and counters. `stage` None stages the tables where that fits a CTA."""
-    return cluster.smem_layout(dtype, 1, n_lines, n_channels, n_entries,
-                               state_rows=state_rows, ndim=ndim, per_cta=per_cta,
-                               stage=stage, group_table=False)
-
-
-def plan_fused_cluster(nwalkers: int, ndim: int, n_lines: int, n_channels: int,
-                       n_entries: int, dtype, cluster: int = 16, resident_state: bool = True,
-                       stage: bool | None = None) -> ClusterPlan:
-    """The cluster geometry of a K1 step launch (`resident_state`: each CTA
-    holds the (W, D+1) state) or a K5a half-step launch (the state stays in
-    device memory), for La = n_lines active lines, C = n_channels and M =
-    n_entries table entries a channel: P = ceil(h / cluster) proposals a
-    CTA at most, and its smem_layout — the tables staged where that fits
-    (`stage` None), so the channel count sets only how fast it runs."""
-    shape = (nwalkers, ndim, n_lines, n_channels, n_entries, itemsize(dtype),
-             resident_state)
-    return make_plan(nwalkers, cluster, lambda per_cta: smem_layout(
-        dtype, n_lines, n_channels, n_entries, state_rows=nwalkers if resident_state else 0,
-        ndim=ndim, per_cta=per_cta, stage=stage), shape)
-
-
-def fused_fits(nwalkers: int, ndim: int, n_lines: int, dtype, *,
-               resident_state: bool = True) -> bool:
-    """Does K1 (K5a with resident_state False) take `nwalkers` walkers of
-    `ndim` dims over at most `n_lines` active lines? Its cluster plan at
-    the portable size of 8 CTAs — the larger share per CTA — within a
-    Hopper CTA's 232,448 bytes of shared memory. The tables are staged
-    where they fit and read from device memory otherwise, a layout that
-    grows with the walkers and the lines but not with the channels, so the
-    answer is that unstaged layout's."""
-    return plan_fused_cluster(nwalkers, ndim, n_lines, 1, 1, dtype, cluster=min(CLUSTER_SIZES),
-                              resident_state=resident_state, stage=False).fits
-
-
-def cluster_occupancy(entry: str, plan: ClusterPlan, dtype, device) -> int:
-    """How many clusters of `plan` the card holds at once for the K1
-    ("steps") or K5a ("half") kernel (cudaOccupancyMaxActiveClusters; 0:
-    the card cannot place a cluster of that size)."""
-    lib, _ = load_kernel_library()
-    return cluster.occupancy(getattr(lib, f"k1_cluster_occupancy_{_SUFFIX[dtype]}"),
-                             lib.k1_error_string, f"K1 {entry}", int(entry != "steps"),
-                             plan, device)
-
-
-@functools.lru_cache(maxsize=64)
-def cluster_plan(entry: str, nwalkers: int, ndim: int, n_lines: int, n_channels: int,
-                 n_entries: int, dtype, device: torch.device) -> tuple[ClusterPlan, int]:
-    """The geometry a K1 ("steps") or K5a ("half") launch takes on this card
-    (cluster.cluster_plan: the largest cluster size that fits shared
-    memory and that the card can place), with cudaOccupancyMaxActiveClusters
-    for it. Raises where no size can run."""
-    return cluster.cluster_plan(
-        f"K1 {entry}: {nwalkers} walkers x {ndim} dims x {n_lines} lines x {n_channels} "
-        f"channels x {n_entries} entries",
-        lambda n: plan_fused_cluster(nwalkers, ndim, n_lines, n_channels, n_entries, dtype,
-                                     cluster=n, resident_state=entry == "steps"),
-        lambda plan: cluster_occupancy(entry, plan, dtype, device))
-
-
-def checked_plan(entry: str, plan: ClusterPlan | None, nwalkers: int, ndim: int,
-                 n_lines: int, n_channels: int, n_entries: int, dtype, device) -> ClusterPlan:
-    """The plan a K1 ("steps") or K5a ("half") launch runs: cluster_plan's,
-    or the caller's `plan` (a geometry chosen with plan_fused_cluster, as
-    the card tests choose 8 CTAs or unstaged tables) after checking it was
-    made for these sizes and fits a CTA."""
-    shape = (nwalkers, ndim, n_lines, n_channels, n_entries, itemsize(dtype),
-             entry == "steps")
-    return cluster.checked_plan(
-        f"K{'1' if entry == 'steps' else '5a'} {entry}", plan, shape,
-        lambda: cluster_plan(entry, nwalkers, ndim, n_lines, n_channels, n_entries, dtype,
-                             device)[0])
-
-
-def check_tensor(t, name, dtype, shape, device, kernel: str = "K1"):
-    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{kernel}: {name} is {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}; the kernel takes {dtype} {tuple(shape)} "
-                         f"on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be contiguous")
-
-
 def kernel_tables(tables, dtype, device, kernel: str = "K1"):
     """The tables K1 / K5a read — (lines (5, La), vel (M, C), line_idx (M,
     C), chans (3, C), qst (2, S)), the entries of single_statics_tables —
@@ -501,99 +368,13 @@ def kernel_tables(tables, dtype, device, kernel: str = "K1"):
     return tables[2:], (La, M, C, qst.shape[1])
 
 
-def raise_on(err: int, error_string, entry: str, kernel: str = "K1"):
-    """Raise DeviceError if a C entry returned a CUDA error (`error_string`
-    maps the code to its message)."""
-    if err:
-        raise DeviceError(f"{kernel} {entry} launch failed: CUDA error {err} "
-                           f"({error_string(err).decode()})")
-
-
-def check_step_block(coords, lnp, perm, z_u, pair, acc_u, kernel: str):
-    """(K, W, D, k) of a step kernel's block of K chains — coords (K, W,
-    D), lnp (K, W), perm (K, k*W) int32, z_u / pair (int32) / acc_u (K, 2k,
-    W/2), each contiguous on coords' device in its dtype — after checking
-    it."""
-    dtype, dev = coords.dtype, coords.device
-    if dtype not in _SUFFIX:
-        raise ValueError(f"{kernel} takes float32 or float64 walkers, not {dtype}")
-    if coords.dim() != 3:
-        raise ValueError(f"{kernel}: coords {tuple(coords.shape)} is not (K, W, D)")
-    K, W, D = coords.shape
-    h, k = W // 2, z_u.shape[-2] // 2
-    if W % 2 or not 1 <= K <= 65535:
-        raise ValueError(f"{kernel}: {K} chains of {W} walkers (an even count, "
-                         "1 to 65535 chains)")
-    check_tensor(coords, "coords", dtype, (K, W, D), dev, kernel)
-    check_tensor(lnp, "lnp", dtype, (K, W), dev, kernel)
-    check_tensor(perm, "perm", torch.int32, (K, k * W), dev, kernel)
-    check_tensor(z_u, "z_u", dtype, (K, 2 * k, h), dev, kernel)
-    check_tensor(pair, "pair", torch.int32, (K, 2 * k, h), dev, kernel)
-    check_tensor(acc_u, "acc_u", dtype, (K, 2 * k, h), dev, kernel)
-    return K, W, D, k
-
-
-def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
-    """One K1 launch of K chains, one cluster each (check_step_block's
-    layout): chain (K, k*W, D), lnps (K, k*W), acc (K, k)."""
-    lib, _ = load_kernel_library()
-    dtype, dev = coords.dtype, coords.device
-    K, W, D, k = check_step_block(coords, lnp, perm, z_u, pair, acc_u, "K1")
-    if D != len(st.bounds_lo):
-        raise ValueError(f"K1: {D}-dim walkers for a {len(st.bounds_lo)}-dim problem")
-    tb, (La, M, C, S) = kernel_tables(tables, dtype, dev)
-    plan = checked_plan("steps", plan, W, D, La, C, M, dtype, dev)
-    packed = _pack_statics(st, dtype)
-    out_chain = torch.empty((K, k * W, D), dtype=dtype, device=dev)
-    out_lnps = torch.empty((K, k * W), dtype=dtype, device=dev)
-    out_acc = torch.empty((K, k), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k1_fused_steps_{_SUFFIX[dtype]}")(
-            coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
-            pair.data_ptr(), acc_u.data_ptr(), *(t.data_ptr() for t in tb),
-            out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
-            ctypes.addressof(packed), ctypes.addressof(plan.layout.packed),
-            W, D, La, M, C, S, k, K, plan.cluster,
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, lib.k1_error_string, "fused_steps")
-    LAUNCHES["fused_steps"] += 1
-    return out_chain, out_lnps, out_acc
-
-
-def _launch_lnprob(theta, tables, st, plan):
-    lib, _ = load_kernel_library()
-    dtype, dev = theta.dtype, theta.device
-    if dtype not in _SUFFIX:
-        raise ValueError(f"K1 takes float32 or float64 thetas, not {dtype}")
-    N, D = theta.shape
-    if D != len(st.bounds_lo):
-        raise ValueError(f"K1: {D}-dim thetas for a {len(st.bounds_lo)}-dim problem")
-    check_tensor(theta, "theta", dtype, (N, D), dev)
-    tb, (La, M, C, S) = kernel_tables(tables, dtype, dev)
-    layout = smem_layout(dtype, La, C, M, stage=None if plan is None else plan.staged)
-    if not layout.fits:
-        raise ValueError(f"K1 lnprob: {La} lines need {layout.bytes} B of shared memory "
-                         f"(> {cluster.SMEM_LIMIT})")
-    out = torch.empty(N, dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k1_lnprob_{_SUFFIX[dtype]}")(
-            theta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tb),
-            ctypes.addressof(_pack_statics(st, dtype)), ctypes.addressof(layout.packed),
-            N, D, La, M, C, S, torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, lib.k1_error_string, "fused_lnprob")
-    LAUNCHES["fused_lnprob"] += 1
-    return out
-
-
-def route(t, kernel: str = "K1") -> str:
-    """'cuda' (launch the kernel) or 'cpu' (the plain version) for a
-    tensor; any other device raises."""
-    if t.is_cuda:
-        return "cuda"
-    if t.device.type == "cpu":
-        return "cpu"
-    raise ValueError(f"{kernel} runs on CUDA (kernel) or on the CPU (plain "
-                     f"version), not on {t.device}")
+#: K1 and K5a as the cluster binding (sampler/cluster.py) sees them: one
+#: component, one chi^2 partial a warp, no hfs group table.
+FAMILY = cluster.Family(
+    steps="K1", half="K5a", source="fused_step.cu", args=((16, 9), (9, 6), (14, 7)),
+    statics=_STATICS, pack=_pack_statics, tables=kernel_tables, partials=GROUP_WARPS,
+    group_table=False, launches=LAUNCHES,
+    counters=("fused_steps", "fused_lnprob", "sharded_half"))
 
 
 def fused_lnprob(theta, tables, st: FusedStatics, plan: ClusterPlan | None = None):
@@ -601,28 +382,18 @@ def fused_lnprob(theta, tables, st: FusedStatics, plan: ClusterPlan | None = Non
     tables staged where they fit, or as `plan` stages them — the plain
     version for CPU tensors."""
     if route(theta) == "cuda":
-        return _launch_lnprob(theta, tables, st, plan)
+        return launch_lnprob(FAMILY, theta, tables, st, plan)
     return fused_lnprob_plain(theta, tables, st)
-
-
-def chain_batched(launch, coords, lnp, perm, z_u, pair, acc_u, *args):
-    """`launch` (a step kernel's launch over a leading chain axis) on one
-    chain's block, (W, D) coords and the rest unbatched, or on K chains'."""
-    if coords.dim() == 3:
-        return launch(coords, lnp, perm, z_u, pair, acc_u, *args)
-    out = launch(*(t.unsqueeze(0) for t in (coords, lnp, perm, z_u, pair, acc_u)), *args)
-    return tuple(t[0] for t in out)
 
 
 def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: FusedStatics, plan: ClusterPlan | None = None):
     """k whole steps (see fused_steps_plain for the layout) of one
     ensemble, or of K with a leading chain axis: one CUDA kernel launch for
-    CUDA tensors, one cluster a chain — with cluster_plan's geometry, or
-    `plan` — the plain version for CPU tensors."""
+    CUDA tensors, one cluster a chain — with cluster.steps_plan's
+    geometry, or `plan` — the plain version for CPU tensors."""
     if route(coords) == "cuda":
-        return chain_batched(_launch_steps, coords, lnp, perm, z_u, pair, acc_u,
-                             tables, st, plan)
+        return launch_steps(FAMILY, coords, lnp, perm, z_u, pair, acc_u, tables, st, plan)
     return fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
 
 

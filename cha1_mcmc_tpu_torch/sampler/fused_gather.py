@@ -45,11 +45,12 @@ from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_D
 from cha1_mcmc_tpu_torch.models.sparse_opacity import (build_opacity_gather,
                                                        build_opacity_gather_split)
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
-from cha1_mcmc_tpu_torch.sampler.cluster import CHAN_CONSTS, SMEM_LIMIT
+from cha1_mcmc_tpu_torch.sampler.cluster import (CHAN_CONSTS, SMEM_LIMIT, _SUFFIX,
+                                                 bind_kernel_library, check_tensor, raise_on,
+                                                 route)
 from cha1_mcmc_tpu_torch.sampler.fused import (
-    _AA, _MAX_CHEB, _MAX_POLY, _STATICS, _SUFFIX, FusedEnsemble, FusedStatics,
-    _pack_statics, bind_kernel_library, check_tensor, prior_box, raise_on, route,
-    single_statics_tables, steps_plain)
+    _AA, _MAX_CHEB, _MAX_POLY, _STATICS, FusedEnsemble, FusedStatics, _pack_statics,
+    prior_box, single_statics_tables, steps_plain)
 from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["build_dense_tables", "GatherGeometry", "gather_geometry",

@@ -7,14 +7,14 @@ K-component ensemble (theta = [ss x K | Ncol x K | Tex | vlsr x K | dV],
 the GOTHAM / TMC-1 family, reference TMC1_four_component.py): both
 sequential half-updates of every step, each with its walker gathers, the
 K-component LTE model, the ordered-velocity prior and the acceptance
-write-back. A launch takes one of two paths (`steps_plan`), each
-evaluating a proposal with the whole CTA: the wide path, where the K
-chains' h = W / 2 CTAs each fit the card at once — one cooperative launch,
-CTA j of a chain owning proposal j of every half-update
-(`plan_multi_wide`) — else one thread-block cluster a chain
-(csrc/cluster_step.cuh: 16 CTAs, or 8 where the card cannot place 16,
-each owning a slice of every half-update's proposals;
-`plan_multi_cluster`). It reads the
+write-back. A launch takes one of two paths (sampler/cluster.py:
+steps_plan): the wide path, where the K chains' h = W / 2 CTAs each fit
+the card at once — one cooperative launch, CTA j of a chain owning
+proposal j of every half-update with the whole CTA — else one
+thread-block cluster a chain (csrc/cluster_step.cuh: 16 CTAs, or 8 where
+the card cannot place 16, each owning a slice of every half-update's
+proposals). `FAMILY` declares what K2 and its sharded half-step K5c need
+of the cluster binding, which plans, checks and launches them. It reads the
 channel-major tables of the gather formulation (models/sparse_opacity.py):
 for each channel, the few lines whose ±10·dv_max window can touch it,
 with the hfs group of each, so the opacity sums run in the TPU kernel's
@@ -47,22 +47,18 @@ from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_D
 from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.sampler import cluster
-from cha1_mcmc_tpu_torch.sampler.cluster import (CLUSTER_SIZES, SMEM_LIMIT, THREADS,
-                                                 ClusterPlan, SmemLayout, itemsize, make_plan)
-from cha1_mcmc_tpu_torch.sampler.fused import (
-    _AA, _MAX_CHEB, _MAX_POLY, _SUFFIX, FusedEnsemble,
-    bind_kernel_library, chain_batched, check_step_block, check_tensor, gauss_norm,
-    pack_q, q_statics, raise_on, route, statics_q_model, steps_plain)
+from cha1_mcmc_tpu_torch.sampler.cluster import (ClusterPlan, check_tensor, launch_lnprob,
+                                                 launch_steps, route, steps_plan)
+from cha1_mcmc_tpu_torch.sampler.fused import (_AA, _MAX_CHEB, _MAX_POLY, FusedEnsemble,
+                                               gauss_norm, pack_q, q_statics,
+                                               statics_q_model, steps_plain)
 from cha1_mcmc_tpu_torch.utils.metrics import register_launches
 
 __all__ = ["window_extents", "fused_multi_supported", "MultiStatics",
            "multi_statics_tables", "multi_lnprob_plain", "multi_prior_plain",
-           "multi_steps_plain",
-           "multi_lnprob", "multi_step_block", "MultiFusedEnsemble",
-           "make_fused_ensemble_multi", "K2_LANE_WARPS", "smem_layout",
-           "plan_multi_cluster", "plan_multi_wide", "cluster_occupancy", "cluster_plan",
-           "wide_capacity", "choose_steps_plan", "steps_plan", "checked_plan",
-           "load_kernel_library", "LAUNCHES"]
+           "multi_steps_plain", "multi_lnprob", "multi_step_block", "MultiFusedEnsemble",
+           "make_fused_ensemble_multi", "K2_LANE_WARPS", "kernel_tables", "FAMILY",
+           "LAUNCHES"]
 
 _MAX_COMP = 4   # kMaxComp of the kernel's MultiStatics (csrc/multi_step.cu)
 
@@ -106,77 +102,25 @@ def window_extents(vel_grid: np.ndarray, mask_center: float, dv_max: float):
     return active, first, last, C
 
 
-def smem_layout(dtype, ncomp: int, n_lines: int, n_channels: int, n_entries: int, *,
-                state_rows: int = 0, ndim: int = 0, per_cta: int = 0,
-                stage: bool | None = None, groups: int = cluster.GROUPS) -> SmemLayout:
-    """The shared memory of a K2 / K5c / lnprob launch (cluster.smem_layout
-    with the entries' hfs group table): [the (state_rows, D+1) state,]
-    [the staged tables,] each of the `groups` lnprob groups' (K, La) tau
-    and 16 chi^2 partials (four a CTA; one on the wide path), the owned
-    proposals and their stretch factors, [the entry line indices and
-    groups,] flags and counters. `stage` None stages the tables where the
-    staged layout fits a CTA, else not."""
-    return cluster.smem_layout(dtype, ncomp, n_lines, n_channels, n_entries,
-                               state_rows=state_rows, ndim=ndim, per_cta=per_cta, stage=stage,
-                               groups=groups, partials=K2_LANE_WARPS)
-
-
-def plan_multi_cluster(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
-                       n_entries: int, dtype, cluster: int = 16,
-                       resident_state: bool = True, stage: bool | None = None) -> ClusterPlan:
-    """The cluster geometry of a K2 step launch (`resident_state`: each CTA
-    holds the (W, D+1) state) or a K5c half-step launch (the state stays in
-    device memory), for La = n_lines active lines, C = n_channels and M =
-    n_entries table entries a channel: P = ceil(h / cluster) proposals a
-    CTA at most, and its smem_layout — the tables staged where that fits
-    (`stage` None), so the channel count sets only how fast it runs."""
-    D = 3 * ncomp + 2
-    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype),
-             resident_state)
-    return make_plan(nwalkers, cluster, lambda per_cta: smem_layout(
-        dtype, ncomp, n_lines, n_channels, n_entries,
-        state_rows=nwalkers if resident_state else 0, ndim=D, per_cta=per_cta,
-        stage=stage), shape)
-
-
-def plan_multi_wide(nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
-                    n_entries: int, dtype, stage: bool | None = None) -> ClusterPlan:
-    """The geometry of a K2 step launch on the wide path: h = W / 2 CTAs a
-    chain and no thread-block cluster, CTA j owning proposal j of every
-    half-update (owned(j) is [j, j + 1)) with all its 16 warps, one lnprob
-    group; no copy of the state in shared memory (the kernel reads the
-    rows it needs from the chain output), the tables staged where they fit
-    (`stage` None)."""
-    h = nwalkers // 2
-    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype), True)
-    layout = smem_layout(dtype, ncomp, n_lines, n_channels, n_entries, ndim=3 * ncomp + 2,
-                         per_cta=1, stage=stage, groups=1)
-    return ClusterPlan(h, h, 1, THREADS // 32, layout, shape, wide=True)
-
-
 def fused_multi_supported(model, spec, dv_max: float, *, nwalkers: int = 128,
                           resident_state: bool = True) -> bool:
     """Can this (model, spec) run through K2 (K5c with resident_state
     False)? The ordered-velocity family (free source sizes) with at most 4
     components, every line window contiguous in channel order
-    (window_extents, the JAX package's condition), and the cluster plan at
-    the portable size of 8 CTAs — the larger share per CTA — within a
-    Hopper CTA's 232,448 bytes of shared memory: with the tables staged
-    where they fit, else read from device memory, whose layout grows with
-    the walkers and the active lines but not with the channels."""
+    (window_extents, the JAX package's condition), and the cluster
+    binding's gate at `nwalkers` (cluster.admits: the 8-CTA plan within a
+    Hopper CTA's shared memory, with the tables read from device memory,
+    a layout that grows with the walkers and the active lines but not
+    with the channels)."""
     if not spec.free_source_size or spec.ncomp > _MAX_COMP:
         return False
-    vg = model.vel_grid.cpu().numpy()
     try:
-        active, _, _, _ = window_extents(vg, model.mask_center, dv_max)
+        active, _, _, _ = window_extents(model.vel_grid.cpu().numpy(), model.mask_center,
+                                         dv_max)
     except ValueError:
         return False
-    # M of build_opacity_gather: the most in-window lines of any channel
-    inside = np.abs(vg - model.mask_center) < VELOCITY_WINDOW_DV * dv_max
-    n_entries = max(int(inside.sum(axis=0).max()), 1)
-    return plan_multi_cluster(nwalkers, spec.ncomp, active.size, model.n_channels,
-                              n_entries, model.dtype, cluster=min(CLUSTER_SIZES),
-                              resident_state=resident_state).fits
+    return cluster.admits(FAMILY, nwalkers, spec.ncomp, 3 * spec.ncomp + 2, active.size,
+                          model.dtype, resident_state=resident_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -385,109 +329,6 @@ def _statics_type(real):
 _STATICS = {torch.float32: _statics_type(ctypes.c_float),
             torch.float64: _statics_type(ctypes.c_double)}
 
-_library = None
-
-
-def load_kernel_library():
-    """Build K2 and K5c (at first use) and load them: returns (ctypes
-    library, nvcc build log, empty when a cached build was loaded)."""
-    global _library
-    if _library is None:
-        lib, log = bind_kernel_library("multi_step.cu", "k2", (17, 9), (10, 6),
-                                       _STATICS, "k5c_half", (15, 7))
-        cluster.bind_cluster_entries(lib, "k2", "multi_step.cu", K2_LANE_WARPS)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        for sfx in _SUFFIX.values():
-            fn = getattr(lib, f"k2_wide_steps_{sfx}")
-            fn.argtypes, fn.restype = [P] * 17 + [I] * 8 + [P], I
-            fn = getattr(lib, f"k2_wide_capacity_{sfx}")
-            fn.argtypes, fn.restype = [P, ctypes.POINTER(I)], I
-        _library = lib, log
-    return _library
-
-
-def cluster_occupancy(entry: str, plan: ClusterPlan, dtype, device) -> int:
-    """How many clusters of `plan` the card holds at once for the K2
-    ("steps") or K5c ("half") kernel (cudaOccupancyMaxActiveClusters; 0:
-    the card cannot place a cluster of that size)."""
-    lib, _ = load_kernel_library()
-    return cluster.occupancy(getattr(lib, f"k2_cluster_occupancy_{_SUFFIX[dtype]}"),
-                             lib.k2_error_string, f"K2 {entry}", int(entry != "steps"),
-                             plan, device)
-
-
-@functools.lru_cache(maxsize=64)
-def cluster_plan(entry: str, nwalkers: int, ncomp: int, n_lines: int, n_channels: int,
-                 n_entries: int, dtype, device: torch.device) -> tuple[ClusterPlan, int]:
-    """The geometry a K2 ("steps") or K5c ("half") launch takes on this
-    card (cluster.cluster_plan: the largest cluster size that fits shared
-    memory and that the card can place), with cudaOccupancyMaxActiveClusters
-    for it. Raises where no size can run."""
-    return cluster.cluster_plan(
-        f"K2 {entry}: {nwalkers} walkers x {ncomp} components x {n_lines} lines x "
-        f"{n_channels} channels x {n_entries} entries",
-        lambda n: plan_multi_cluster(nwalkers, ncomp, n_lines, n_channels, n_entries, dtype,
-                                     cluster=n, resident_state=entry == "steps"),
-        lambda plan: cluster_occupancy(entry, plan, dtype, device))
-
-
-@functools.lru_cache(maxsize=64)
-def wide_capacity(layout: SmemLayout, dtype, device: torch.device) -> int:
-    """The CTAs of the wide K2 kernel at `layout` that the card keeps
-    resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs;
-    0 where the card has no cooperative launch)."""
-    lib, _ = load_kernel_library()
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = getattr(lib, f"k2_wide_capacity_{_SUFFIX[dtype]}")(
-            ctypes.addressof(layout.packed), ctypes.byref(out))
-    raise_on(err, lib.k2_error_string, "wide capacity", "K2")
-    return out.value
-
-
-def choose_steps_plan(wide: ClusterPlan, chains: int, capacity: int, cluster_of) -> ClusterPlan:
-    """The path of a K2 step launch of `chains` chains: the wide plan
-    `wide` where it fits a CTA and the chains' CTAs, chains x h, fit the
-    `capacity` CTAs the card keeps resident at once (wide_capacity); else
-    `cluster_of()`, a cluster plan."""
-    if wide.fits and chains * wide.cluster <= capacity:
-        return wide
-    return cluster_of()
-
-
-@functools.lru_cache(maxsize=64)
-def steps_plan(nwalkers: int, chains: int, ncomp: int, n_lines: int, n_channels: int,
-               n_entries: int, dtype, device: torch.device) -> ClusterPlan:
-    """The plan a K2 step launch of `chains` chains of nwalkers walkers
-    takes on this card: the wide path where its chains x h CTAs fit the card
-    at once (choose_steps_plan), else cluster_plan's."""
-    sizes = (ncomp, n_lines, n_channels, n_entries, dtype)
-    wide = plan_multi_wide(nwalkers, *sizes)
-    capacity = wide_capacity(wide.layout, dtype, device) if wide.fits else 0
-    return choose_steps_plan(wide, chains, capacity, lambda: cluster_plan(
-        "steps", nwalkers, *sizes, device)[0])
-
-
-def checked_plan(entry: str, plan: ClusterPlan | None, nwalkers: int, ncomp: int,
-                 n_lines: int, n_channels: int, n_entries: int, dtype, device,
-                 chains: int = 1) -> ClusterPlan:
-    """The plan a K2 ("steps", of `chains` chains) or K5c ("half") launch
-    runs: steps_plan's / cluster_plan's, or the caller's `plan` (a geometry
-    chosen with plan_multi_wide or plan_multi_cluster, as the card tests
-    choose the wide path, 8 CTAs or unstaged tables) after checking it was
-    made for these sizes and fits a CTA."""
-    shape = (nwalkers, ncomp, n_lines, n_channels, n_entries, itemsize(dtype),
-             entry == "steps")
-    if entry == "steps":
-        def default():
-            return steps_plan(nwalkers, chains, ncomp, n_lines, n_channels, n_entries, dtype,
-                              device)
-    else:
-        def default():
-            return cluster_plan(entry, nwalkers, ncomp, n_lines, n_channels, n_entries, dtype,
-                                device)[0]
-    return cluster.checked_plan(f"K2 {entry}", plan, shape, default)
-
 
 @functools.lru_cache(maxsize=16)
 def _pack_statics(st: MultiStatics, dtype):
@@ -514,83 +355,35 @@ def _pack_statics(st: MultiStatics, dtype):
     return s
 
 
-def _check_tables(tables, dtype, device):
+def kernel_tables(tables, dtype, device, kernel: str = "K2"):
+    """The tables K2 / K5c read — multi_statics_tables' (lines, vel,
+    line_idx, group, chans, qst) — after checking them, and (La, M, C,
+    S)."""
     lines, vel, line_idx, group, chans, qst = tables
-    M, C = vel.shape
-    La = lines.shape[1]
-    check_tensor(lines, "lines", dtype, (5, La), device, "K2")
-    check_tensor(vel, "vel", dtype, (M, C), device, "K2")
-    check_tensor(line_idx, "line_idx", torch.int32, (M, C), device, "K2")
-    check_tensor(group, "group", torch.int32, (M, C), device, "K2")
-    check_tensor(chans, "chans", dtype, (3, C), device, "K2")
-    check_tensor(qst, "qst", dtype, (2, qst.shape[1]), device, "K2")
-    return La, M, C, qst.shape[1]
+    (M, C), La = vel.shape, lines.shape[1]
+    check_tensor(lines, "lines", dtype, (5, La), device, kernel)
+    check_tensor(vel, "vel", dtype, (M, C), device, kernel)
+    check_tensor(line_idx, "line_idx", torch.int32, (M, C), device, kernel)
+    check_tensor(group, "group", torch.int32, (M, C), device, kernel)
+    check_tensor(chans, "chans", dtype, (3, C), device, kernel)
+    check_tensor(qst, "qst", dtype, (2, qst.shape[1]), device, kernel)
+    return tables, (La, M, C, qst.shape[1])
 
 
-def _check_dims(D, st: MultiStatics, dtype):
-    if dtype not in _SUFFIX:
-        raise ValueError(f"K2 takes float32 or float64 walkers, not {dtype}")
-    if D != st.ndim:
-        raise ValueError(f"K2: {D}-dim thetas for a {st.ncomp}-component "
-                         f"({st.ndim}-dim) problem")
-
-
-def _launch_steps(coords, lnp, perm, z_u, pair, acc_u, tables, st, plan):
-    """One K2 launch of K chains on the plan's path, h CTAs or one
-    cluster a chain (fused.check_step_block's layout): chain (K, k*W, D),
-    lnps (K, k*W), acc (K, k). A wide launch the card refuses raises."""
-    lib, _ = load_kernel_library()
-    dtype, dev = coords.dtype, coords.device
-    K, W, D, k = check_step_block(coords, lnp, perm, z_u, pair, acc_u, "K2")
-    _check_dims(D, st, dtype)
-    La, M, C, S = _check_tables(tables, dtype, dev)
-    plan = checked_plan("steps", plan, W, st.ncomp, La, C, M, dtype, dev, chains=K)
-    packed = _pack_statics(st, dtype)
-    out_chain = torch.empty((K, k * W, D), dtype=dtype, device=dev)
-    out_lnps = torch.empty((K, k * W), dtype=dtype, device=dev)
-    out_acc = torch.empty((K, k), dtype=torch.float32, device=dev)
-    ptrs = (coords.data_ptr(), lnp.data_ptr(), perm.data_ptr(), z_u.data_ptr(),
-            pair.data_ptr(), acc_u.data_ptr(), *(t.data_ptr() for t in tables),
-            out_chain.data_ptr(), out_lnps.data_ptr(), out_acc.data_ptr(),
-            ctypes.addressof(packed), ctypes.addressof(plan.layout.packed))
-    entry, tail = ("wide_steps", ()) if plan.wide else ("fused_steps", (plan.cluster,))
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k2_{entry}_{_SUFFIX[dtype]}")(
-            *ptrs, W, D, La, M, C, S, k, K, *tail,
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, lib.k2_error_string, "multi_steps", "K2")
-    LAUNCHES["multi_steps"] += 1
-    return out_chain, out_lnps, out_acc
-
-
-def _launch_lnprob(theta, tables, st):
-    lib, _ = load_kernel_library()
-    dtype, dev = theta.dtype, theta.device
-    N, D = theta.shape
-    _check_dims(D, st, dtype)
-    check_tensor(theta, "theta", dtype, (N, D), dev, "K2")
-    La, M, C, S = _check_tables(tables, dtype, dev)
-    layout = smem_layout(dtype, st.ncomp, La, C, M)
-    if not layout.fits:
-        raise ValueError(f"K2 lnprob: {st.ncomp} components x {La} lines need "
-                         f"{layout.bytes} B of shared memory (> {SMEM_LIMIT})")
-    packed = _pack_statics(st, dtype)
-    out = torch.empty(N, dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"k2_lnprob_{_SUFFIX[dtype]}")(
-            theta.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tables),
-            ctypes.addressof(packed), ctypes.addressof(layout.packed), N, D, La, M, C, S,
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, lib.k2_error_string, "multi_lnprob", "K2")
-    LAUNCHES["multi_lnprob"] += 1
-    return out
+#: K2 and K5c as the cluster binding (sampler/cluster.py) sees them: K2_LANE_WARPS
+#: chi^2 partials a group, the hfs group table, and the wide step entry.
+FAMILY = cluster.Family(
+    steps="K2", half="K5c", source="multi_step.cu", args=((17, 9), (10, 6), (15, 7)),
+    statics=_STATICS, pack=_pack_statics, tables=kernel_tables, partials=K2_LANE_WARPS,
+    group_table=True, launches=LAUNCHES,
+    counters=("multi_steps", "multi_lnprob", "sharded_multi_half"), wide=(17, 8))
 
 
 def multi_lnprob(theta, tables, st: MultiStatics):
     """K2's lnprob, (N, D) -> (N,): the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if route(theta, "K2") == "cuda":
-        return _launch_lnprob(theta, tables, st)
+        return launch_lnprob(FAMILY, theta, tables, st)
     return multi_lnprob_plain(theta, tables, st)
 
 
@@ -598,11 +391,10 @@ def multi_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: MultiStatics, plan: ClusterPlan | None = None):
     """k whole steps (layout as in fused.steps_plain) of one ensemble, or
     of K with a leading chain axis: one CUDA kernel launch for CUDA
-    tensors — on steps_plan's path, or `plan`'s — the plain version for
-    CPU tensors."""
+    tensors — on cluster.steps_plan's path, or `plan`'s — the plain
+    version for CPU tensors."""
     if route(coords, "K2") == "cuda":
-        return chain_batched(_launch_steps, coords, lnp, perm, z_u, pair, acc_u,
-                             tables, st, plan)
+        return launch_steps(FAMILY, coords, lnp, perm, z_u, pair, acc_u, tables, st, plan)
     return multi_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
 
 
@@ -610,51 +402,29 @@ def multi_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
 class MultiFusedEnsemble(FusedEnsemble):
     """K2's runner: FusedEnsemble's run(pos0, lnp0, nsteps, k_steps)
     contract, each k steps one K2 launch (`make_fused_ensemble_multi`), for
-    one ensemble or K (a leading chain axis). `wide_launches` counts its
-    step launches that took the wide path."""
-
-    wide_launches: int = dataclasses.field(default=0, compare=False)
+    one ensemble or K (a leading chain axis); `plan_counts` reports the
+    plan its step launches take."""
 
     def lnprob(self, theta):
         return multi_lnprob(theta, self.tables, self.statics)
 
-    def launch_plan(self, coords) -> ClusterPlan:
-        """The plan of the step launch of `coords` ((W, D) or (K, W, D) on
-        the card): steps_plan's at its walkers and chains."""
-        lines, vel = self.tables[0], self.tables[1]
-        chains = coords.shape[0] if coords.dim() == 3 else 1
-        return steps_plan(coords.shape[-2], chains, self.statics.ncomp, lines.shape[1],
-                          vel.shape[1], vel.shape[0], coords.dtype, coords.device)
-
     def step_block(self, coords, lnp, perm, z_u, pair, acc_u):
-        plan = self.launch_plan(coords) if route(coords, "K2") == "cuda" else None
-        out = multi_step_block(coords, lnp, perm, z_u, pair, acc_u, self.tables,
-                               self.statics, plan=plan)
-        if plan is not None and plan.wide:
-            object.__setattr__(self, "wide_launches", self.wide_launches + 1)
-        return out
+        return multi_step_block(coords, lnp, perm, z_u, pair, acc_u, self.tables,
+                                self.statics)
 
-    def plan_counts(self, nwalkers: int, n_chains: int = 1, capacity: int | None = None) -> dict:
+    def plan_counts(self, nwalkers: int, n_chains: int = 1) -> dict:
         """What a step launch of `n_chains` ensembles of `nwalkers` walkers
-        takes: the components, the CTAs a chain, whether it takes the wide
-        path (1) or a cluster (0), whether the tables are staged in shared
-        memory (1) or read from device memory (0), the shared memory of a
-        CTA and the tables' bytes. The wide path where the chains' CTAs fit
-        `capacity` (choose_steps_plan; None: the card's wide_capacity where
-        the tables are on one, else 0, as no launch is made off the card),
-        else cluster_plan's choice with the card's occupancy left unasked:
-        the largest size whose plan fits a CTA, which the launch takes where
-        the card places such a cluster."""
+        takes (cluster.steps_plan, the plan the launch itself takes, on the
+        tables' device): the components, the CTAs a chain, whether it takes
+        the wide path (1) or a cluster (0), whether the tables are staged in
+        shared memory (1) or read from device memory (0), the shared memory
+        of a CTA and the tables' bytes. Off the card, where nothing is
+        launched, the cluster plan of the largest size that fits a CTA."""
         lines, vel = self.tables[0], self.tables[1]
-        sizes = (self.statics.ncomp, lines.shape[1], vel.shape[1], vel.shape[0], vel.dtype)
-        wide = plan_multi_wide(nwalkers, *sizes)
-        if capacity is None:
-            capacity = (wide_capacity(wide.layout, vel.dtype, vel.device)
-                        if vel.is_cuda and wide.fits else 0)
-        plan = choose_steps_plan(wide, n_chains, capacity, lambda: cluster.cluster_plan(
-            "K2 steps", lambda n: plan_multi_cluster(nwalkers, *sizes, cluster=n),
-            lambda plan: 1)[0])
-        return dict(components=self.statics.ncomp, ctas=plan.cluster, wide=int(plan.wide),
+        st = self.statics
+        plan = steps_plan(FAMILY, nwalkers, n_chains, st.ncomp, st.ndim, lines.shape[1],
+                          vel.shape[1], vel.shape[0], vel.dtype, vel.device)
+        return dict(components=st.ncomp, ctas=plan.cluster, wide=int(plan.wide),
                     staged=int(plan.staged), smem_bytes=plan.smem_bytes,
                     table_bytes=sum(t.numel() * t.element_size() for t in self.tables))
 

@@ -542,48 +542,43 @@ def check_multi_case(label, m32, m64, spec, means, stds, pert, grid, gen, errs):
 def cluster_family(kind):
     """What the cluster checks and timings drive for a cluster step kernel
     and its sharded half-step: "K1" (with K5a, sampler/fused.py) or "K2"
-    (with K5c, sampler/fused_multi.py). `sizes(tb)` is (La, M, C) of its
-    tables, `plan(tb, st, nwalkers, cluster, stage, resident)` a plan of
-    its planner, `lnprob(theta, tb, st, plan)` its lnprob entry (K1's with
-    the plan's staging), `size_arg(st)` the planners' second argument
-    (K1: the dims, K2: the components)."""
+    (with K5c, sampler/fused_multi.py). `family` is its declaration of the
+    cluster binding (sampler/cluster.py), `sizes(tb)` (La, M, C) of its
+    tables, `plan(tb, st, nwalkers, cluster, stage,
+    resident)` a plan of the binding's planners (cluster="wide": K2's wide
+    step path), `lnprob(theta, tb, st, plan)` its lnprob entry (K1's with
+    the plan's staging)."""
     from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
-    from cha1_mcmc_tpu_torch.sampler import fused, fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_multi as fm
 
     if kind == "K1":
+        family, out = fused.FAMILY, dict(
+            lnprob_plain=fused.fused_lnprob_plain,
+            steps_plain=fused.fused_steps_plain, step=fused.fused_step_block,
+            half_fn=sf.sharded_half, half_plain=sf.sharded_half_plain,
+            lnprob=lambda th, tb, st, p: fused.fused_lnprob(th, tb, st, plan=p))
+
         def sizes(tb):
             return (tb[2].shape[1], *tb[3].shape)
+    else:
+        family, out = fm.FAMILY, dict(
+            lnprob_plain=fm.multi_lnprob_plain, steps_plain=fm.multi_steps_plain,
+            step=fm.multi_step_block, half_fn=sf.sharded_multi_half,
+            half_plain=sf.sharded_multi_half_plain,
+            lnprob=lambda th, tb, st, p: fm.multi_lnprob(th, tb, st))
 
-        def plan(tb, st, nwalkers, cluster, stage, resident):
-            La, M, C = sizes(tb)
-            return fused.plan_fused_cluster(nwalkers, len(st.bounds_lo), La, C, M,
-                                            tb[0].dtype, cluster=cluster,
-                                            resident_state=resident, stage=stage)
+        def sizes(tb):
+            return (tb[0].shape[1], *tb[1].shape)
 
-        return dict(half="K5a", module=fused, steps_key="fused_steps",
-                    half_key="sharded_half", sizes=sizes, plan=plan,
-                    lnprob_plain=fused.fused_lnprob_plain,
-                    steps_plain=fused.fused_steps_plain, step=fused.fused_step_block,
-                    half_fn=sf.sharded_half, half_plain=sf.sharded_half_plain,
-                    lnprob=lambda th, tb, st, p: fused.fused_lnprob(th, tb, st, plan=p),
-                    size_arg=lambda st: len(st.bounds_lo))
-
-    def sizes(tb):
-        return (tb[0].shape[1], *tb[1].shape)
-
-    def plan(tb, st, nwalkers, cluster, stage, resident):
+    def plan(tb, st, nwalkers, n, stage, resident):
         La, M, C = sizes(tb)
-        if cluster == "wide":   # K2's wide path: a step launch only
-            return fm.plan_multi_wide(nwalkers, st.ncomp, La, C, M, tb[0].dtype, stage=stage)
-        return fm.plan_multi_cluster(nwalkers, st.ncomp, La, C, M, tb[0].dtype,
-                                     cluster=cluster, resident_state=resident, stage=stage)
+        args = (family, nwalkers, st.ncomp, st.ndim, La, C, M, tb[0].dtype)
+        if n == "wide":   # K2's wide path: a step launch only
+            return cluster.plan_wide(*args, stage=stage)
+        return cluster.plan_cluster(*args, cluster=n, resident_state=resident, stage=stage)
 
-    return dict(half="K5c", module=fm, steps_key="multi_steps", half_key="sharded_multi_half",
-                sizes=sizes, plan=plan, lnprob_plain=fm.multi_lnprob_plain,
-                steps_plain=fm.multi_steps_plain, step=fm.multi_step_block,
-                half_fn=sf.sharded_multi_half, half_plain=sf.sharded_multi_half_plain,
-                lnprob=lambda th, tb, st, p: fm.multi_lnprob(th, tb, st),
-                size_arg=lambda st: st.ncomp)
+    return dict(out, family=family, half=family.half, steps_key=family.counters[0],
+                half_key=family.counters[2], sizes=sizes, plan=plan)
 
 
 def cluster_plans(kind, tb, st, nwalkers, cluster, stage):
@@ -619,7 +614,7 @@ def check_cluster_chains(kind, label, tb, st, pos0, seed, geometries, errs):
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
     fam = cluster_family(kind)
-    counts = fam["module"].LAUNCHES
+    counts = fam["family"].launches
     nw, D = pos0.shape
     lnp0 = fam["lnprob_plain"](pos0, tb, st)
     gen = torch.Generator(device=DEVICE)
@@ -744,7 +739,7 @@ def check_geometries(flagship_case, gotham_case, wide_case, errs):
     memory), the lnprob entry (device memory too) and the wide path
     unstaged."""
     import torch
-    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi as fm
 
     off_main = (("8 CTAs, staged", 8, True), ("16 CTAs, unstaged", 16, False))
     label = flagship_case[0]
@@ -763,9 +758,11 @@ def check_geometries(flagship_case, gotham_case, wide_case, errs):
         _, (st, tb) = multi_tables(m32, m64, spec, means, stds, grid)
         (M, C), La = tb[1].shape, tb[0].shape[1]
         if case is wide_case:
-            staged = [fm.cluster_plan(e, W, spec.ncomp, La, C, M, torch.float64,
-                                      tb[0].device)[0].staged for e in ("steps", "half")]
-            staged.append(fm.smem_layout(torch.float64, spec.ncomp, La, C, M).staged)
+            staged = [cluster.cluster_plan(fm.FAMILY, e, W, st.ncomp, st.ndim, La, C, M,
+                                           torch.float64, tb[0].device)[0].staged
+                      for e in ("steps", "half")]
+            staged.append(cluster.smem_layout(fm.FAMILY, torch.float64, st.ncomp, La, C,
+                                              M).staged)
             assert not any(staged), f"{label}: {C} f64 channels should not be staged"
         plans = [(name, *cluster_plans("K2", tb, st, W, n, stage))
                  for name, n, stage in geometries]
@@ -781,13 +778,15 @@ def staging_limits(tb, ncomp):
     a channel in the proportion of the tables `tb`; and the most active
     lines K2's unstaged layout holds (it has no channel limit)."""
     import torch
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+    from cha1_mcmc_tpu_torch.sampler import cluster
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import FAMILY
 
     (M, C0), La0 = tb[1].shape, tb[0].shape[1]
     out = {}
     for dt in (torch.float32, torch.float64):
         def fits(C, La, stage):
-            return plan_multi_cluster(W, ncomp, La, C, M, dt, cluster=8, stage=stage).fits
+            return cluster.plan_cluster(FAMILY, W, ncomp, 3 * ncomp + 2, La, C, M, dt,
+                                        cluster=8, stage=stage).fits
 
         lo, hi = 1, 1 << 20            # largest C with a staged plan that fits
         while lo + 1 < hi:
@@ -1784,15 +1783,17 @@ def cluster_geometry(kind, label, tb, st, device):
     K2) and its sharded half-step take on this card for W walkers on a
     case's f32 tables (cluster_plan), with the card's
     cudaOccupancyMaxActiveClusters answer at 16 and at 8 CTAs."""
+    from cha1_mcmc_tpu_torch.sampler import cluster
+
     fam = cluster_family(kind)
     La, M, C = fam["sizes"](tb)
     dtype, dev = tb[0].dtype, tb[0].device
     for entry, kname in (("steps", kind), ("half", fam["half"])):
-        plan, _ = fam["module"].cluster_plan(entry, W, fam["size_arg"](st), La, C, M, dtype,
-                                             dev)
-        answers = {n: fam["module"].cluster_occupancy(
-            entry, fam["plan"](tb, st, W, n, None, entry == "steps"), dtype, dev)
-            for n in (16, 8)}
+        plan, _ = cluster.cluster_plan(fam["family"], entry, W, st.ncomp, st.ndim, La, C, M,
+                                       dtype, dev)
+        answers = {n: cluster.occupancy(
+            fam["family"], entry, fam["plan"](tb, st, W, n, None, entry == "steps"), dtype,
+            dev) for n in (16, 8)}
         phase(2, "build", f"{kname} cluster geometry, {label}, {W} walkers, {La} lines x "
               f"{C} channels x {M} entries, f32: one cluster of {plan.cluster} CTAs x 512 "
               f"threads, {plan.proposals} proposals a half-step, at most {plan.per_cta} "
@@ -1803,7 +1804,7 @@ def cluster_geometry(kind, label, tb, st, device):
               f"8 CTAs {answers[8]} ({device})")
     if kind == "K2":
         wide = fam["plan"](tb, st, W, "wide", None, True)
-        capacity = fam["module"].wide_capacity(wide.layout, dtype, dev)
+        capacity = cluster.wide_capacity(fam["family"], wide.layout, dtype, dev)
         phase(2, "build", f"K2 wide path, {label}, {W} walkers, f32: {wide.cluster} CTAs a "
               f"chain x 512 threads in one cooperative launch, one proposal a CTA "
               f"({wide.warps_per_proposal} warps), {wide.smem_bytes} B shared memory a CTA, "
@@ -1900,15 +1901,16 @@ def build_kernels():
     nvcc log)}."""
     from concurrent.futures import ThreadPoolExecutor
     from cha1_mcmc_tpu_torch.models import opacity_kernels
-    from cha1_mcmc_tpu_torch.sampler import fused, fused_gather, fused_multi
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_gather, fused_multi
     from cha1_mcmc_tpu_torch.utils import construct_probe
 
     def timed(load):
         t0 = time.perf_counter()
-        _, log = load()
+        log = load()[-1]
         return time.perf_counter() - t0, log
 
-    loads = {"K1": fused.load_kernel_library, "K2": fused_multi.load_kernel_library,
+    loads = {"K1": lambda: cluster.load_library(fused.FAMILY),
+             "K2": lambda: cluster.load_library(fused_multi.FAMILY),
              "K3": fused_gather.load_kernel_library,
              "K4": opacity_kernels.load_kernel_library,
              "T3": construct_probe.load_kernel_library}
@@ -2129,10 +2131,12 @@ def chain_occupancy(kind, tb, st):
     """cudaOccupancyMaxActiveClusters of the step kernel `kind` (K1 / K2)
     at W walkers on the tables `tb`, at cluster_plan's geometry: the
     chains one launch runs at once; the rest run in later waves."""
+    from cha1_mcmc_tpu_torch.sampler import cluster
+
     fam = cluster_family(kind)
     La, M, C = fam["sizes"](tb)
-    return fam["module"].cluster_plan("steps", W, fam["size_arg"](st), La, C, M, tb[0].dtype,
-                                      tb[0].device)[1]
+    return cluster.cluster_plan(fam["family"], "steps", W, st.ncomp, st.ndim, La, C, M,
+                                tb[0].dtype, tb[0].device)[1]
 
 
 def chain_starts(kind, case, n_chains, stuck=True):
@@ -2159,11 +2163,12 @@ def chain_starts(kind, case, n_chains, stuck=True):
 
 def k2_path(tb, st, nwalkers, chains):
     """'wide' or 'cluster': the path a K2 step launch of `chains` chains
-    of nwalkers walkers takes on the tables `tb` (fused_multi.steps_plan)."""
-    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    of nwalkers walkers takes on the tables `tb` (cluster.steps_plan)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi as fm
 
     La, M, C = cluster_family("K2")["sizes"](tb)
-    plan = fm.steps_plan(nwalkers, chains, st.ncomp, La, C, M, tb[0].dtype, tb[0].device)
+    plan = cluster.steps_plan(fm.FAMILY, nwalkers, chains, st.ncomp, st.ndim, La, C, M,
+                              tb[0].dtype, tb[0].device)
     return "wide" if plan.wide else "cluster"
 
 
@@ -2185,7 +2190,7 @@ def check_chains(kind, case, errs, ks=None):
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
 
     fam = cluster_family(kind)
-    counts = fam["module"].LAUNCHES
+    counts = fam["family"].launches
     label = case[0]
     tabs = dict(zip((torch.float32, torch.float64),
                     flagship_tables(case) if kind == "K1" else multi_tables(*case[1:6],

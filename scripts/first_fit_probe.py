@@ -39,8 +39,7 @@ def child(repo: str, cat_folder: str, data_path: str, out: str) -> None:
     import torch
 
     import cha1_mcmc_tpu_torch as port
-    from cha1_mcmc_tpu_torch.sampler import fused
-    from cha1_mcmc_tpu_torch.sampler import stretch
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused, stretch
 
     log = []
 
@@ -59,8 +58,12 @@ def child(repo: str, cat_folder: str, data_path: str, out: str) -> None:
     sampler._run_block = timed("run_block", sampler._run_block)
     if hasattr(sampler, "prepare"):          # the set-up timed apart from the rate
         sampler.prepare = timed("prepare", sampler.prepare)
-    fused.load_kernel_library = timed("load_lib", fused.load_kernel_library)
-    fused.cluster_plan = timed("cluster_plan", fused.cluster_plan)
+    if hasattr(cluster, "load_library"):     # one binding of the cluster kernels
+        cluster.load_library = timed("load_lib", cluster.load_library)
+        cluster.steps_plan = timed("cluster_plan", cluster.steps_plan)
+    else:                                    # K1's own binding, in older checkouts
+        fused.load_kernel_library = timed("load_lib", fused.load_kernel_library)
+        fused.cluster_plan = timed("cluster_plan", fused.cluster_plan)
     fused.draw_randomness = timed("draw_randomness", fused.draw_randomness)
     fused.block_randomness = timed("block_randomness", fused.block_randomness)
     stretch.np.save = timed("np.save", np.save)
@@ -91,8 +94,11 @@ def main() -> int:
         return 0
     if len(sys.argv) > 1 and sys.argv[1] == "--build":
         sys.path.insert(0, sys.argv[2])
-        from cha1_mcmc_tpu_torch.sampler import fused
-        fused.load_kernel_library()
+        from cha1_mcmc_tpu_torch.sampler import cluster, fused
+        if hasattr(cluster, "load_library"):
+            cluster.load_library(fused.FAMILY)
+        else:
+            fused.load_kernel_library()
         return 0
     sys.path.insert(0, HERE)
     from tests.port_problems import write_hc5n_problem

@@ -8,7 +8,7 @@ against that commit's source, whose kernels and tables<T> it names.
 Run from the repository root, with DIR a checkout of that commit:
 
     mkdir -p build/parent && git archive 67cb25c | tar -x -C build/parent
-    python3 cha1_mcmc_tpu_torch/utils/k3_parent_split.py build/parent
+    python3 scripts/k3_parent_split.py build/parent
 
 It builds this tree's K3 and DIR's gather_step.cu with one extra entry
 (SPLIT_SOURCE), then prints, on the full-size dense problem of
@@ -28,7 +28,7 @@ import subprocess
 import sys
 import tempfile
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from chip_smoke import (CU_SOURCE_K3, DEVICE, K_STEPS, TIMING_PAIRS, W,  # noqa: E402
@@ -203,8 +203,8 @@ def main(argv) -> int:
     import torch
 
     if len(argv) != 1 or not torch.cuda.is_available():
-        print("usage (on a CUDA device): python3 cha1_mcmc_tpu_torch/utils/"
-              "k3_parent_split.py DIR", file=sys.stderr)
+        print("usage (on a CUDA device): python3 scripts/k3_parent_split.py DIR",
+              file=sys.stderr)
         return 2
     from tests.port_problems import write_dense_problem
 

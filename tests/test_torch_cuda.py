@@ -488,13 +488,12 @@ def test_k2_chains_take_the_path_their_ctas_fit(gotham_cases, chains):
     at K = 1) in f32 and f64 and to the plain version in f64, the -inf
     walker per chain, one launch a block (chip_smoke.check_chains)."""
     import chip_smoke
-    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi as fm
 
     case = gotham_cases["analytic-4c"]
     (st, tb), _ = chip_smoke.multi_tables(*case[1:6], case[7])
-    La, M, C = chip_smoke.cluster_family("K2")["sizes"](tb)
-    wide = fm.plan_multi_wide(chip_smoke.W, st.ncomp, La, C, M, torch.float32)
-    capacity = fm.wide_capacity(wide.layout, torch.float32, tb[0].device)
+    wide = chip_smoke.cluster_family("K2")["plan"](tb, st, chip_smoke.W, "wide", None, True)
+    capacity = cluster.wide_capacity(fm.FAMILY, wide.layout, torch.float32, tb[0].device)
     assert capacity >= 2 * wide.cluster, capacity
     K = capacity // wide.cluster + 1 if chains == "past capacity" else int(chains)
     path = chip_smoke.k2_path(tb, st, chip_smoke.W, K)
@@ -508,16 +507,16 @@ def test_k2_wide_launch_past_the_card_raises(gotham_cases):
     refused by the card (a cooperative launch too large): the wrapper
     raises DeviceError, counts no launch and runs nothing else."""
     import chip_smoke
-    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi as fm
     from cha1_mcmc_tpu_torch.sampler.fused import block_randomness
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_chain_randomness
     from cha1_mcmc_tpu_torch.utils import DeviceError
 
     case = gotham_cases["analytic-4c"]
     (st, tb), _ = chip_smoke.multi_tables(*case[1:6], case[7])
-    La, M, C = chip_smoke.cluster_family("K2")["sizes"](tb)
-    wide = fm.plan_multi_wide(chip_smoke.W, st.ncomp, La, C, M, torch.float32)
-    K = fm.wide_capacity(wide.layout, torch.float32, tb[0].device) // wide.cluster + 1
+    wide = chip_smoke.cluster_family("K2")["plan"](tb, st, chip_smoke.W, "wide", None, True)
+    K = cluster.wide_capacity(fm.FAMILY, wide.layout, torch.float32, tb[0].device) \
+        // wide.cluster + 1
     pos0 = chip_smoke.chain_starts("K2", case, K, stuck=False).to(torch.float32)
     lnp0 = torch.stack([fm.multi_lnprob(p, tb, st) for p in pos0])
     gen = torch.Generator(device="cuda")
@@ -791,17 +790,17 @@ def test_block_timer_spans_a_block_from_its_first_launch():
 def test_multifit_k2_plan_span_counts_the_plan_k2_launches(tmp_path):
     """A float32 MultiComponentFit through K2 on the card (the real
     factory, the configuration's 66 lines x 1,138 channels) records one
-    `pipeline/k2_plan` inside a `pipeline/model`: its counts are
-    plan_multi_wide's at 128 walkers (64 CTAs, `wide` 1), the plan every
-    launch took (steps_plan's), and the runner counts each of its launches
-    as wide."""
+    `pipeline/k2_plan` inside a `pipeline/model`: its counts are the wide
+    plan's at 128 walkers (64 CTAs, `wide` 1), the plan every launch took
+    (cluster.steps_plan's, cached: the span and the launches read one
+    object)."""
     _require_card()
     import contextlib
     import io
 
     from cha1_mcmc_tpu_torch import MultiComponentFit, MultiFitConfig
-    from cha1_mcmc_tpu_torch.sampler import FusedEnsembleSampler
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import LAUNCHES, plan_multi_wide, steps_plan
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsembleSampler, cluster
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import FAMILY, LAUNCHES
     from cha1_mcmc_tpu_torch.utils import metrics
     from tests.port_problems import write_hc9n_problem
 
@@ -820,10 +819,12 @@ def test_multifit_k2_plan_span_counts_the_plan_k2_launches(tmp_path):
     lines, vel = tables[:2]
     shape = (lines.shape[1], vel.shape[1], vel.shape[0])
     assert shape[:2] == (66, 1138)
-    plan = plan_multi_wide(128, 4, *shape, torch.float32)
-    launched = steps_plan(128, 1, 4, *shape, torch.float32, vel.device)
+    plan = cluster.plan_wide(FAMILY, 128, 4, 14, *shape, torch.float32)
+    launched = cluster.checked_plan(FAMILY, "steps", None, 128, 1, 4, 14, *shape,
+                                    torch.float32, vel.device)
     assert launched == plan and launched.wide
-    assert fit.sampler.run_fn.wide_launches == 4
+    assert launched is cluster.steps_plan(FAMILY, 128, 1, 4, 14, *shape, torch.float32,
+                                          vel.device)
     want = dict(components=4, ctas=64, wide=1, staged=int(plan.staged),
                 smem_bytes=plan.smem_bytes,
                 table_bytes=sum(t.numel() * t.element_size() for t in tables))

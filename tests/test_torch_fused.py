@@ -237,21 +237,34 @@ def test_statics_pack_cheb_and_limits(port_problem):
                       torch.float32)
 
 
-def test_shared_memory_plan():
-    """K1's cluster plan at the flagship size, and the gate (fused_fits:
-    the plan at 8 CTAs, unstaged where the staged layout does not fit)."""
-    from cha1_mcmc_tpu_torch.sampler.fused import fused_fits, plan_fused_cluster
+def _k1_admits(nwalkers, ndim, n_lines, dtype, **kw):
+    """K1's admission gate (cluster.admits of fused.FAMILY, one component)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused
 
+    return cluster.admits(fused.FAMILY, nwalkers, 1, ndim, n_lines, dtype, **kw)
+
+
+def _k1_plan(nwalkers, ndim, n_lines, n_channels, n_entries, dtype, **kw):
+    """K1's cluster plan (cluster.plan_cluster of fused.FAMILY)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused
+
+    return cluster.plan_cluster(fused.FAMILY, nwalkers, 1, ndim, n_lines, n_channels,
+                                n_entries, dtype, **kw)
+
+
+def test_shared_memory_plan():
+    """K1's cluster plan at the flagship size, and the gate (cluster.admits:
+    the plan at 8 CTAs, unstaged where the staged layout does not fit)."""
     # flagship: 128 walkers x 4 dims, 9 lines x 561 channels x 3 entries,
     # f32, 16 CTAs: 4 proposals a CTA, the tables staged
-    plan = plan_fused_cluster(128, 4, 9, 561, 3, torch.float32)
+    plan = _k1_plan(128, 4, 9, 561, 3, torch.float32)
     assert (plan.cluster, plan.proposals, plan.per_cta, plan.staged) == (16, 64, 4, True)
     values = 128 * 5 + 10 * 561 + 5 * 9 + 4 * 9 + 16 + 4 * 5 + 4
     assert plan.smem_bytes == 4 * values + 4 * (3 * 561 + 4 + 2)
-    assert fused_fits(128, 4, 9, torch.float32)
+    assert _k1_admits(128, 4, 9, torch.float32)
     # 8,192 walkers: 164 KB of f32 state fits a CTA now; 393 KB of f64 does not
-    assert fused_fits(8192, 4, 9, torch.float32) and fused_fits(8192, 5, 9, torch.float32)
-    assert not fused_fits(8192, 5, 9, torch.float64)
+    assert _k1_admits(8192, 4, 9, torch.float32) and _k1_admits(8192, 5, 9, torch.float32)
+    assert not _k1_admits(8192, 5, 9, torch.float64)
 
 
 def _one_cta_bytes(nwalkers, ndim, n_lines, item):
@@ -262,41 +275,9 @@ def _one_cta_bytes(nwalkers, ndim, n_lines, item):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k1_layout_regions_tile(dtype):
-    """Every region of K1's layouts (steps, K5a's half-step, the lnprob
-    entry; staged and not) starts where the last ends, aligned to its
-    type, with the sizes the kernel carves; K2's hfs group table is
-    empty."""
-    from cha1_mcmc_tpu_torch.sampler.cluster import REGIONS, T_REGIONS
-    from cha1_mcmc_tpu_torch.sampler.fused import plan_fused_cluster, smem_layout
-
-    item = torch.empty((), dtype=dtype).element_size()
-    W, D, La, C, M = 100, 5, 9, 561, 3
-    layouts = [(plan_fused_cluster(W, D, La, C, M, dtype).layout, W, D, 4, True),
-               (plan_fused_cluster(W, D, La, C, M, dtype, cluster=8, stage=False).layout,
-                W, D, 7, False),
-               (plan_fused_cluster(W, D, La, C, M, dtype, resident_state=False).layout,
-                0, D, 4, True),
-               (smem_layout(dtype, La, C, M), 0, -1, 0, True)]
-    for layout, rows, ndim, per_cta, staged in layouts:
-        t = int(staged)
-        sizes = dict(state=rows * (ndim + 1), chans=t * 3 * C, cc=t * 4 * C, vel=t * M * C,
-                     lines=t * 5 * La, tau=4 * La, part=16, prop=per_cta * (ndim + 1),
-                     zz=per_cta, line_idx=t * M * C, group=0, flag=per_cta, acc=2)
-        at = 0
-        for name, off in zip(REGIONS, layout.offsets):
-            size = item if name in T_REGIONS else 4
-            assert off == at and off % size == 0, name
-            at += size * sizes[name]
-        assert layout.bytes == at and layout.staged == staged and layout.fits
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_gate_takes_every_shape_the_one_cta_gate_took(dtype):
-    """fused_fits accepts, for K1 and for K5a, every (walkers, dims, lines)
+    """K1's gate accepts, for K1 and for K5a, every (walkers, dims, lines)
     whose one-CTA working set fit a CTA, and more walkers besides."""
-    from cha1_mcmc_tpu_torch.sampler.fused import fused_fits
-
     item = torch.empty((), dtype=dtype).element_size()
     took = 0
     for W in (2, 8, 64, 100, 128, 256, 1024, 2048, 4096, 6000, 8192):
@@ -304,24 +285,22 @@ def test_gate_takes_every_shape_the_one_cta_gate_took(dtype):
             for L in (1, 9, 63, 500, 2000, 3600):
                 if _one_cta_bytes(W, D, L, item) <= 232_448:
                     took += 1
-                    assert fused_fits(W, D, L, dtype), (W, D, L)
-                    assert fused_fits(W, D, L, dtype, resident_state=False), (W, D, L)
+                    assert _k1_admits(W, D, L, dtype), (W, D, L)
+                    assert _k1_admits(W, D, L, dtype, resident_state=False), (W, D, L)
     assert took > 50
-    assert _one_cta_bytes(8192, 4, 9, 4) > 232_448 and fused_fits(8192, 4, 9, torch.float32)
+    assert _one_cta_bytes(8192, 4, 9, 4) > 232_448 and _k1_admits(8192, 4, 9, torch.float32)
 
 
 def test_gate_has_no_channel_limit():
     """A wide single-component problem (9 lines x 200,000 channels) runs
     with its tables in device memory: the unstaged plan fits a CTA at 8
     and 16 CTAs; the tables are staged only where they fit."""
-    from cha1_mcmc_tpu_torch.sampler.fused import plan_fused_cluster
-
     for n in (8, 16):
-        plan = plan_fused_cluster(128, 4, 9, 200_000, 3, torch.float32, cluster=n)
+        plan = _k1_plan(128, 4, 9, 200_000, 3, torch.float32, cluster=n)
         assert plan.fits and not plan.staged
-        assert plan.layout == plan_fused_cluster(128, 4, 9, 561, 3, torch.float32,
-                                                 cluster=n, stage=False).layout
-    assert plan_fused_cluster(128, 4, 9, 4_000, 3, torch.float32).staged
+        assert plan.layout == _k1_plan(128, 4, 9, 561, 3, torch.float32, cluster=n,
+                                       stage=False).layout
+    assert _k1_plan(128, 4, 9, 4_000, 3, torch.float32).staged
 
 
 def test_entry_tables_list_the_lines_in_window(port_problem):
@@ -397,45 +376,3 @@ def test_entry_order_sum_equals_plain_bitwise(port_problem):
     got = _entry_order_lnprob(theta, run.tables, run.statics)
     assert bool(torch.isfinite(want).all())
     assert torch.equal(got, want)
-
-
-def test_k1_explicit_plan_is_checked_against_the_launch():
-    """A plan handed to the K1 / K5a wrappers must have been made for the
-    launch's sizes and entry and fit a CTA; else the wrapper raises before
-    it launches anything."""
-    from cha1_mcmc_tpu_torch.sampler.fused import checked_plan, plan_fused_cluster
-
-    args = (64, 4, 9, 561, 3, torch.float32, torch.device("cpu"))
-    k1 = plan_fused_cluster(64, 4, 9, 561, 3, torch.float32, cluster=8)
-    k5a = plan_fused_cluster(64, 4, 9, 561, 3, torch.float32, cluster=8, resident_state=False)
-    assert checked_plan("steps", k1, *args) is k1
-    assert checked_plan("half", k5a, *args) is k5a
-    with pytest.raises(ValueError, match="K5a half: a plan .* cannot launch"):
-        checked_plan("half", k1, *args)
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("steps", k1, 64, 5, *args[2:])
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("steps", k1, 64, 4, 9, 561, 3, torch.float64, torch.device("cpu"))
-    too_big = plan_fused_cluster(64, 4, 9, 200_000, 3, torch.float32, cluster=8, stage=True)
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("steps", too_big, 64, 4, 9, 200_000, 3, torch.float32,
-                     torch.device("cpu"))
-
-
-@pytest.mark.parametrize("nwalkers,cluster", [(128, 16), (128, 8), (100, 16), (2048, 16),
-                                              (40, 8), (8, 16)])
-def test_k1_cluster_plan_owns_each_proposal_once(nwalkers, cluster):
-    """K1's split of a half-update's h = W / 2 proposals over the cluster
-    (csrc/cluster_step.cuh:owned_slice): each proposal has one owner, at
-    most per_cta = ceil(h / n) a CTA, and the layout holds per_cta owned
-    proposals."""
-    from cha1_mcmc_tpu_torch.sampler.cluster import REGIONS
-    from cha1_mcmc_tpu_torch.sampler.fused import plan_fused_cluster
-
-    plan = plan_fused_cluster(nwalkers, 5, 9, 561, 3, torch.float64, cluster=cluster)
-    h = nwalkers // 2
-    slices = [plan.owned(r) for r in range(cluster)]
-    assert [j for sl in slices for j in sl] == list(range(h))
-    assert max(len(sl) for sl in slices) == plan.per_cta == -(-h // cluster)
-    offsets = dict(zip(REGIONS, plan.layout.offsets))
-    assert offsets["zz"] - offsets["prop"] == 8 * plan.per_cta * 6

@@ -636,7 +636,7 @@ def test_kernel_wrappers_raise_device_error():
     """Every wrapper's CUDA error code becomes a DeviceError, a
     RuntimeError the retry catches (and existing `pytest.raises(
     RuntimeError)` checks still see)."""
-    from cha1_mcmc_tpu_torch.sampler.fused import raise_on
+    from cha1_mcmc_tpu_torch.sampler.cluster import raise_on
     from cha1_mcmc_tpu_torch.utils import DEVICE_ERRORS, DeviceError
 
     raise_on(0, None, "fused_steps")

@@ -34,6 +34,34 @@ torch.set_num_threads(1)
 
 W, NSTEPS, K_STEPS = 16, 8, 4
 DV_BOUND = 0.3
+
+
+def _k2_plan(nwalkers, ncomp, n_lines, n_channels, n_entries, dtype, **kw):
+    """K2's cluster plan (cluster.plan_cluster of fused_multi.FAMILY)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
+
+    return cluster.plan_cluster(fused_multi.FAMILY, nwalkers, ncomp, 3 * ncomp + 2, n_lines,
+                                n_channels, n_entries, dtype, **kw)
+
+
+def _k2_wide(nwalkers, ncomp, n_lines, n_channels, n_entries, dtype, **kw):
+    """K2's wide plan (cluster.plan_wide of fused_multi.FAMILY)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
+
+    return cluster.plan_wide(fused_multi.FAMILY, nwalkers, ncomp, 3 * ncomp + 2, n_lines,
+                             n_channels, n_entries, dtype, **kw)
+
+
+@pytest.fixture
+def card_capacity(monkeypatch):
+    """Stand in for the card's answer of how many wide K2 CTAs it keeps
+    resident: card_capacity(n) makes cluster.wide_capacity answer n;
+    cluster.steps_plan's cache is emptied before and after."""
+    from cha1_mcmc_tpu_torch.sampler import cluster
+
+    cluster.steps_plan.cache_clear()
+    yield lambda n: monkeypatch.setattr(cluster, "wide_capacity", lambda *args: n)
+    cluster.steps_plan.cache_clear()
 STUCK = 3   # walker started at dV = 0.5 > DV_BOUND: -inf, never accepts
 
 
@@ -448,8 +476,7 @@ def test_k2_statics_struct_rounds_constants_once(port_k2, dtype, size):
 
 def test_k2_shared_memory_gate(reduced, port_k2):
     from cha1_mcmc_tpu_torch.inference import ParamSpec
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import (fused_multi_supported,
-                                                         plan_multi_cluster)
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import fused_multi_supported
 
     # GOTHAM full size: 128 walkers x 14 dims, 66 lines, 1,138 channels, 3
     # entries a channel, f32, 16 CTAs: per CTA the state, the staged chans
@@ -457,13 +484,13 @@ def test_k2_shared_memory_gate(reduced, port_k2):
     # lines (5, 66), 4 groups' (4, 66) tau and 16 partials each (the lnprob's
     # 512 lanes as 16 warps' sums), 4 owned proposals and stretch factors;
     # the entry indices and groups (2, 3, 1138), 4 flags and 2 counters
-    plan = plan_multi_cluster(128, 4, 66, 1138, 3, torch.float32)
+    plan = _k2_plan(128, 4, 66, 1138, 3, torch.float32)
     assert (plan.cluster, plan.per_cta, plan.warps_per_proposal) == (16, 4, 4)
     assert plan.staged and not plan.wide
     assert plan.smem_bytes == (4 * (128 * 15 + 7 * 1138 + 3 * 1138 + 5 * 66 + 4 * 4 * 66
                                     + 4 * 16 + 4 * 15 + 4) + 4 * (2 * 3 * 1138 + 4 + 2))
     # unstaged: no table, no per-channel constant
-    unstaged = plan_multi_cluster(128, 4, 66, 1138, 3, torch.float32, stage=False)
+    unstaged = _k2_plan(128, 4, 66, 1138, 3, torch.float32, stage=False)
     assert unstaged.smem_bytes == (4 * (128 * 15 + 4 * 4 * 66 + 4 * 16 + 4 * 15 + 4)
                                    + 4 * (4 + 2))
     model = port_model(jax_gotham_model(*reduced, "float32"), torch.float32)
@@ -489,26 +516,6 @@ def test_k2_shared_memory_gate(reduced, port_k2):
     assert not fused_multi_supported(shuffled, ParamSpec(ncomp=4), DV_BOUND)
 
 
-@pytest.mark.parametrize("nwalkers,cluster", [(128, 16), (128, 8), (96, 16), (96, 8),
-                                              (64, 16), (32, 16), (32, 8), (8, 16),
-                                              (250, 16), (250, 8)])
-def test_k2_cluster_plan_owns_each_proposal_once(nwalkers, cluster):
-    """The ragged split of a half-update's h = W / 2 proposals over the
-    cluster's CTAs (csrc/cluster_step.cuh:owned_slice): every proposal
-    has exactly one owner, contiguous, at most per_cta = ceil(h / n) each,
-    sizes differing by at most one."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
-
-    plan = plan_multi_cluster(nwalkers, 4, 66, 1138, 3, torch.float32, cluster=cluster)
-    h = nwalkers // 2
-    slices = [plan.owned(r) for r in range(cluster)]
-    assert [j for sl in slices for j in sl] == list(range(h))
-    sizes = [len(sl) for sl in slices]
-    assert max(sizes) == plan.per_cta == -(-h // cluster)
-    assert max(sizes) - min(sizes) <= 1
-    assert plan.proposals == h
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("cluster", [16, 8])
 def test_k2_cluster_plan_fits_gotham(dtype, cluster):
@@ -516,12 +523,9 @@ def test_k2_cluster_plan_fits_gotham(dtype, cluster):
     3 entries) both plans fit a Hopper CTA's 232,448 bytes; K5c's leaves
     the state in device memory, so it needs exactly the state's bytes
     less."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
-
     item = torch.empty((), dtype=dtype).element_size()
-    k2 = plan_multi_cluster(128, 4, 66, 1138, 3, dtype, cluster=cluster)
-    k5c = plan_multi_cluster(128, 4, 66, 1138, 3, dtype, cluster=cluster,
-                             resident_state=False)
+    k2 = _k2_plan(128, 4, 66, 1138, 3, dtype, cluster=cluster)
+    k5c = _k2_plan(128, 4, 66, 1138, 3, dtype, cluster=cluster, resident_state=False)
     assert k2.fits and k5c.fits and k2.smem_bytes <= 232_448
     assert k2.staged and k5c.staged
     assert k2.smem_bytes - k5c.smem_bytes == item * 128 * 15
@@ -531,40 +535,6 @@ def test_k2_cluster_plan_fits_gotham(dtype, cluster):
                               + 4 * (2 * 3 * 1138 + P + 2))
 
 
-@pytest.mark.parametrize("stage", [True, False])
-@pytest.mark.parametrize("resident", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_k2_smem_layout_regions_tile_the_bytes(dtype, resident, stage):
-    """The layout the kernels apply (csrc/cluster_step.cuh:carve): regions
-    in order, each the size of what it holds, the values aligned to their
-    dtype and the int32 regions after them, ending at `bytes`; without
-    staging no region grows with the channels."""
-    from cha1_mcmc_tpu_torch.sampler.cluster import I_REGIONS as _I_REGIONS
-    from cha1_mcmc_tpu_torch.sampler.cluster import T_REGIONS as _T_REGIONS
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
-
-    item = torch.empty((), dtype=dtype).element_size()
-    W, K, La, C, M, n = 96, 4, 66, 1138, 3, 16
-    P, D1 = -(-(W // 2) // n), 3 * K + 3
-    plan = plan_multi_cluster(W, K, La, C, M, dtype, cluster=n, resident_state=resident,
-                              stage=stage)
-    t = int(stage)
-    sizes = dict(state=item * W * D1 * resident, chans=item * 3 * C * t,
-                 cc=item * 4 * C * t, vel=item * M * C * t, lines=item * 5 * La * t,
-                 tau=item * 4 * K * La, part=item * 4 * 16, prop=item * P * D1, zz=item * P,
-                 line_idx=4 * M * C * t, group=4 * M * C * t, flag=4 * P, acc=8)
-    offsets = dict(zip(_T_REGIONS + _I_REGIONS, plan.layout.offsets))
-    at = 0
-    for name in _T_REGIONS + _I_REGIONS:
-        assert offsets[name] == at, name
-        assert at % (item if name in _T_REGIONS else 4) == 0, name
-        at += sizes[name]
-    assert plan.smem_bytes == at and plan.staged == stage
-    wider = plan_multi_cluster(W, K, La, 10 * C, M, dtype, cluster=n, resident_state=resident,
-                               stage=stage)
-    assert (wider.smem_bytes == plan.smem_bytes) == (not stage)
-
-
 @pytest.mark.parametrize("nwalkers", [64, 100, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_k2_wide_plan_gives_each_proposal_a_cta(dtype, nwalkers):
@@ -572,17 +542,17 @@ def test_k2_wide_plan_gives_each_proposal_a_cta(dtype, nwalkers):
     every half-update with all 16 warps, one lnprob group, no copy of the
     state in shared memory — the K5c layout of one proposal a CTA at one
     group — the tables staged at the GOTHAM size."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import (plan_multi_cluster, plan_multi_wide,
-                                                         smem_layout)
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
 
     h = nwalkers // 2
-    wide = plan_multi_wide(nwalkers, 4, 66, 1138, 3, dtype)
+    wide = _k2_wide(nwalkers, 4, 66, 1138, 3, dtype)
     assert wide.wide and (wide.cluster, wide.proposals, wide.per_cta) == (h, h, 1)
     assert wide.warps_per_proposal == 16 and wide.fits and wide.staged
     assert [j for r in range(h) for j in wide.owned(r)] == list(range(h))
-    assert wide.shape == plan_multi_cluster(nwalkers, 4, 66, 1138, 3, dtype).shape
-    assert wide.layout == smem_layout(dtype, 4, 66, 1138, 3, ndim=14, per_cta=1, groups=1)
-    one_a_cta = plan_multi_cluster(2, 4, 66, 1138, 3, dtype, cluster=1, resident_state=False)
+    assert wide.shape == _k2_plan(nwalkers, 4, 66, 1138, 3, dtype).shape
+    assert wide.layout == cluster.smem_layout(fused_multi.FAMILY, dtype, 4, 66, 1138, 3,
+                                              ndim=14, per_cta=1, groups=1)
+    one_a_cta = _k2_plan(2, 4, 66, 1138, 3, dtype, cluster=1, resident_state=False)
     item = torch.empty((), dtype=dtype).element_size()
     assert one_a_cta.smem_bytes - wide.smem_bytes == item * 3 * (4 * 66 + 16)
 
@@ -591,54 +561,78 @@ def test_k2_wide_plan_gives_each_proposal_a_cta(dtype, nwalkers):
     (128, 1, 132, True), (128, 2, 132, True), (128, 3, 132, False), (128, 4, 132, False),
     (128, 4, 264, True), (128, 5, 264, False), (100, 2, 100, True), (100, 2, 99, False),
     (256, 1, 132, True), (256, 2, 132, False), (2048, 1, 132, False), (128, 1, 0, False)])
-def test_k2_wide_path_is_taken_exactly_when_the_chains_fit(nwalkers, chains, capacity, wide):
-    """choose_steps_plan takes the wide plan exactly where the launch's
-    chains x h CTAs fit the co-resident CTAs it is given (0: a card with
-    no cooperative launch), else the cluster plan it is handed."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import (choose_steps_plan, plan_multi_cluster,
-                                                         plan_multi_wide)
+def test_k2_wide_path_is_taken_exactly_when_the_chains_fit(card_capacity, nwalkers, chains,
+                                                            capacity, wide):
+    """cluster.steps_plan takes the wide plan exactly where the launch's
+    chains x h CTAs fit the co-resident CTAs the card answers (0: a card
+    with no cooperative launch), else the cluster plan (16 CTAs here, where
+    no card is asked whether it places them)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
 
-    wide_plan = plan_multi_wide(nwalkers, 4, 66, 1138, 3, torch.float32)
-    clustered = plan_multi_cluster(nwalkers, 4, 66, 1138, 3, torch.float32)
-    chosen = choose_steps_plan(wide_plan, chains, capacity, lambda: clustered)
-    assert (chosen is wide_plan) == wide and (chosen is clustered) == (not wide)
+    card_capacity(capacity)
+    chosen = cluster.steps_plan(fused_multi.FAMILY, nwalkers, chains, 4, 14, 66, 1138, 3,
+                                torch.float32, torch.device("cpu"))
+    want = (_k2_wide(nwalkers, 4, 66, 1138, 3, torch.float32) if wide
+            else _k2_plan(nwalkers, 4, 66, 1138, 3, torch.float32))
+    assert chosen == want and chosen.wide == wide
     assert wide == (chains * (nwalkers // 2) <= capacity)
 
 
-def test_k2_wide_path_needs_a_plan_that_fits():
+def test_k2_wide_path_needs_a_plan_that_fits(card_capacity):
     """Past what a CTA's shared memory holds the wide plan is not taken,
-    whatever the card's capacity."""
-    import dataclasses
+    whatever the card's capacity: 20,000 active lines' tau fit neither the
+    wide CTA nor a cluster's, so no geometry runs the launch."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
 
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import choose_steps_plan, plan_multi_wide
-
-    wide = plan_multi_wide(128, 4, 66, 113_800, 3, torch.float32, stage=True)
-    assert not wide.fits
-    assert choose_steps_plan(wide, 1, 10_000, lambda: "cluster") == "cluster"
-    fits = dataclasses.replace(wide, layout=plan_multi_wide(128, 4, 66, 1138, 3,
-                                                            torch.float32).layout)
-    assert choose_steps_plan(fits, 1, 10_000, lambda: "cluster") is fits
+    assert not _k2_wide(128, 4, 20_000, 1138, 3, torch.float32).fits
+    assert _k2_wide(128, 4, 66, 113_800, 3, torch.float32).fits     # unstaged
+    assert not _k2_wide(128, 4, 66, 113_800, 3, torch.float32, stage=True).fits
+    card_capacity(10_000)
+    with pytest.raises(ValueError, match="no cluster geometry runs it"):
+        cluster.steps_plan(fused_multi.FAMILY, 128, 1, 4, 14, 20_000, 1138, 3,
+                           torch.float32, torch.device("cpu"))
 
 
 @pytest.mark.parametrize("n_chains,capacity,want", [
     (1, 132, (64, 1)), (2, 132, (64, 1)), (4, 132, (16, 0)), (4, 264, (64, 1)),
     (1, None, (16, 0))])
-def test_k2_plan_counts_report_the_path(port_k2, n_chains, capacity, want):
+def test_k2_plan_counts_report_the_path(port_k2, card_capacity, n_chains, capacity, want):
     """MultiFusedEnsemble.plan_counts (the `pipeline/k2_plan` span's counts)
     at 128 walkers a chain: the CTAs a chain and `wide` 1 where the chains
-    fit the capacity given, else the 16-CTA cluster and 0; on CPU tables
-    with no capacity given, where no launch is made, the cluster plan."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster, plan_multi_wide
-
-    counts = port_k2.plan_counts(128, n_chains, capacity=capacity)
+    fit the capacity the card answers, else the 16-CTA cluster and 0; on
+    CPU tables with no card to answer (None), where no launch is made, the
+    cluster plan."""
+    if capacity is not None:
+        card_capacity(capacity)
+    counts = port_k2.plan_counts(128, n_chains)
     lines, vel = port_k2.tables[:2]
     sizes = (4, lines.shape[1], vel.shape[1], vel.shape[0], vel.dtype)
-    plan = (plan_multi_wide(128, *sizes) if want[1]
-            else plan_multi_cluster(128, *sizes, cluster=16))
+    plan = _k2_wide(128, *sizes) if want[1] else _k2_plan(128, *sizes, cluster=16)
     assert (counts["ctas"], counts["wide"]) == want
     assert counts["smem_bytes"] == plan.smem_bytes and counts["staged"] == int(plan.staged)
     assert counts["components"] == 4
-    assert port_k2.wide_launches == 0     # nothing launched on the CPU
+
+
+@pytest.mark.parametrize("n_chains", [1, 4])
+def test_k2_plan_counts_and_the_step_launch_take_one_plan(port_k2, monkeypatch, n_chains):
+    """One chooser: on the CPU, the plan plan_counts reports is the object
+    that the step launch's own choice (checked_plan with no plan handed in,
+    cluster.steps_plan) returns for the same chains, sizes and device."""
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
+
+    asked = []
+    real = fused_multi.steps_plan
+    monkeypatch.setattr(fused_multi, "steps_plan",
+                        lambda *args: asked.append(real(*args)) or asked[-1])
+    counts = port_k2.plan_counts(128, n_chains)
+    (plan,) = asked
+    lines, vel, _, _, _, qst = port_k2.tables
+    launched = cluster.checked_plan(fused_multi.FAMILY, "steps", None, 128, n_chains, 4, 14,
+                                    lines.shape[1], vel.shape[1], vel.shape[0], vel.dtype,
+                                    vel.device)
+    assert launched is plan
+    assert (counts["ctas"], counts["wide"], counts["smem_bytes"]) == (
+        plan.cluster, int(plan.wide), plan.smem_bytes)
 
 
 def test_k1_geometry_and_layout_are_unchanged():
@@ -649,10 +643,10 @@ def test_k1_geometry_and_layout_are_unchanged():
     from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_multi
 
     assert (cluster.THREADS, cluster.GROUPS, cluster.GROUP_WARPS) == (512, 4, 4)
-    assert fused_multi.K2_LANE_WARPS == 16
-    assert fused_multi.plan_multi_cluster(128, 4, 66, 1138, 3,
-                                          torch.float32).warps_per_proposal == 4
-    plan = fused.plan_fused_cluster(128, 4, 9, 561, 2, torch.float32)
+    assert fused_multi.K2_LANE_WARPS == fused_multi.FAMILY.partials == 16
+    assert fused.FAMILY.partials == cluster.GROUP_WARPS
+    assert _k2_plan(128, 4, 66, 1138, 3, torch.float32).warps_per_proposal == 4
+    plan = cluster.plan_cluster(fused.FAMILY, 128, 1, 4, 9, 561, 2, torch.float32)
     assert (plan.cluster, plan.per_cta, plan.warps_per_proposal) == (16, 4, 4)
     assert not plan.wide and plan.staged
     # the state (128, 5), the staged chans (3, 561), 4 constants a channel,
@@ -673,8 +667,8 @@ def test_k2_gate_accepts_thousands_of_channels(reduced, dtype):
     import types
 
     from cha1_mcmc_tpu_torch.inference import ParamSpec
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import (fused_multi_supported,
-                                                         plan_multi_cluster, smem_layout,
+    from cha1_mcmc_tpu_torch.sampler import cluster
+    from cha1_mcmc_tpu_torch.sampler.fused_multi import (FAMILY, fused_multi_supported,
                                                          window_extents)
 
     model = port_model(jax_gotham_model(*reduced, "float32"), dtype)
@@ -693,36 +687,12 @@ def test_k2_gate_accepts_thousands_of_channels(reduced, dtype):
     M = int((np.abs(wide - model.mask_center) < 10 * DV_BOUND).sum(axis=0).max())
     assert n * C >= 6000
     assert active.size == n * window_extents(vg, model.mask_center, DV_BOUND)[0].size
-    for cluster in (16, 8):
-        plan = plan_multi_cluster(128, 4, active.size, n * C, M, dtype, cluster=cluster)
+    for n_ctas in (16, 8):
+        plan = _k2_plan(128, 4, active.size, n * C, M, dtype, cluster=n_ctas)
         assert plan.fits and not plan.staged
-        assert not plan_multi_cluster(128, 4, active.size, n * C, M, dtype, cluster=cluster,
-                                      stage=True).fits
-    assert smem_layout(dtype, 4, active.size, n * C, M).fits
-
-
-def test_k2_explicit_plan_is_checked_against_the_launch():
-    """A plan handed to the K2 / K5c wrappers must have been made for the
-    launch's sizes and entry and fit a CTA; else the wrapper raises before
-    it launches anything."""
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import checked_plan, plan_multi_cluster
-
-    args = (64, 4, 66, 1138, 3, torch.float32, torch.device("cpu"))
-    k2 = plan_multi_cluster(64, 4, 66, 1138, 3, torch.float32, cluster=8)
-    k5c = plan_multi_cluster(64, 4, 66, 1138, 3, torch.float32, cluster=8,
-                             resident_state=False)
-    assert checked_plan("steps", k2, *args) is k2
-    assert checked_plan("half", k5c, *args) is k5c
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("half", k2, *args)
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("steps", k2, 96, *args[1:])
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("steps", k2, 64, 4, 66, 1138, 3, torch.float64, torch.device("cpu"))
-    too_big = plan_multi_cluster(64, 4, 66, 113800, 3, torch.float32, cluster=8, stage=True)
-    with pytest.raises(ValueError, match="cannot launch"):
-        checked_plan("steps", too_big, 64, 4, 66, 113800, 3, torch.float32,
-                     torch.device("cpu"))
+        assert not _k2_plan(128, 4, active.size, n * C, M, dtype, cluster=n_ctas,
+                            stage=True).fits
+    assert cluster.smem_layout(FAMILY, dtype, 4, active.size, n * C, M).fits
 
 
 @pytest.mark.parametrize("w_local", [32, 64, 128])

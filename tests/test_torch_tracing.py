@@ -285,7 +285,7 @@ def test_multifit_k2_plan_span_counts_the_plan_of_its_launch(tmp_path, log, monk
     card, where nothing is launched, the cluster plan and `wide` 0."""
     from cha1_mcmc_tpu_torch import MultiComponentFit, MultiFitConfig
     from cha1_mcmc_tpu_torch.pipeline import multifit
-    from cha1_mcmc_tpu_torch.sampler.fused_multi import plan_multi_cluster
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
     from tests.port_problems import write_hc9n_problem
 
     p = write_hc9n_problem(str(tmp_path), n_multiplets=2)
@@ -303,8 +303,8 @@ def test_multifit_k2_plan_span_counts_the_plan_of_its_launch(tmp_path, log, monk
         fit.fit(fit.init_setup())
     (runner,) = made
     lines, vel = runner.tables[:2]
-    plan = plan_multi_cluster(128, 4, lines.shape[1], vel.shape[1], vel.shape[0],
-                              torch.float32, cluster=16)
+    plan = cluster.plan_cluster(fused_multi.FAMILY, 128, 4, 14, lines.shape[1], vel.shape[1],
+                                vel.shape[0], torch.float32, cluster=16)
     want = dict(components=4, ctas=16, wide=0, staged=1, smem_bytes=plan.smem_bytes,
                 table_bytes=sum(t.numel() * t.element_size() for t in runner.tables))
     assert plan.fits and plan.staged
