@@ -22,28 +22,46 @@
 // a few windowed exp2 and the radiative transfer (~0.1 us of the card's
 // special-function rate), but the half-updates depend on each other, so
 // the time of one is the time of its longest chain: a lane's serial walk
-// over its channels, each a chain of dependent loads, exp2, exp and
-// divides, plus the barriers between phases. The one-CTA design this
-// replaces ran a half-update as 4 rounds of 16 warps on one SM, each lane
-// walking ~18 channels and, for each, all 9 lines with a device-memory
-// load and a window compare, and computing J(Tbg), ln(1 / sigma^2) and
-// the beam per (proposal, channel). So the chain is cut three ways:
-//  * one cluster of n = 16 CTAs (8 where the card cannot place 16)
-//    (cluster_step.cuh), each with a full copy of the (W, D+1) state in
-//    shared memory; CTA r owns proposals [r h / n, (r + 1) h / n) of every
-//    half — at 128 walkers 4 proposals, one round of its 4 warp groups;
-//  * K independent ensembles (MultiChainSampler, the JAX package's vmap
-//    over chains) run in one launch, one cluster each (grid (n, K);
-//    cluster_step.cuh: chain_offsets): each cluster offsets its walkers,
-//    randomness and outputs by its chain and reads the shared tables, so
-//    K chains pay one launch per k steps, and a chain's trajectory is the
-//    one it takes launched alone, bitwise; clusters past those the card
-//    holds at once run in later waves;
-//  * four warps per proposal, 128 lanes striding the channels (~4-5 a lane
-//    at the flagship); their chi^2 partials are reduced per warp and added
-//    in warp order (no float atomics: a theta's lnprob is one function of
-//    theta, the same in the lnprob entry, in K1 and in K5a, whatever the
-//    cluster size or staging);
+// over its channels, each a chain of dependent loads, exp2, exp and IEEE
+// divides, plus the barriers between phases. So the chain is cut short,
+// on one of two paths chosen by the binding from what the launch can
+// observe (its K chains of h = W / 2 proposals and the card's co-resident
+// CTAs of the wide kernel, sampler/cluster.py:steps_plan), both loops
+// shared with K2 (cluster_step.cuh: wide_steps, cluster_steps):
+//  * the wide path, where the K h CTAs fit the card at once (a fit's one
+//    or few chains): one cooperative launch of grid (h, K), CTA j of chain
+//    c owning proposal j of every half-update with all 16 warps (512 lanes
+//    over ~1.1 channels each at the flagship), one live proposal an SM.
+//    The state stays in device memory: each CTA reads its walker's row,
+//    its lnp and its partner's row from the previous step's chain output
+//    (L2), writes its walker's row, and one grid.sync() a half-update
+//    publishes the rows to the next half; the accepted counts are float
+//    adds of whole numbers into out_acc;
+//  * the cluster path otherwise (many chains, thousands of walkers): one
+//    cluster of n = 16 CTAs a chain (8 where the card cannot place 16),
+//    each with a full copy of the (W, D+1) state in shared memory; CTA r
+//    owns proposals [r h / n, (r + 1) h / n) of every half — at 128 walkers
+//    4 proposals, one round of its four 4-warp groups; the owner of a
+//    proposal accepts it and writes the row into every CTA's copy through
+//    distributed shared memory, then cluster.sync(); accepted counts are
+//    integer atomics into rank 0's shared memory, double-buffered by step
+//    parity; clusters past those the card holds at once run in later
+//    waves;
+//  * both run K independent ensembles (MultiChainSampler, the JAX
+//    package's vmap over chains) in one launch (cluster_step.cuh:
+//    chain_offsets): each chain's CTAs offset its walkers, randomness and
+//    outputs by its chain and read the shared tables, so K chains pay one
+//    launch per k steps, and a chain's trajectory is the one it takes
+//    launched alone, on either path, bitwise; each walker's chain row is
+//    written by the owner of its proposal;
+//  * one lnprob function over kLanes = 512 lanes (K1GroupLnProb): lane v
+//    sums the channels v, v + 512, ... in order, each warp of lanes is
+//    reduced by warp_sum and the 16 warp sums added in order (no float
+//    atomics). The wide CTA runs it a lane a thread; the cluster path, the
+//    lnprob entry and K5a in groups of four warps, four lanes a thread
+//    (four independent sums, the same bits). So a theta's lnprob is one
+//    function of theta: the same in the lnprob entry, on both step paths
+//    and in K5a, whatever the cluster size or staging;
 //  * per channel only the lines whose window at the prior's dV bound can
 //    reach it: the channel-major entry tables (M, C) of the gather
 //    formulation (build_opacity_gather: active-line index and velocity per
@@ -59,11 +77,6 @@
 //    the same kernel reading the tables from device memory and computing
 //    the constants in the loop with the same function, so the same bits;
 //    their shared memory does not grow with the channel count;
-//  * the owner of a proposal accepts it and writes the row into every
-//    CTA's copy through distributed shared memory, then cluster.sync();
-//    accepted counts are integer atomics into rank 0's shared memory,
-//    double-buffered by step parity; each walker's chain row is written by
-//    the owner of its proposal;
 //  * no one-hot products and no -inf clamp: a walker that never accepted
 //    keeps lnp = -inf, and -inf - (-inf) = NaN makes `ln u < NaN` false, as
 //    in the general sampler (so: no fast-math, no flush-to-zero); the
@@ -91,6 +104,9 @@
 // launch):
 //   k1_fused_steps_{f32,f64}: k whole steps of K ensembles, one cluster
 //                             each (grid (n, K));
+//   k1_wide_steps_{f32,f64}:  the same on the wide path (grid (h, K), one
+//                             cooperative launch);
+//   k1_wide_capacity_{f32,f64}: the wide kernel's co-resident CTAs;
 //   k1_lnprob_{f32,f64}:      the same device lnprob over an (N, D) batch,
 //                             kGroups thetas per CTA, no cluster;
 //   k5a_half_{f32,f64}:       one sharded half-step (K5a), state in place;
@@ -100,10 +116,9 @@
 //   k1_geometry:              the constants the binding's layout assumes,
 //                             checked when the library loads;
 //   k1_error_string: the CUDA error message of a returned code.
-// The cluster size and the shared-memory layout (SmemLayout) come from the
-// binding (fused.py:plan_fused_cluster over sampler/cluster.py:
-// smem_layout), the one place that sizes them; the kernels only apply the
-// offsets.
+// The path, the cluster size and the shared-memory layout (SmemLayout)
+// come from the binding (sampler/cluster.py: steps_plan, smem_layout), the
+// one place that sizes them; the kernels only apply the offsets.
 
 #include "single_statics.cuh"
 #include "cluster_step.cuh"
@@ -129,24 +144,31 @@ __device__ __forceinline__ ChanConsts<T> k1_chan_consts(const Statics<T>& st, T 
   return k;
 }
 
-// K1's lnprob as a CTA-cooperative functor: every thread of the CTA calls
-// it once per round with its warp group's theta (nullptr: none this round);
-// thread 0 of each group with a theta writes the value to `out`. Ends on a
-// CTA barrier. kStaged: `tb` and `cc` are in shared memory; else `tb` is
-// in device memory and the constants are computed per channel.
-template <typename T, bool kStaged>
+// K1's lnprob as a CTA-cooperative functor, a proposal to each group of
+// kGroupN threads: kThreads threads in one group on the wide path; four
+// groups of 128 (four lanes a thread) in the cluster path's rounds, the
+// lnprob entry and K5a. Every thread calls it once per round with its
+// group's theta (nullptr: none this round); thread 0 of each group with a
+// theta writes the value to `out`. Ends on a CTA barrier. kStaged: `tb` and
+// `cc` are in shared memory; else `tb` is in device memory and the
+// constants are computed per channel. Every K1 entry evaluates a theta over
+// the same kLanes lanes (cluster_step.cuh), so a theta's lnprob is one
+// function of theta whatever launched it.
+template <typename T, bool kStaged, int kGroupN = kGroupThreads>
 struct K1GroupLnProb {
+  static constexpr int kPerThread = kLanes / kGroupN;   // lanes a thread
+  static_assert(kLanes % kGroupN == 0 && kGroupN % 32 == 0, "whole warps of lanes");
   const Statics<T>& st;
   K1Tables<T> tb;
   const T* cc;   // (kChanConsts, C) per-channel constants (kStaged)
-  T* tau;        // kGroups x La stick opacities
-  T* part;       // kGroups x kGroupWarps chi^2 partials
+  T* tau;        // a group's (La,) stick opacities, group by group
+  T* part;       // a group's kLaneWarps chi^2 partials, group by group
 
   __device__ void operator()(const T* th, T* out) const {
-    const int tid = threadIdx.x, grp = tid / kGroupThreads, gt = tid - grp * kGroupThreads;
+    const int tid = threadIdx.x, grp = tid / kGroupN, gt = tid - grp * kGroupN;
     const int lane = tid & 31, C = tb.C;
     T* tg = tau + (size_t)grp * tb.La;
-    T* pg = part + grp * kGroupWarps;
+    T* pg = part + grp * kLaneWarps;
     T ss_w = T(0), Ncol = T(0), Tex = T(0), vlsr = T(0), dV = T(0), lp = T(0);
     bool ok = th != nullptr;
     if (ok) {
@@ -157,7 +179,7 @@ struct K1GroupLnProb {
     // Stick opacities of the active lines (ops/lte.py:tau_sticks), over the group.
     if (ok) {
       const T Q = q_of(Tex, st, tb.qst, tb.S, lane);
-      for (int l = gt; l < tb.La; l += kGroupThreads)
+      for (int l = gt; l < tb.La; l += kGroupN)
         tg[l] = tau_stick(tb.lines[l], tb.lines[tb.La + l], tb.lines[2 * tb.La + l],
                           tb.lines[3 * tb.La + l], tb.lines[4 * tb.La + l], Q, Ncol, Tex,
                           dV);
@@ -169,30 +191,14 @@ struct K1GroupLnProb {
       const T aa = T(-0.5 * 1.4426950408889634) / (sigma * sigma);
       const T win = T(10) * dV;
       const T ss2 = mul_rn(ss_w, ss_w);
-      T p = T(0);
-      for (int c = gt; c < C; c += kGroupThreads) {
-        T opac = T(0);
-        for (int m = 0; m < tb.M; ++m) {
-          const T v = tb.vel[m * C + c];
-          if (ab(v - st.mask_center) < win) {
-            const T d = v - vlsr;
-            opac += tg[tb.line_idx[m * C + c]] * ex2(aa * (d * d));
-          }
-        }
-        ChanConsts<T> kc;
-        if constexpr (kStaged)
-          kc = {cc[c], cc[C + c], cc[2 * C + c], cc[3 * C + c]};
-        else
-          kc = k1_chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
-        // planck_J(nu, Tex) from x, minus J(Tbg)
-        const T dJ = kc.x / (ex(kc.x / Tex) - T(1) + T(1e-10)) - kc.jbg;
-        const T dil = st.free_ss ? dilution(kc.b2, ss2) : kc.b2;
-        const T mdl = dil * dJ * (T(1) - ex(-opac));
-        const T resid = tb.chans[C + c] - mdl;
-        p += resid * resid * tb.chans[2 * C + c] - kc.lnisig;
+#pragma unroll
+      for (int u = 0; u < kPerThread; ++u) {
+        const int v = gt + u * kGroupN;   // this sum's lane
+        T p = T(0);
+        for (int c = v; c < C; c += kLanes) p += chan_term(c, tg, vlsr, aa, win, Tex, ss2);
+        const T w = warp_sum(p);
+        if (lane == 0) pg[v >> 5] = w;
       }
-      const T w = warp_sum(p);
-      if (lane == 0) pg[gt >> 5] = w;
     }
     __syncthreads();
     if (th != nullptr && gt == 0) {
@@ -200,13 +206,39 @@ struct K1GroupLnProb {
       if (ok) {
         T chi = pg[0];
 #pragma unroll
-        for (int w = 1; w < kGroupWarps; ++w) chi = chi + pg[w];
+        for (int w = 1; w < kLaneWarps; ++w) chi = chi + pg[w];
         const T v = lp + T(-0.5) * chi;
         if (isfinite(v)) val = v;
       }
       *out = val;
     }
     __syncthreads();  // tau and the partials are rewritten next round
+  }
+
+  // Channel c's chi^2 term (y - model)^2 / sigma^2 - ln(1 / sigma^2): the
+  // in-window lines summed in line order, then the radiative transfer.
+  __device__ __forceinline__ T chan_term(int c, const T* tg, T vlsr, T aa, T win, T Tex,
+                                         T ss2) const {
+    const int C = tb.C;
+    T opac = T(0);
+    for (int m = 0; m < tb.M; ++m) {
+      const T v = tb.vel[m * C + c];
+      if (ab(v - st.mask_center) < win) {
+        const T d = v - vlsr;
+        opac += tg[tb.line_idx[m * C + c]] * ex2(aa * (d * d));
+      }
+    }
+    ChanConsts<T> kc;
+    if constexpr (kStaged)
+      kc = {cc[c], cc[C + c], cc[2 * C + c], cc[3 * C + c]};
+    else
+      kc = k1_chan_consts(st, tb.chans[c], tb.chans[2 * C + c]);
+    // planck_J(nu, Tex) from x, minus J(Tbg)
+    const T dJ = kc.x / (ex(kc.x / Tex) - T(1) + T(1e-10)) - kc.jbg;
+    const T dil = st.free_ss ? dilution(kc.b2, ss2) : kc.b2;
+    const T mdl = dil * dJ * (T(1) - ex(-opac));
+    const T resid = tb.chans[C + c] - mdl;
+    return resid * resid * tb.chans[2 * C + c] - kc.lnisig;
   }
 };
 
@@ -235,9 +267,10 @@ __device__ K1Tables<T> stage_tables(const Statics<T>& st, const K1Tables<T>& g,
   return K1Tables<T>{s.lines, s.vel, s.line_idx, s.chans, g.qst, g.La, g.M, g.C, g.S};
 }
 
-// K1: k whole steps of K independent ensembles, one cluster each: this
-// cluster runs chain blockIdx.y.
-template <typename T, bool kStaged>
+// K1: k whole steps of K independent ensembles, chain blockIdx.y. kWide
+// false: one cluster a chain (grid (n, K), cluster_steps); kWide true: h
+// CTAs a chain (grid (h, K), one cooperative launch, wide_steps).
+template <typename T, bool kStaged, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 k1_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
                         const int32_t* __restrict__ perm, const T* __restrict__ zu,
@@ -246,9 +279,6 @@ k1_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0
                         float* __restrict__ out_acc, int W, int D, int k, SmemLayout L,
                         __grid_constant__ const Statics<T> st) {
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x, h = W / 2, D1 = D + 1;
-  const int rank = (int)cluster.block_rank();
   const ChainOffsets at = chain_offsets(W, D, k);
   coords += at.walkers;
   lnp0 += at.lnp;
@@ -260,30 +290,15 @@ k1_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0
   out_lnps += at.steps;
   out_acc += at.acc;
   const Carve<T> s = carve<T>(smem, L);
-  for (int i = tid; i < W * D; i += kThreads) s.state[(i / D) * D1 + i % D] = coords[i];
-  for (int w = tid; w < W; w += kThreads) s.state[w * D1 + D] = lnp0[w];
   const K1Tables<T> tables = stage_tables<T, kStaged>(st, tb, s);
-  if (tid < 2) s.acc[tid] = 0;
-  cluster.sync();  // every CTA resident and initialised before remote access
-  int* acc0 = cluster.map_shared_rank(s.acc, 0);
-  const K1GroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
-  for (int step = 0; step < k; ++step) {
-    const int32_t* pm = perm + (size_t)step * W;
-    const ResidentCommit<T> commit{s.state, out_chain + (size_t)step * W * D,
-                                   out_lnps + (size_t)step * W, D};
-    for (int half = 0; half < 2; ++half) {
-      const int r = 2 * step + half;
-      const StateComplement<T> comp{s.state, pm + (1 - half) * h, D1};
-      cluster_half_update<T>(s.state, D, h, pm + half * h, comp, zu + r * h,
-                             pair + r * h, au + r * h, st.a, s.prop, s.zz, s.flag,
-                             acc0 + (step & 1), lnprob, commit);
-    }
-    // Every add of this step precedes the cluster.sync() just passed; the
-    // slot is next added to two steps on, after rank 0 has reset it.
-    if (rank == 0 && tid == 0) {
-      out_acc[step] = (float)s.acc[step & 1];
-      s.acc[step & 1] = 0;
-    }
+  if constexpr (kWide) {
+    const K1GroupLnProb<T, kStaged, kThreads> lnprob{st, tables, s.cc, s.tau, s.part};
+    wide_steps<T>(coords, lnp0, perm, zu, pair, au, st.a, out_chain, out_lnps, out_acc, W, D,
+                  k, s.prop, lnprob);
+  } else {
+    const K1GroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
+    cluster_steps<T>(coords, lnp0, perm, zu, pair, au, st.a, out_chain, out_lnps, out_acc, W,
+                     D, k, s, lnprob);
   }
 }
 
@@ -332,10 +347,17 @@ K1Tables<T> make_tables(const void* lines, const void* vel, const void* line_idx
                      static_cast<const T*>(qst), La, M, C, S};
 }
 
-// Each kernel's instance for a layout: staged or not.
+// Each kernel's instance for a layout: staged or not (and for the steps,
+// the cluster or the wide path).
 template <typename T>
 auto steps_kernel(const SmemLayout& L) {
-  return L.staged ? k1_cluster_steps_kernel<T, true> : k1_cluster_steps_kernel<T, false>;
+  return L.staged ? k1_cluster_steps_kernel<T, true, false>
+                  : k1_cluster_steps_kernel<T, false, false>;
+}
+template <typename T>
+auto wide_kernel(const SmemLayout& L) {
+  return L.staged ? k1_cluster_steps_kernel<T, true, true>
+                  : k1_cluster_steps_kernel<T, false, true>;
 }
 template <typename T>
 auto half_kernel(const SmemLayout& L) {
@@ -362,6 +384,25 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm, const v
                         make_tables<T>(lines, vel, line_idx, chans, qst, La, M, C, S),
                         static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
                         static_cast<float*>(out_acc), W, D, k, L, st);
+}
+
+// The wide path: one cooperative launch of h = W / 2 CTAs a chain, grid
+// (h, chains) (wide_launch).
+template <typename T>
+int launch_wide(const void* coords, const void* lnp0, const void* perm, const void* zu,
+                const void* pair, const void* au, const void* lines, const void* vel,
+                const void* line_idx, const void* chans, const void* qst, void* out_chain,
+                void* out_lnps, void* out_acc, const void* statics, const void* layout,
+                int W, int D, int La, int M, int C, int S, int k, int chains, void* stream) {
+  const Statics<T> st = *static_cast<const Statics<T>*>(statics);
+  const SmemLayout L = *static_cast<const SmemLayout*>(layout);
+  return wide_launch(wide_kernel<T>(L), W, k, chains, (size_t)L.bytes, stream,
+                     static_cast<const T*>(coords), static_cast<const T*>(lnp0),
+                     static_cast<const int32_t*>(perm), static_cast<const T*>(zu),
+                     static_cast<const int32_t*>(pair), static_cast<const T*>(au),
+                     make_tables<T>(lines, vel, line_idx, chans, qst, La, M, C, S),
+                     static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
+                     static_cast<float*>(out_acc), W, D, k, L, st);
 }
 
 template <typename T>
@@ -429,6 +470,21 @@ void k1_geometry(int* out) { layout_geometry(out); }
     return launch_steps<T>(coords, lnp0, perm, zu, pair, au, lines, vel, line_idx,      \
                            chans, qst, out_chain, out_lnps, out_acc, statics, layout,   \
                            W, D, La, M, C, S, k, chains, cluster, stream);              \
+  }                                                                                     \
+  int k1_wide_steps_##SFX(const void* coords, const void* lnp0, const void* perm,       \
+                          const void* zu, const void* pair, const void* au,             \
+                          const void* lines, const void* vel, const void* line_idx,     \
+                          const void* chans, const void* qst, void* out_chain,          \
+                          void* out_lnps, void* out_acc, const void* statics,           \
+                          const void* layout, int W, int D, int La, int M, int C, int S, \
+                          int k, int chains, void* stream) {                            \
+    return launch_wide<T>(coords, lnp0, perm, zu, pair, au, lines, vel, line_idx, chans, \
+                          qst, out_chain, out_lnps, out_acc, statics, layout, W, D, La, \
+                          M, C, S, k, chains, stream);                                  \
+  }                                                                                     \
+  int k1_wide_capacity_##SFX(const void* layout, int* out) {                            \
+    const SmemLayout L = *static_cast<const SmemLayout*>(layout);                       \
+    return wide_occupancy(wide_kernel<T>(L), (size_t)L.bytes, out);                     \
   }                                                                                     \
   int k1_lnprob_##SFX(const void* theta, void* out, const void* lines, const void* vel, \
                       const void* line_idx, const void* chans, const void* qst,         \

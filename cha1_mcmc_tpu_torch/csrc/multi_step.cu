@@ -32,14 +32,15 @@
 // K2 step at ~38 us, with 116 of the card's 132 SMs idle. Two paths,
 // chosen by the binding from what the launch can observe (its K chains of
 // h = W / 2 proposals and the card's co-resident CTAs of the wide kernel,
-// fused_multi.py:steps_plan):
+// sampler/cluster.py:steps_plan), both loops shared with K1
+// (cluster_step.cuh: wide_steps, cluster_steps):
 //  * the wide path, where K h CTAs fit on the card at once: one
 //    cooperative launch of grid (h, K), CTA j of chain c owning proposal
 //    j of every half-update with all 16 warps (512 threads over ~2.2
 //    channels and ~0.5 tau sticks each), so one live proposal an SM and a
 //    lane's chain four times shorter. The state stays in device memory:
 //    each CTA reads its walker's and its partner's rows from the chain
-//    output (wide_steps), writes its walker's row, and one grid.sync() a
+//    output, writes its walker's row, and one grid.sync() a
 //    half-update publishes the rows to the next half;
 //  * the cluster path otherwise (many chains, thousands of walkers): one
 //    cluster of n = 16 CTAs a chain (8 where the card cannot place 16),
@@ -172,14 +173,6 @@ __device__ void channel_constants(const MultiStatics<T>& st, const MultiTables<T
     cc[3 * C + c] = k.b2;
   }
 }
-
-// The lanes of K2's lnprob: a theta's channels c = v, v + kLanes, ... are
-// summed by lane v in channel order, each 32 lanes' sums are reduced by
-// warp_sum's tree, and the kLaneWarps warp sums are added in order. A
-// group of n threads runs kLanes / n lanes a thread (thread t: lanes t,
-// t + n, ...), each with its own sum, so any n computes the same bits.
-constexpr int kLanes = kThreads;
-constexpr int kLaneWarps = kLanes / 32;
 
 // K2's lnprob as a CTA-cooperative functor, a proposal to each group of
 // kGroupN threads: kThreads threads in one group on the wide path; four
@@ -353,97 +346,9 @@ __device__ MultiTables<T> stage_tables(const MultiStatics<T>& st, const MultiTab
                         g.La, g.M, g.C, g.S};
 }
 
-// Half-updates whose proposal indices and draws a wide CTA holds at once.
-constexpr int kWideHalves = 32;
-
-// The wide path's k steps of chain blockIdx.y on gridDim.x = h CTAs, CTA
-// j owning proposal j of every half-update, all its warps on it. The
-// state is never copied whole: before step s walker w's row is row w of
-// step s - 1's chain output (of coords at s = 0), and after the half in
-// which w is active, row w of step s's. So a CTA reads only its walker's
-// row, its lnp and its partner's row (L2 loads: rows other CTAs wrote in
-// this launch), writes its walker's row of the step, and one grid barrier
-// a half-update orders those writes before the next half reads them; the
-// walker, partner and draws of its next kWideHalves halves are read into
-// shared memory ahead, so that after a barrier only the rows are waited
-// for. The accepted counts are float adds of whole numbers (exact in any
-// order) into out_acc, which CTA 0 zeroes before the first barrier; each
-// CTA adds its step's count after that barrier.
-template <typename T, bool kStaged>
-__device__ void wide_steps(const T* coords, const T* lnp0, const int32_t* perm, const T* zu,
-                           const int32_t* pair, const T* au, const MultiTables<T>& tb,
-                           T* out_chain, T* out_lnps, float* out_acc, int W, int D, int k,
-                           const SmemLayout& L, const MultiStatics<T>& st,
-                           unsigned char* smem) {
-  __shared__ int32_t s_walker[kWideHalves], s_partner[kWideHalves];
-  __shared__ T s_z[kWideHalves], s_dz[kWideHalves], s_lu[kWideHalves];
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x, j = blockIdx.x, h = W / 2;
-  const Carve<T> s = carve<T>(smem, L);
-  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
-  if (j == 0)
-    for (int i = tid; i < k; i += kThreads) out_acc[i] = 0.f;
-  const MultiGroupLnProb<T, kStaged, kThreads> lnprob{st, tables, s.cc, s.tau, s.part};
-  T* prop = s.prop;   // Y and, at [D], its lnprob
-  int accepted = 0;   // this CTA's accepted proposals of the step (thread D)
-  for (int r = 0; r < 2 * k; ++r) {
-    const int step = r >> 1, half = r & 1, slot = r % kWideHalves;
-    if (slot == 0) {
-      // this CTA's walker, partner, z, (D - 1) ln z and ln u of the next halves
-      if (r > 0) __syncthreads();
-      const int t = r + tid;
-      if (tid < kWideHalves && t < 2 * k) {
-        const int32_t* pm = perm + (size_t)(t >> 1) * W;
-        const int hf = t & 1;
-        const T z = stretch_z(zu[(size_t)t * h + j], st.a);
-        s_walker[tid] = pm[hf * h + j];
-        s_partner[tid] = pm[(1 - hf) * h + pair[(size_t)t * h + j]];
-        s_z[tid] = z;
-        s_dz[tid] = mul_rn(T(D - 1), lg(z));
-        s_lu[tid] = lg(au[(size_t)t * h + j]);
-      }
-      __syncthreads();
-    }
-    const T* prev = step == 0 ? coords : out_chain + (size_t)(step - 1) * W * D;
-    const T* prev_lnp = step == 0 ? lnp0 : out_lnps + (size_t)(step - 1) * W;
-    T* cur = out_chain + (size_t)step * W * D;
-    const int32_t w = s_walker[slot];
-    // the partner: of the other half, as it stands after the last half
-    const T* crow = (half == 0 ? prev : cur) + (size_t)s_partner[slot] * D;
-    T sd = T(0), lnp_s = T(0);
-    if (tid <= D) {
-      lnp_s = __ldcg(prev_lnp + w);
-      if (tid < D) {
-        sd = __ldcg(prev + (size_t)w * D + tid);
-        const T cd = __ldcg(crow + tid);
-        prop[tid] = fma_rn(s_z[slot], sub_rn(sd, cd), cd);
-      }
-    }
-    __syncthreads();
-    lnprob(prop, prop + D);
-    // every thread of the row decides alike: the plain version's test
-    if (tid <= D) {
-      const T lnp_new = prop[D];
-      const bool accept = s_lu[slot] < sub_rn(add_rn(s_dz[slot], lnp_new), lnp_s);
-      if (tid < D) {
-        cur[(size_t)w * D + tid] = accept ? prop[tid] : sd;
-      } else {
-        out_lnps[(size_t)step * W + w] = accept ? lnp_new : lnp_s;
-        accepted += accept;
-        if (half == 1) {   // past the first barrier, so after the zeroing
-          if (accepted) atomicAdd(out_acc + step, (float)accepted);
-          accepted = 0;
-        }
-      }
-    }
-    if (r + 1 < 2 * k) grid.sync();
-  }
-}
-
-// K2: k whole steps of K independent ensembles. kWide false: one cluster
-// a chain (grid (n, K)), this cluster running chain blockIdx.y; kWide
-// true: h CTAs a chain (grid (h, K), one cooperative
-// launch, wide_steps).
+// K2: k whole steps of K independent ensembles, chain blockIdx.y. kWide
+// false: one cluster a chain (grid (n, K), cluster_steps); kWide true: h
+// CTAs a chain (grid (h, K), one cooperative launch, wide_steps).
 template <typename T, bool kStaged, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 multi_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ lnp0,
@@ -464,39 +369,16 @@ multi_cluster_steps_kernel(const T* __restrict__ coords, const T* __restrict__ l
   out_chain += at.chain;
   out_lnps += at.steps;
   out_acc += at.acc;
+  const Carve<T> s = carve<T>(smem, L);
+  const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
   if constexpr (kWide) {
-    wide_steps<T, kStaged>(coords, lnp0, perm, zu, pair, au, tb, out_chain, out_lnps,
-                           out_acc, W, D, k, L, st, smem);
+    const MultiGroupLnProb<T, kStaged, kThreads> lnprob{st, tables, s.cc, s.tau, s.part};
+    wide_steps<T>(coords, lnp0, perm, zu, pair, au, st.a, out_chain, out_lnps, out_acc, W, D,
+                  k, s.prop, lnprob);
   } else {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int tid = threadIdx.x, h = W / 2, D1 = D + 1;
-    const int rank = (int)cluster.block_rank();
-    const Carve<T> s = carve<T>(smem, L);
-    for (int i = tid; i < W * D; i += kThreads) s.state[(i / D) * D1 + i % D] = coords[i];
-    for (int w = tid; w < W; w += kThreads) s.state[w * D1 + D] = lnp0[w];
-    const MultiTables<T> tables = stage_tables<T, kStaged>(st, tb, s);
-    if (tid < 2) s.acc[tid] = 0;
-    cluster.sync();  // every CTA resident and initialised before remote access
-    int* acc0 = cluster.map_shared_rank(s.acc, 0);
     const MultiGroupLnProb<T, kStaged> lnprob{st, tables, s.cc, s.tau, s.part};
-    for (int step = 0; step < k; ++step) {
-      const int32_t* pm = perm + (size_t)step * W;
-      const ResidentCommit<T> commit{s.state, out_chain + (size_t)step * W * D,
-                                     out_lnps + (size_t)step * W, D};
-      for (int half = 0; half < 2; ++half) {
-        const int r = 2 * step + half;
-        const StateComplement<T> comp{s.state, pm + (1 - half) * h, D1};
-        cluster_half_update<T>(s.state, D, h, pm + half * h, comp, zu + r * h,
-                               pair + r * h, au + r * h, st.a, s.prop, s.zz, s.flag,
-                               acc0 + (step & 1), lnprob, commit);
-      }
-      // Every add of this step precedes the cluster.sync() just passed; the
-      // slot is next added to two steps on, after rank 0 has reset it.
-      if (rank == 0 && tid == 0) {
-        out_acc[step] = (float)s.acc[step & 1];
-        s.acc[step & 1] = 0;
-      }
-    }
+    cluster_steps<T>(coords, lnp0, perm, zu, pair, au, st.a, out_chain, out_lnps, out_acc, W,
+                     D, k, s, lnprob);
   }
 }
 
@@ -591,8 +473,7 @@ int launch_steps(const void* coords, const void* lnp0, const void* perm,
 }
 
 // The wide path: one cooperative launch of h = W / 2 CTAs a chain, grid
-// (h, chains); every CTA resident at once, or the launch is refused
-// (cudaErrorCooperativeLaunchTooLarge) and nothing runs.
+// (h, chains) (wide_launch).
 template <typename T>
 int launch_wide(const void* coords, const void* lnp0, const void* perm,
                 const void* zu, const void* pair, const void* au,
@@ -601,55 +482,15 @@ int launch_wide(const void* coords, const void* lnp0, const void* perm,
                 void* out_chain, void* out_lnps, void* out_acc,
                 const void* statics, const void* layout, int W, int D, int La, int M,
                 int C, int S, int k, int chains, void* stream) {
-  MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
-  SmemLayout L = *static_cast<const SmemLayout*>(layout);
-  if (W < 2 || W % 2 || k < 1 || chains < 1 || chains > 65535)
-    return (int)cudaErrorInvalidValue;
-  const auto kernel = wide_kernel<T>(L);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  const T* a_coords = static_cast<const T*>(coords);
-  const T* a_lnp0 = static_cast<const T*>(lnp0);
-  const int32_t* a_perm = static_cast<const int32_t*>(perm);
-  const T* a_zu = static_cast<const T*>(zu);
-  const int32_t* a_pair = static_cast<const int32_t*>(pair);
-  const T* a_au = static_cast<const T*>(au);
-  MultiTables<T> tb = make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S);
-  T* a_chain = static_cast<T*>(out_chain);
-  T* a_lnps = static_cast<T*>(out_lnps);
-  float* a_acc = static_cast<float*>(out_acc);
-  void* args[] = {&a_coords, &a_lnp0, &a_perm, &a_zu, &a_pair, &a_au, &tb, &a_chain,
-                  &a_lnps,   &a_acc,  &W,      &D,    &k,      &L,    &st};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(W / 2, chains, 1),
-                                    dim3(kThreads, 1, 1), args, (size_t)L.bytes,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) {
-    (void)cudaGetLastError();   // a refused launch leaves no error for the next one
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The CTAs of the wide kernel at `layout` the card keeps resident at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs; 0 where the card
-// has no cooperative launch): the wide path runs K chains of h CTAs where
-// K h is at most this.
-template <typename T>
-int wide_capacity(const void* layout, int* out) {
+  const MultiStatics<T> st = *static_cast<const MultiStatics<T>*>(statics);
   const SmemLayout L = *static_cast<const SmemLayout*>(layout);
-  const auto kernel = wide_kernel<T>(L);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         L.bytes);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  *out = coop ? per_sm * sms : 0;
-  return (int)cudaSuccess;
+  return wide_launch(wide_kernel<T>(L), W, k, chains, (size_t)L.bytes, stream,
+                     static_cast<const T*>(coords), static_cast<const T*>(lnp0),
+                     static_cast<const int32_t*>(perm), static_cast<const T*>(zu),
+                     static_cast<const int32_t*>(pair), static_cast<const T*>(au),
+                     make_tables<T>(lines, vel, line_idx, group, chans, qst, La, M, C, S),
+                     static_cast<T*>(out_chain), static_cast<T*>(out_lnps),
+                     static_cast<float*>(out_acc), W, D, k, L, st);
 }
 
 template <typename T>
@@ -704,9 +545,8 @@ int k2_statics_size_f32() { return (int)sizeof(MultiStatics<float>); }
 int k2_statics_size_f64() { return (int)sizeof(MultiStatics<double>); }
 const char* k2_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// What sampler/cluster.py:smem_layout sizes the regions by (layout_geometry):
-// kLaneWarps chi^2 partials a group (the wide path's one group too).
-void k2_geometry(int* out) { layout_geometry(out, kLaneWarps); }
+// What sampler/cluster.py:smem_layout sizes the regions by (layout_geometry).
+void k2_geometry(int* out) { layout_geometry(out); }
 
 #define K2_ENTRIES(SFX, T)                                                            \
   int k2_fused_steps_##SFX(const void* coords, const void* lnp0, const void* perm,    \
@@ -734,7 +574,8 @@ void k2_geometry(int* out) { layout_geometry(out, kLaneWarps); }
                           layout, W, D, La, M, C, S, k, chains, stream);              \
   }                                                                                   \
   int k2_wide_capacity_##SFX(const void* layout, int* out) {                          \
-    return wide_capacity<T>(layout, out);                                             \
+    const SmemLayout L = *static_cast<const SmemLayout*>(layout);                     \
+    return wide_occupancy(wide_kernel<T>(L), (size_t)L.bytes, out);                   \
   }                                                                                   \
   int k2_lnprob_##SFX(const void* theta, void* out, const void* lines,                \
                       const void* vel, const void* line_idx, const void* group,       \

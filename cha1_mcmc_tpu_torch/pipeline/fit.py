@@ -171,6 +171,17 @@ class SpectralFit:
                 and cluster.admits(fused.FAMILY, cfg.nwalkers // cfg.n_chains, 1,
                                    self.spec.ndim, model.n_lines, self.dtype))
 
+    def _count_k1_plan(self, choice, run_fn) -> None:
+        """Add to the sampler's-choice span `choice` the path K1's step
+        launches take (FusedEnsemble.plan_counts, cluster.steps_plan's
+        plan for n_chains chains of nwalkers / n_chains walkers): `wide` 1
+        with `ctas` h where the chains fit the card's co-resident wide CTAs,
+        else the cluster's `ctas` and `wide` 0; `staged` 1 where the tables
+        are in shared memory."""
+        cfg = self.config
+        counts = run_fn.plan_counts(cfg.nwalkers // cfg.n_chains, cfg.n_chains)
+        choice.add(**{k: counts[k] for k in ("wide", "ctas", "staged")})
+
     def _use_fused_gather(self, model: SpectralModel) -> bool:
         """The K3 selection rule (JAX fit.py:292-296), for the sparse
         path: CUDA, use_fused_step, one component, float32, and a plan
@@ -250,7 +261,7 @@ class SpectralFit:
                     print(f"{RED}Failed to initialize Ncol via MLE: {e}{RESET}")
                     raise
 
-            with span("pipeline/model"):
+            with span("pipeline/model") as choice:
                 if self.sharded:
                     # Walkers (and optionally catalog lines) sharded over a mesh of
                     # torch.distributed ranks, every rank running this same call
@@ -274,6 +285,7 @@ class SpectralFit:
                         run_fn = make_fused_ensemble(
                             model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
                             prior_means, prior_stds, a=cfg.stretch_a)
+                        self._count_k1_plan(choice, run_fn)
                     self.sampler = MultiChainSampler(
                         lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
                         a=cfg.stretch_a, dtype=self.dtype, device=self.device,
@@ -298,6 +310,7 @@ class SpectralFit:
                     run_fn = make_fused_ensemble(
                         model, self.spec, grid.ints, grid.yerrs, cfg.bounds,
                         prior_means, prior_stds, a=cfg.stretch_a)
+                    self._count_k1_plan(choice, run_fn)
                     self.sampler = FusedEnsembleSampler(
                         lnprob_fn=lnprob, nwalkers=cfg.nwalkers, ndim=self.spec.ndim,
                         a=cfg.stretch_a, dtype=self.dtype, device=self.device,

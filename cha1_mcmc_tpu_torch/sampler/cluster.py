@@ -3,8 +3,8 @@
 K1 and its sharded half-step K5a (csrc/fused_step.cu) and K2 and K5c
 (csrc/multi_step.cu) spread one ensemble over a thread-block cluster
 (csrc/cluster_step.cuh): n CTAs of 512 threads, CTA r owning proposals
-[r h / n, (r + 1) h / n) of every half-update, four warps a proposal. K2's
-step kernel also has a wide path: h = W / 2 CTAs a chain in one
+[r h / n, (r + 1) h / n) of every half-update, four warps a proposal. Both
+step kernels also have a wide path: h = W / 2 CTAs a chain in one
 cooperative launch, CTA j owning proposal j of every half-update with all
 its 16 warps. Each library is declared once, as a `Family` of what differs
 (sampler/fused.py's and sampler/fused_multi.py's FAMILY), and this module
@@ -32,9 +32,10 @@ import torch
 from cha1_mcmc_tpu_torch.utils.cuda_build import build_library
 from cha1_mcmc_tpu_torch.utils.device import DeviceError
 
-__all__ = ["THREADS", "GROUPS", "GROUP_WARPS", "CHAN_CONSTS", "CHAN_ROWS", "LINE_ROWS",
-           "CLUSTER_SIZES", "SMEM_LIMIT", "REGIONS", "itemsize", "bind_kernel_library",
-           "check_tensor", "raise_on", "route", "check_step_block", "check_half", "Family",
+__all__ = ["THREADS", "GROUPS", "GROUP_WARPS", "LANE_WARPS", "CHAN_CONSTS", "CHAN_ROWS",
+           "LINE_ROWS", "CLUSTER_SIZES", "SMEM_LIMIT", "REGIONS", "itemsize",
+           "bind_kernel_library", "check_tensor", "raise_on", "route", "check_step_block",
+           "check_half", "Family",
            "Library", "load_library", "SmemLayout", "smem_layout", "ClusterPlan",
            "plan_cluster", "plan_wide", "admits", "occupancy", "wide_capacity",
            "cluster_plan", "steps_plan", "checked_plan", "launch_steps", "launch_lnprob",
@@ -42,12 +43,13 @@ __all__ = ["THREADS", "GROUPS", "GROUP_WARPS", "CHAN_CONSTS", "CHAN_ROWS", "LINE
 
 #: What the layouts are sized by (checked against each library's
 #: `<prefix>_geometry` entry when it loads): threads a CTA, warp groups a
-#: CTA (the proposals of one round), warps a proposal, per-channel
-#: constants (h nu / k, J(Tbg), ln(1 / sigma^2) and the beam term); the
-#: rows of the chans (3, C) and lines (5, La) tables; the cluster sizes
-#: tried, largest first (above 8 is non-portable); a Hopper CTA's dynamic
-#: shared memory.
-THREADS, GROUPS, GROUP_WARPS, CHAN_CONSTS = 512, 4, 4, 4
+#: CTA (the proposals of one round), warps a proposal, the warps of lanes
+#: of a family's lnprob (csrc/cluster_step.cuh: kLaneWarps, one chi^2
+#: partial each), per-channel constants (h nu / k, J(Tbg), ln(1 / sigma^2)
+#: and the beam term); the rows of the chans (3, C) and lines (5, La)
+#: tables; the cluster sizes tried, largest first (above 8 is
+#: non-portable); a Hopper CTA's dynamic shared memory.
+THREADS, GROUPS, GROUP_WARPS, LANE_WARPS, CHAN_CONSTS = 512, 4, 4, 16, 4
 CHAN_ROWS, LINE_ROWS = 3, 5
 CLUSTER_SIZES = (16, 8)
 SMEM_LIMIT = 232_448
@@ -185,7 +187,7 @@ class Family:
     entries' hfs groups. `launches` is the family module's launch counter,
     `counters` the keys of its steps, lnprob and half-step entries (the
     half-step's counted in the caller's dict). `wide`: the (pointers,
-    ints) of the wide step entry, where the family has one (K2)."""
+    ints) of the wide step entry, where the family has one."""
 
     steps: str
     half: str
@@ -375,7 +377,7 @@ def plan_cluster(family: Family, nwalkers: int, ncomp: int, ndim: int, n_lines: 
 def plan_wide(family: Family, nwalkers: int, ncomp: int, ndim: int, n_lines: int,
               n_channels: int, n_entries: int, dtype, *,
               stage: bool | None = None) -> ClusterPlan:
-    """The geometry of a step launch on the wide path (K2): h = W / 2 CTAs
+    """The geometry of a step launch on the wide path: h = W / 2 CTAs
     a chain and no thread-block cluster, CTA j owning proposal j of every
     half-update (owned(j) is [j, j + 1)) with all its 16 warps, one lnprob
     group; no copy of the state in shared memory (the kernel reads the
@@ -477,8 +479,9 @@ def steps_plan(family: Family, nwalkers: int, chains: int, ncomp: int, ndim: int
     wide plan where the family has a wide path, the plan fits a CTA and
     the chains' h CTAs each fit the CTAs the card keeps resident at once
     (wide_capacity), else cluster_plan's. The one choice of a step
-    launch's geometry: the launch takes it (checked_plan) and K2's
-    `pipeline/k2_plan` span reports it (MultiFusedEnsemble.plan_counts).
+    launch's geometry: the launch takes it (checked_plan) and the fits'
+    spans report it (FusedEnsemble.plan_counts: K1's sampler-choice
+    `pipeline/model`, K2's `pipeline/k2_plan`).
     Off the card the card's answers are absent: capacity 0, and the
     largest cluster size that fits."""
     sizes = (nwalkers, ncomp, ndim, n_lines, n_channels, n_entries, dtype)

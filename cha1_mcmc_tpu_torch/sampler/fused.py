@@ -6,14 +6,17 @@ single-component ensemble — both sequential half-updates of every step,
 each with its walker gathers, the LTE forward model, the priors and the
 acceptance write-back — so a fit at the flagship size (128 walkers, ~9
 lines x 561 channels) pays one launch per k steps instead of hundreds of
-small ones per step. The ensemble is spread over one thread-block cluster
-(csrc/cluster_step.cuh: 16 CTAs, or 8 where the card cannot place 16, four
-warps a proposal). `FAMILY` declares what K1 and its sharded half-step
-K5a need of the cluster binding (sampler/cluster.py), which plans, checks
-and launches them; this module keeps the mathematics. The kernel walks,
-per channel, only the lines whose window at the prior's dV bound can
-reach it (the channel-major entry tables of models/sparse_opacity.py:
-build_opacity_gather), in line order.
+small ones per step. A launch takes one of two paths (sampler/cluster.py:
+steps_plan): the wide path, where the K chains' h = W / 2 CTAs each fit
+the card at once — one cooperative launch, CTA j of a chain owning
+proposal j of every half-update with the whole CTA — else one
+thread-block cluster a chain (csrc/cluster_step.cuh: 16 CTAs, or 8 where
+the card cannot place 16, four warps a proposal). `FAMILY` declares what
+K1 and its sharded half-step K5a need of the cluster binding, which
+plans, checks and launches them; this module keeps the mathematics. The
+kernel walks, per channel, only the lines whose window at the prior's dV
+bound can reach it (the channel-major entry tables of
+models/sparse_opacity.py: build_opacity_gather), in line order.
 
 Beside the kernel, `fused_lnprob_plain` / `fused_steps_plain` compute the
 same function with torch ops, in the same formulation (exp2 Gaussians,
@@ -31,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -40,8 +44,9 @@ from cha1_mcmc_tpu_torch.constants import FWHM_TO_SIGMA_MODEL, VELOCITY_WINDOW_D
 from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.sampler import cluster
-from cha1_mcmc_tpu_torch.sampler.cluster import (GROUP_WARPS, ClusterPlan, check_tensor,
-                                                 launch_lnprob, launch_steps, route)
+from cha1_mcmc_tpu_torch.sampler.cluster import (LANE_WARPS, ClusterPlan, check_tensor,
+                                                 launch_lnprob, launch_steps, route,
+                                                 steps_plan)
 from cha1_mcmc_tpu_torch.sampler.stretch import (EnsembleSampler, draw_chain_randomness,
                                                  draw_randomness, half_step)
 from cha1_mcmc_tpu_torch.utils.metrics import first_launch, register_launches
@@ -369,12 +374,14 @@ def kernel_tables(tables, dtype, device, kernel: str = "K1"):
 
 
 #: K1 and K5a as the cluster binding (sampler/cluster.py) sees them: one
-#: component, one chi^2 partial a warp, no hfs group table.
+#: component, a chi^2 partial for each of the LANE_WARPS warps of lanes of
+#: its lnprob (csrc/fused_step.cu: K1GroupLnProb), no hfs group table, and
+#: the wide step entry.
 FAMILY = cluster.Family(
     steps="K1", half="K5a", source="fused_step.cu", args=((16, 9), (9, 6), (14, 7)),
-    statics=_STATICS, pack=_pack_statics, tables=kernel_tables, partials=GROUP_WARPS,
+    statics=_STATICS, pack=_pack_statics, tables=kernel_tables, partials=LANE_WARPS,
     group_table=False, launches=LAUNCHES,
-    counters=("fused_steps", "fused_lnprob", "sharded_half"))
+    counters=("fused_steps", "fused_lnprob", "sharded_half"), wide=(16, 8))
 
 
 def fused_lnprob(theta, tables, st: FusedStatics, plan: ClusterPlan | None = None):
@@ -390,8 +397,8 @@ def fused_step_block(coords, lnp, perm, z_u, pair, acc_u, tables,
                      st: FusedStatics, plan: ClusterPlan | None = None):
     """k whole steps (see fused_steps_plain for the layout) of one
     ensemble, or of K with a leading chain axis: one CUDA kernel launch for
-    CUDA tensors, one cluster a chain — with cluster.steps_plan's
-    geometry, or `plan` — the plain version for CPU tensors."""
+    CUDA tensors — on cluster.steps_plan's path, or `plan`'s — the plain
+    version for CPU tensors."""
     if route(coords) == "cuda":
         return launch_steps(FAMILY, coords, lnp, perm, z_u, pair, acc_u, tables, st, plan)
     return fused_steps_plain(coords, lnp, perm, z_u, pair, acc_u, tables, st)
@@ -402,12 +409,15 @@ class FusedEnsemble:
     """run(pos0, lnp0, nsteps, k_steps) with run_ensemble's contract and
     randomness layout, each k steps one K1 launch (`make_fused_ensemble`);
     with a leading chain axis, K independent ensembles in one launch per k
-    steps (MultiChainSampler's run_fn). K2's runner (sampler/fused_multi.py)
-    and K3's (sampler/fused_gather.py, one ensemble only) subclass it with
-    their own `lnprob` and `step_block`."""
+    steps (MultiChainSampler's run_fn); `plan_counts` reports the plan
+    its step launches take. K2's runner (sampler/fused_multi.py) and K3's
+    (sampler/fused_gather.py, one ensemble only) subclass it with their own
+    `lnprob`, `step_block` and `family` (K3's None: no cluster binding)."""
 
     tables: tuple
     statics: FusedStatics
+    #: The cluster binding's declaration of the runner's kernels.
+    family: typing.ClassVar[cluster.Family | None] = FAMILY
 
     def lnprob(self, theta):
         return fused_lnprob(theta, self.tables, self.statics)
@@ -416,6 +426,23 @@ class FusedEnsemble:
         """k whole steps from one block of randomness (fused_step_block)."""
         return fused_step_block(coords, lnp, perm, z_u, pair, acc_u,
                                 self.tables, self.statics)
+
+    def plan_counts(self, nwalkers: int, n_chains: int = 1) -> dict:
+        """What a step launch of `n_chains` ensembles of `nwalkers` walkers
+        takes (cluster.steps_plan, the plan the launch itself takes, on the
+        tables' device): the components, the CTAs a chain, whether it takes
+        the wide path (1) or a cluster (0), whether the tables are staged in
+        shared memory (1) or read from device memory (0), the shared memory
+        of a CTA and the bytes of the tables the kernel reads. Off the card,
+        where nothing is launched, the cluster plan of the largest size that
+        fits a CTA."""
+        fam, st, qst = self.family, self.statics, self.tables[-1]
+        tables, (La, M, C, _) = fam.tables(self.tables, qst.dtype, qst.device, fam.steps)
+        plan = steps_plan(fam, nwalkers, n_chains, st.ncomp, st.ndim, La, C, M, qst.dtype,
+                          qst.device)
+        return dict(components=st.ncomp, ctas=plan.cluster, wide=int(plan.wide),
+                    staged=int(plan.staged), smem_bytes=plan.smem_bytes,
+                    table_bytes=sum(t.numel() * t.element_size() for t in tables))
 
     def __call__(self, pos0, lnp0, nsteps: int, k_steps: int = 16, *,
                  generator: torch.Generator | None = None, randomness=None):

@@ -37,6 +37,7 @@ import ctypes
 import dataclasses
 import functools
 import itertools
+import typing
 
 import numpy as np
 import torch
@@ -589,6 +590,7 @@ class GatherFusedEnsemble(FusedEnsemble):
     (`make_fused_ensemble_gather`)."""
 
     geometry: GatherGeometry
+    family: typing.ClassVar[None] = None   # its own binding, not the cluster one
 
     def lnprob(self, theta):
         return gather_lnprob(theta, self.tables, self.statics, self.geometry)

@@ -38,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -48,7 +49,7 @@ from cha1_mcmc_tpu_torch.models.sparse_opacity import build_opacity_gather
 from cha1_mcmc_tpu_torch.ops.lte import planck_J, beam_dilution, tau_sticks
 from cha1_mcmc_tpu_torch.sampler import cluster
 from cha1_mcmc_tpu_torch.sampler.cluster import (ClusterPlan, check_tensor, launch_lnprob,
-                                                 launch_steps, route, steps_plan)
+                                                 launch_steps, route)
 from cha1_mcmc_tpu_torch.sampler.fused import (_AA, _MAX_CHEB, _MAX_POLY, FusedEnsemble,
                                                gauss_norm, pack_q, q_statics,
                                                statics_q_model, steps_plain)
@@ -68,7 +69,7 @@ _MAX_COMP = 4   # kMaxComp of the kernel's MultiStatics (csrc/multi_step.cu)
 #: loads). The cluster path, the lnprob entry and K5c run it in
 #: cluster.GROUPS groups of four warps a CTA, four lanes a thread; the wide
 #: path in one group of all 16 warps.
-K2_LANE_WARPS = 16
+K2_LANE_WARPS = cluster.LANE_WARPS
 
 #: Kernel launches per K2 entry, counted where each kernel is launched and
 #: nowhere else (plain-version calls do not count).
@@ -405,28 +406,14 @@ class MultiFusedEnsemble(FusedEnsemble):
     one ensemble or K (a leading chain axis); `plan_counts` reports the
     plan its step launches take."""
 
+    family: typing.ClassVar[cluster.Family | None] = FAMILY
+
     def lnprob(self, theta):
         return multi_lnprob(theta, self.tables, self.statics)
 
     def step_block(self, coords, lnp, perm, z_u, pair, acc_u):
         return multi_step_block(coords, lnp, perm, z_u, pair, acc_u, self.tables,
                                 self.statics)
-
-    def plan_counts(self, nwalkers: int, n_chains: int = 1) -> dict:
-        """What a step launch of `n_chains` ensembles of `nwalkers` walkers
-        takes (cluster.steps_plan, the plan the launch itself takes, on the
-        tables' device): the components, the CTAs a chain, whether it takes
-        the wide path (1) or a cluster (0), whether the tables are staged in
-        shared memory (1) or read from device memory (0), the shared memory
-        of a CTA and the tables' bytes. Off the card, where nothing is
-        launched, the cluster plan of the largest size that fits a CTA."""
-        lines, vel = self.tables[0], self.tables[1]
-        st = self.statics
-        plan = steps_plan(FAMILY, nwalkers, n_chains, st.ncomp, st.ndim, lines.shape[1],
-                          vel.shape[1], vel.shape[0], vel.dtype, vel.device)
-        return dict(components=st.ncomp, ctas=plan.cluster, wide=int(plan.wide),
-                    staged=int(plan.staged), smem_bytes=plan.smem_bytes,
-                    table_bytes=sum(t.numel() * t.element_size() for t in self.tables))
 
 
 def make_fused_ensemble_multi(model, spec, grid_ints, grid_yerrs, prior_means,

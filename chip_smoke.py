@@ -545,7 +545,7 @@ def cluster_family(kind):
     (with K5c, sampler/fused_multi.py). `family` is its declaration of the
     cluster binding (sampler/cluster.py), `sizes(tb)` (La, M, C) of its
     tables, `plan(tb, st, nwalkers, cluster, stage,
-    resident)` a plan of the binding's planners (cluster="wide": K2's wide
+    resident)` a plan of the binding's planners (cluster="wide": the wide
     step path), `lnprob(theta, tb, st, plan)` its lnprob entry (K1's with
     the plan's staging)."""
     from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
@@ -573,7 +573,7 @@ def cluster_family(kind):
     def plan(tb, st, nwalkers, n, stage, resident):
         La, M, C = sizes(tb)
         args = (family, nwalkers, st.ncomp, st.ndim, La, C, M, tb[0].dtype)
-        if n == "wide":   # K2's wide path: a step launch only
+        if n == "wide":   # the wide path: a step launch only
             return cluster.plan_wide(*args, stage=stage)
         return cluster.plan_cluster(*args, cluster=n, resident_state=resident, stage=stage)
 
@@ -585,8 +585,8 @@ def cluster_plans(kind, tb, st, nwalkers, cluster, stage):
     """The step kernel's and the half-step's plans of `kind` (K1 / K2) for
     `nwalkers` walkers on the tables `tb` at `cluster` CTAs, tables staged
     (True), read from device memory (False) or as they fit (None); (None,
-    None) for cluster=None: the card's choice. cluster="wide" (K2): the
-    wide step path beside the half-step's own choice (K5c has no wide
+    None) for cluster=None: the card's choice. cluster="wide": the wide
+    step path beside the half-step's own choice (K5a and K5c have no wide
     path)."""
     if cluster is None:
         return None, None
@@ -659,47 +659,52 @@ def check_cluster_chains(kind, label, tb, st, pos0, seed, geometries, errs):
         assert np.array_equal(l5.reshape(-1), lk), f"{where}: lnps differ from {kind}'s"
 
 
-def check_k2_f32_paths(case, errs, nwalkers=W, seed=7):
-    """Phase 3: K2's float32 paths against each other, 64 steps from the
+def check_f32_paths(kind, case, errs, nwalkers=W, seed=7):
+    """Phase 3: a cluster step kernel's float32 paths against each other
+    (`kind` K1 on a flagship case, K2 on a GOTHAM case), 64 steps from the
     walker ball: the wide path (one group of 16 warps, a lnprob lane a
-    thread), the 16- and 8-CTA clusters and K5c at world size 1 (groups of
-    four warps, four lanes a thread), chains, lnps and acceptances
-    bitwise, and the lnprob entry equal to the in-chain lnps of every
-    walker that moved: one float32 lnprob whatever runs it. Returns the
-    runs compared."""
+    thread), the 16- and 8-CTA clusters and the sharded half-step (K5a /
+    K5c) at world size 1 (groups of four warps, four lanes a thread),
+    chains, lnps and acceptances bitwise, and the lnprob entry equal to
+    the in-chain lnps of every walker that moved: one float32 lnprob
+    whatever runs it. Returns the runs compared."""
     import functools
 
     import numpy as np
     import torch
-    from cha1_mcmc_tpu_torch.parallel import sharded_fused as sf
-    from cha1_mcmc_tpu_torch.sampler import fused_multi as fm
     from cha1_mcmc_tpu_torch.sampler.stretch import draw_randomness
 
-    label, m32, m64, spec, means, stds, pert, grid = case
-    (st, tb), _ = multi_tables(m32, m64, spec, means, stds, grid)
-    pos0 = multi_pos0(means, pert, seed=seed)[:nwalkers].to(torch.float32)
-    lnp0 = fm.multi_lnprob(pos0, tb, st)
+    fam = cluster_family(kind)
+    label = case[0]
+    if kind == "K1":
+        (st, tb), _ = flagship_tables(case)
+        pos0 = flagship_pos0(case[3].ndim, nwalkers=nwalkers, seed=seed, dtype=torch.float32)
+    else:
+        (st, tb), _ = multi_tables(*case[1:6], case[7])
+        pos0 = multi_pos0(case[4], case[6], seed=seed)[:nwalkers].to(torch.float32)
+    lnp0 = fam["lnprob"](pos0, tb, st, None)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     rnd = draw_randomness(64, nwalkers, gen, device=DEVICE, dtype=torch.float32)
     runs = {}
     for name, n in (("wide", "wide"), ("16 CTAs", 16), ("8 CTAs", 8)):
-        plan = cluster_plans("K2", tb, st, nwalkers, n, None)[0]
+        plan = cluster_plans(kind, tb, st, nwalkers, n, None)[0]
         runs[name] = [t.cpu().numpy() for t in run_blocks(
-            functools.partial(fm.multi_step_block, plan=plan), pos0, lnp0, rnd, tb, st)]
-    c5, l5, a5, _ = run_k5(sf.sharded_multi_half, (tb, st), pos0, lnp0, rnd)
-    runs["K5c"] = [c5.reshape(-1, pos0.shape[1]).cpu().numpy(), l5.reshape(-1).cpu().numpy(),
-                   a5.cpu().numpy()]
+            functools.partial(fam["step"], plan=plan), pos0, lnp0, rnd, tb, st)]
+    c5, l5, a5, _ = run_k5(fam["half_fn"], (tb, st), pos0, lnp0, rnd)
+    runs[fam["half"]] = [c5.reshape(-1, pos0.shape[1]).cpu().numpy(),
+                         l5.reshape(-1).cpu().numpy(), a5.cpu().numpy()]
     cw, lw, aw = runs["wide"]
-    assert 0 < aw.sum() < 64 * nwalkers, f"K2 {label} f32: no proposal or every one accepted"
+    where = f"{kind} {label} f32"
+    assert 0 < aw.sum() < 64 * nwalkers, f"{where}: no proposal or every one accepted"
     for name, (c, l, a) in runs.items():
-        assert np.array_equal(c, cw) and np.array_equal(a, aw), f"K2 {label} f32 {name}"
-        assert np.array_equal(l, lw), f"K2 {label} f32 {name}: lnps differ from the wide path's"
+        assert np.array_equal(c, cw) and np.array_equal(a, aw), f"{where} {name}"
+        assert np.array_equal(l, lw), f"{where} {name}: lnps differ from the wide path's"
     moved = (cw[-nwalkers:] != pos0.cpu().numpy()).any(axis=1)
-    entry = fm.multi_lnprob(torch.as_tensor(cw[-nwalkers:], device=DEVICE), tb, st)
+    entry = fam["lnprob"](torch.as_tensor(cw[-nwalkers:], device=DEVICE), tb, st, None)
     assert np.array_equal(entry.cpu().numpy()[moved], lw[-nwalkers:][moved]), \
-        f"K2 {label} f32: the lnprob entry differs from the in-chain lnps"
-    errs["K2 f32 paths"] = float(moved.mean())
+        f"{where}: the lnprob entry differs from the in-chain lnps"
+    errs[f"{kind} f32 paths"] = float(moved.mean())
     return list(runs)
 
 
@@ -728,11 +733,11 @@ def flagship_tables(case):
 def check_geometries(flagship_case, gotham_case, wide_case, errs):
     """Phase 3: the cluster kernels off the main path's geometry, f64
     64-step chains at W walkers (check_cluster_chains). K1 and K5a on the
-    flagship case, K2 and K5c on the GOTHAM case: 8 CTAs (the size taken
-    where a card places no cluster of 16) and 16 CTAs with the tables read
-    from device memory, and for K2 16 CTAs staged (its cluster path, off
-    the main path where one chain takes the wide one) and its wide path
-    with the tables in device memory. On the wide GOTHAM-shaped problem
+    flagship case, K2 and K5c on the GOTHAM case: 16 CTAs staged (the
+    cluster path, off the main path where one chain takes the wide one),
+    8 CTAs (the size taken where a card places no cluster of 16), 16 CTAs
+    with the tables read from device memory, and the wide path with the
+    tables in device memory. On the wide GOTHAM-shaped problem
     (WIDE_MULTIPLETS multiplets), whose f64 tables do not fit a cluster
     CTA: the card's own choice for K2 (the wide path, whose CTA holds no
     state and stages them) and K5c (which must read them from device
@@ -742,17 +747,18 @@ def check_geometries(flagship_case, gotham_case, wide_case, errs):
     from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi as fm
 
     off_main = (("8 CTAs, staged", 8, True), ("16 CTAs, unstaged", 16, False))
+    wide_unstaged = ("wide, unstaged", "wide", False)
+    cluster_off_main = (("16 CTAs, staged", 16, True),) + off_main + (wide_unstaged,)
     label = flagship_case[0]
     _, (st, tb) = flagship_tables(flagship_case)
-    plans = [(name, *cluster_plans("K1", tb, st, W, n, stage)) for name, n, stage in off_main]
+    plans = [(name, *cluster_plans("K1", tb, st, W, n, stage))
+             for name, n, stage in cluster_off_main]
     check_cluster_chains("K1", label, tb, st, flagship_pos0(len(st.bounds_lo)), 5, plans, errs)
     La, M, C = cluster_family("K1")["sizes"](tb)
     phase(3, "check", f"K1 and K5a {label} ({La} lines x {C} channels x {M} entries, f64, "
           f"{W} walkers) at " + ", ".join(n for n, _, _ in plans) + ": 64-step chains "
           "bitwise vs plain and K5a vs K1, lnprob entry = in-chain lnps")
-    wide_unstaged = ("wide, unstaged", "wide", False)
-    k2_off_main = (("16 CTAs, staged", 16, True),) + off_main + (wide_unstaged,)
-    for case, geometries in ((gotham_case, k2_off_main),
+    for case, geometries in ((gotham_case, cluster_off_main),
                              (wide_case, (("the card's choice", None, None), wide_unstaged))):
         label, m32, m64, spec, means, stds, pert, grid = case
         _, (st, tb) = multi_tables(m32, m64, spec, means, stds, grid)
@@ -801,18 +807,17 @@ def staging_limits(tb, ncomp):
 
 
 #: The geometries phase 4 times a cluster step kernel at: (name, CTAs,
-#: staged); K2 also on its wide path.
-TIMED_GEOMETRIES = (("16 CTAs, staged", 16, True), ("8 CTAs, staged", 8, True),
-                    ("16 CTAs, unstaged", 16, False))
-K2_TIMED_GEOMETRIES = (("wide", "wide", None),) + TIMED_GEOMETRIES
+#: staged): its wide path, then its cluster path.
+TIMED_GEOMETRIES = (("wide", "wide", None), ("16 CTAs, staged", 16, True),
+                    ("8 CTAs, staged", 8, True), ("16 CTAs, unstaged", 16, False))
 
 
 def time_geometries(kind, label, tb, st, pos0, gen, device, nb=16,
                     geometries=TIMED_GEOMETRIES, rb=None, where="", queued=False):
     """Phase 4: a cluster step kernel (`kind`, K1 or K2) in f32 from the
-    walkers pos0 at each of `geometries` (16 CTAs, the flagship's main
-    path; 8 CTAs; 16 CTAs with the tables read from device memory; K2's
-    wide path), in turns over `nb` launches of 16 steps of the block
+    walkers pos0 at each of `geometries` (the wide path, the main path of
+    one chain of 128 walkers; 16 CTAs; 8 CTAs; 16 CTAs with the tables
+    read from device memory), in turns over `nb` launches of 16 steps of the block
     randomness `rb` (drawn where None), by block_us (`queued`: the card's
     time alone): (name, median, q1, q3 us/step) per geometry."""
     import functools
@@ -910,10 +915,10 @@ def time_k2_paths(case, gen, device, nb=16):
     floor[:, -1] = 1.0 + 0.1 * torch.rand(W, generator=gen, device=DEVICE)
     out = {}
     for name, pos0, geometries in (
-            ("the walker ball", ball, K2_TIMED_GEOMETRIES),
-            (f"a {CELL_STEPS}-step chain's state", cell, K2_TIMED_GEOMETRIES),
+            ("the walker ball", ball, TIMED_GEOMETRIES),
+            (f"a {CELL_STEPS}-step chain's state", cell, TIMED_GEOMETRIES),
             ("walkers outside the prior box (the floor)", floor,
-             (K2_TIMED_GEOMETRIES[0], K2_TIMED_GEOMETRIES[1]))):
+             (TIMED_GEOMETRIES[0], TIMED_GEOMETRIES[1]))):
         rb = block_randomness(draw_randomness(nb * K_STEPS, W, gen, device=DEVICE), K_STEPS)
         refused = k2_refusal_share(tb, st, pos0, rb)
         times = time_geometries("K2", label, tb, st, pos0, gen, device, geometries=geometries,
@@ -921,7 +926,7 @@ def time_k2_paths(case, gen, device, nb=16):
                                 f"{refused:.4f} of the proposals; the card's time alone)")
         out[name] = (refused, times)
     phase(4, "time", f"K2 {label}: the {CELL_STEPS}-step chain to the second start took "
-          f"{chain_s:.2f} s on the main path ({k2_path(tb, st, W, 1)}); {device}")
+          f"{chain_s:.2f} s on the main path ({steps_path("K2", tb, st, W, 1)}); {device}")
     return out
 
 
@@ -1782,7 +1787,8 @@ def cluster_geometry(kind, label, tb, st, device):
     """Phase 2: the cluster geometry a cluster step kernel (`kind`: K1 or
     K2) and its sharded half-step take on this card for W walkers on a
     case's f32 tables (cluster_plan), with the card's
-    cudaOccupancyMaxActiveClusters answer at 16 and at 8 CTAs."""
+    cudaOccupancyMaxActiveClusters answer at 16 and at 8 CTAs, and the
+    step kernel's wide path with the CTAs the card keeps resident."""
     from cha1_mcmc_tpu_torch.sampler import cluster
 
     fam = cluster_family(kind)
@@ -1802,15 +1808,14 @@ def cluster_geometry(kind, label, tb, st, device):
               f"{'staged' if plan.staged else 'in device memory'}; "
               f"cudaOccupancyMaxActiveClusters: 16 CTAs {answers[16]}, "
               f"8 CTAs {answers[8]} ({device})")
-    if kind == "K2":
-        wide = fam["plan"](tb, st, W, "wide", None, True)
-        capacity = cluster.wide_capacity(fam["family"], wide.layout, dtype, dev)
-        phase(2, "build", f"K2 wide path, {label}, {W} walkers, f32: {wide.cluster} CTAs a "
-              f"chain x 512 threads in one cooperative launch, one proposal a CTA "
-              f"({wide.warps_per_proposal} warps), {wide.smem_bytes} B shared memory a CTA, "
-              f"tables {'staged' if wide.staged else 'in device memory'}; the card keeps "
-              f"{capacity} such CTAs resident, so a launch of up to "
-              f"{capacity // wide.cluster} chains of {W} walkers takes it ({device})")
+    wide = fam["plan"](tb, st, W, "wide", None, True)
+    capacity = cluster.wide_capacity(fam["family"], wide.layout, dtype, dev)
+    phase(2, "build", f"{kind} wide path, {label}, {W} walkers, f32: {wide.cluster} CTAs a "
+          f"chain x 512 threads in one cooperative launch, one proposal a CTA "
+          f"({wide.warps_per_proposal} warps), {wide.smem_bytes} B shared memory a CTA, "
+          f"tables {'staged' if wide.staged else 'in device memory'}; the card keeps "
+          f"{capacity} such CTAs resident, so a launch of up to "
+          f"{capacity // wide.cluster} chains of {W} walkers takes it ({device})")
 
 
 def k1_entries(case, device):
@@ -2161,13 +2166,15 @@ def chain_starts(kind, case, n_chains, stuck=True):
     return pos
 
 
-def k2_path(tb, st, nwalkers, chains):
-    """'wide' or 'cluster': the path a K2 step launch of `chains` chains
-    of nwalkers walkers takes on the tables `tb` (cluster.steps_plan)."""
-    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi as fm
+def steps_path(kind, tb, st, nwalkers, chains):
+    """'wide' or 'cluster': the path a step launch of the cluster step
+    kernel `kind` (K1 / K2) of `chains` chains of nwalkers walkers takes on
+    the tables `tb` (cluster.steps_plan)."""
+    from cha1_mcmc_tpu_torch.sampler import cluster
 
-    La, M, C = cluster_family("K2")["sizes"](tb)
-    plan = cluster.steps_plan(fm.FAMILY, nwalkers, chains, st.ncomp, st.ndim, La, C, M,
+    fam = cluster_family(kind)
+    La, M, C = fam["sizes"](tb)
+    plan = cluster.steps_plan(fam["family"], nwalkers, chains, st.ncomp, st.ndim, La, C, M,
                               tb[0].dtype, tb[0].device)
     return "wide" if plan.wide else "cluster"
 
@@ -3541,12 +3548,15 @@ def main() -> int:
         phase(3, "check", "K1 / K2 max |kernel - plain| f64 step lnps by geometry: "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs_g.items()) + f" ({device})")
         errs_c = {}
-        ks1 = check_chains("K1", all_cases[0], errs_c)
+        occ1 = chain_occupancy("K1", tb1, st1)
+        ks1 = check_chains("K1", all_cases[0], errs_c, ks=(1, 2, 3, 4, occ1 + 1))
         occ2 = chain_occupancy("K2", tb2, st2)
         ks2 = check_chains("K2", gotham[0], errs_c, ks=(1, 2, 3, 4, occ2 + 1))
-        paths2 = ", ".join(f"K={K} {k2_path(tb2, st2, W, K)}" for K in ks2)
+        paths1 = ", ".join(f"K={K} {steps_path('K1', tb1, st1, W, K)}" for K in ks1)
+        paths2 = ", ".join(f"K={K} {steps_path('K2', tb2, st2, W, K)}" for K in ks2)
         phase(3, "check", f"K chains of {W} walkers in one launch, 64 steps: K1 "
-              f"{all_cases[0][0]} at K = {ks1}, K2 {gotham[0][0]} at K = {ks2} ({paths2}; "
+              f"{all_cases[0][0]} at K = {ks1} ({paths1}), K2 {gotham[0][0]} at K = {ks2} "
+              f"({paths2}; "
               "the last past the clusters the card holds at once): each chain bitwise equal "
               "to it launched alone in f32 and f64 and to the plain version in f64 (lnps "
               "rtol 1e-12; max "

@@ -23,14 +23,14 @@ cluster launches of K1 and K2 over walker counts whose proposals split
 raggedly over their CTAs, at 16 CTAs, 8 CTAs and 16 CTAs with the tables
 in device memory: f64 64-step chains bitwise against the plain version —
 K1 at W = 64, 96, 100, 256 and 2048 in analytic 4 dims and state-sum 5
-dims, K2 at W = 64, 96, 100 and 256 for K = 1, 2 and 4, also on its wide
-path of W / 2 CTAs (lnps rtol 1e-12; the lnprob entry equal to the
-in-chain lnps; K5a / K5c at the same W) — and K5a / K5c at W_l = 32, 40
-and 64 bitwise against their plain versions and against K1 / K2; K2's
-float32 paths bitwise against each other; K2 and K5c on a problem too
-wide for their f64 tables to be staged; the path K2 takes by the chains
-the card holds at once, and a wide launch too large for the card
-raising. K chains of 128 walkers in one K1 / K2 launch (one
+dims, K2 at W = 64, 96, 100 and 256 for K = 1, 2 and 4, each also on its
+wide path of W / 2 CTAs (not K1 at 2048) (lnps rtol 1e-12; the lnprob
+entry equal to the in-chain lnps; K5a / K5c at the same W) — and K5a /
+K5c at W_l = 32, 40 and 64 bitwise against their plain versions and
+against K1 / K2; K1's and K2's float32 paths bitwise against each other;
+K2 and K5c on a problem too wide for their f64 tables to be staged; the
+path K1 and K2 take by the chains the card holds at once, and a wide
+launch too large for the card raising. K chains of 128 walkers in one K1 / K2 launch (one
 cluster a chain) at K = 1, 3 and one past the clusters the card holds at
 once: each chain bitwise equal to it launched alone (f32, f64) and to the
 plain version (f64), the -inf walkers per chain, one kernel event a block
@@ -44,7 +44,9 @@ launching K4a once a proposal batch. The sampler's block loop on the card:
 FusedEnsembleSampler.run_mcmc one block ahead through K1 and K3, bitwise
 against the same blocks run one at a time, one host synchronisation a
 block; BlockTimer's device time. A float32 multifit through K2 records one
-`pipeline/k2_plan` span counting the cluster plan its launches took. Every test here needs a CUDA device and nvcc, and skips without
+`pipeline/k2_plan` span counting the cluster plan its launches took, and
+a float32 fit through K1 counts its plan in its sampler-choice
+`pipeline/model` span. Every test here needs a CUDA device and nvcc, and skips without
 them; on the card run
 
     python -m pytest tests/test_torch_cuda.py --noconftest
@@ -139,30 +141,54 @@ def _k2_case(gotham_cases, ncomp):
 #: cluster of 16, and 16 CTAs with the tables read from device memory (the
 #: layout of problems too wide to stage).
 GEOMETRIES = {"16": (16, True), "8": (8, True), "16-unstaged": (16, False)}
-#: K2's besides: its wide path (h CTAs a chain, one cooperative launch).
+#: The step kernels' besides: their wide path (h CTAs a chain, one
+#: cooperative launch).
 K2_GEOMETRIES = {**GEOMETRIES, "wide": ("wide", None)}
+#: K1's walker counts at each geometry: the wide path at h = 32, 48, 50
+#: (ragged) and 128 CTAs, not at 2048 walkers (1,024 CTAs, more than an
+#: H100 keeps resident).
+K1_CHAIN_CASES = [(w, g) for g in K2_GEOMETRIES for w in (64, 96, 100, 256, 2048)
+                  if not (g == "wide" and w == 2048)]
 
 
-@pytest.mark.parametrize("geometry", list(GEOMETRIES))
 @pytest.mark.parametrize("label", ["analytic-4d", "states-5d"])
-@pytest.mark.parametrize("nwalkers", [64, 96, 100, 256, 2048])
+@pytest.mark.parametrize("nwalkers,geometry", K1_CHAIN_CASES)
 def test_k1_cluster_chains_bitwise(cuda_cases, k5_cases, nwalkers, label, geometry):
     """K1's cluster launch against the plain version, f64, 64 steps, at
     walker counts whose h = W / 2 proposals split over 16 CTAs as 2, 3,
     3 or 4 (W = 100: ragged), 8 (W = 256: two rounds of four a CTA) and 64
-    (W = 2048: sixteen rounds), over 8 CTAs as 4, 6, 6 or 7, 16 and 128:
-    chains and acceptances bitwise, lnps rtol 1e-12; the lnprob entry (at
-    the plan's staging) gives the in-chain lnps of every walker that
-    moved bitwise (one device lnprob); K5a at the same walker count and
-    geometry bitwise against its plain version and K1
+    (W = 2048: sixteen rounds), over 8 CTAs as 4, 6, 6 or 7, 16 and 128;
+    and on its wide path, h = 32, 48, 50 (ragged) and 128 CTAs of one
+    proposal: chains and acceptances bitwise, lnps rtol 1e-12; the lnprob
+    entry (at the plan's staging) gives the in-chain lnps of every walker
+    that moved bitwise (one device lnprob); K5a at the same walker count
+    (at its cluster geometry, or the card's choice beside the wide path)
+    bitwise against its plain version and K1
     (chip_smoke.check_cluster_chains)."""
     import chip_smoke
 
     case = cuda_cases[label]
     _, (st, tb) = chip_smoke.flagship_tables(case)
     pos0 = chip_smoke.flagship_pos0(case[3].ndim, nwalkers=nwalkers, seed=nwalkers)
-    plans = chip_smoke.cluster_plans("K1", tb, st, nwalkers, *GEOMETRIES[geometry])
+    plans = chip_smoke.cluster_plans("K1", tb, st, nwalkers, *K2_GEOMETRIES[geometry])
+    assert (plans[0] is not None and plans[0].wide) == (geometry == "wide")
     chip_smoke.check_cluster_chains("K1", label, tb, st, pos0, 11, [(geometry, *plans)], {})
+
+
+@pytest.mark.parametrize("label", ["analytic-4d", "states-5d", "cheb-4d"])
+@pytest.mark.parametrize("nwalkers", [100, 128])
+def test_k1_f32_paths_bitwise(cuda_cases, k5_cases, nwalkers, label):
+    """K1's float32 paths, 64 steps: the wide path (one group of 16 warps,
+    a lnprob lane a thread), the 16- and 8-CTA clusters and K5a (groups of
+    four warps, four lanes a thread) give the same chains, lnps and
+    acceptances bitwise, and the lnprob entry the in-chain lnps of the
+    walkers that moved (chip_smoke.check_f32_paths)."""
+    import chip_smoke
+
+    errs = {}
+    assert chip_smoke.check_f32_paths("K1", cuda_cases[label], errs, nwalkers=nwalkers) == [
+        "wide", "16 CTAs", "8 CTAs", "K5a"]
+    assert 0 < errs["K1 f32 paths"] <= 1     # the share of walkers that moved
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
@@ -215,11 +241,11 @@ def test_k2_f32_paths_bitwise(gotham_cases, k5_cases, nwalkers, label):
     a lnprob lane a thread), the 16- and 8-CTA clusters and K5c (groups of
     four warps, four lanes a thread) give the same chains, lnps and
     acceptances bitwise, and the lnprob entry the in-chain lnps of the
-    walkers that moved (chip_smoke.check_k2_f32_paths)."""
+    walkers that moved (chip_smoke.check_f32_paths)."""
     import chip_smoke
 
     errs = {}
-    assert chip_smoke.check_k2_f32_paths(gotham_cases[label], errs, nwalkers=nwalkers) == [
+    assert chip_smoke.check_f32_paths("K2", gotham_cases[label], errs, nwalkers=nwalkers) == [
         "wide", "16 CTAs", "8 CTAs", "K5c"]
     assert 0 < errs["K2 f32 paths"] <= 1     # the share of walkers that moved
 
@@ -266,7 +292,8 @@ def test_k2_k5c_read_the_tables_from_device_memory_past_the_staging_limit(
     errs = {}
     chip_smoke.check_geometries(cuda_cases["analytic-4d"], gotham_cases["analytic-4c"],
                                 wide_case, errs)
-    assert set(errs) == {"K1 8 CTAs, staged", "K1 16 CTAs, unstaged", "K2 16 CTAs, staged",
+    assert set(errs) == {"K1 16 CTAs, staged", "K1 8 CTAs, staged", "K1 16 CTAs, unstaged",
+                         "K1 wide, unstaged", "K2 16 CTAs, staged",
                          "K2 8 CTAs, staged", "K2 16 CTAs, unstaged", "K2 wide, unstaged",
                          "K2 the card's choice"}
 
@@ -496,10 +523,37 @@ def test_k2_chains_take_the_path_their_ctas_fit(gotham_cases, chains):
     capacity = cluster.wide_capacity(fm.FAMILY, wide.layout, torch.float32, tb[0].device)
     assert capacity >= 2 * wide.cluster, capacity
     K = capacity // wide.cluster + 1 if chains == "past capacity" else int(chains)
-    path = chip_smoke.k2_path(tb, st, chip_smoke.W, K)
+    path = chip_smoke.steps_path("K2", tb, st, chip_smoke.W, K)
     assert path == ("wide" if K * wide.cluster <= capacity else "cluster")
-    assert chip_smoke.k2_path(tb, st, chip_smoke.W, 1) == "wide"
+    assert chip_smoke.steps_path("K2", tb, st, chip_smoke.W, 1) == "wide"
     assert chip_smoke.check_chains("K2", case, {}, ks=(1, K)) == (1, K)
+
+
+@pytest.mark.parametrize("chains", ["2", "4", "past capacity"])
+def test_k1_chains_take_the_path_their_ctas_fit(cuda_cases, chains):
+    """K chains of 128 walkers in one K1 launch take the wide path exactly
+    where their K x 64 CTAs fit the card's co-resident CTAs of K1's wide
+    kernel, else the cluster path (the least K past the capacity always),
+    in float32 and float64 alike: each chain bitwise equal to it launched
+    alone (the wide path at K = 1) in f32 and f64 and to the plain version
+    in f64, the -inf walker per chain, one launch a block
+    (chip_smoke.check_chains)."""
+    import chip_smoke
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused
+
+    case = cuda_cases["analytic-4d"]
+    capacities = []
+    for st, tb in chip_smoke.flagship_tables(case):
+        wide = chip_smoke.cluster_family("K1")["plan"](tb, st, chip_smoke.W, "wide", None, True)
+        capacity = cluster.wide_capacity(fused.FAMILY, wide.layout, tb[0].dtype, tb[0].device)
+        assert capacity >= 2 * wide.cluster, capacity
+        capacities.append(capacity)
+        assert chip_smoke.steps_path("K1", tb, st, chip_smoke.W, 1) == "wide"
+    K = max(capacities) // wide.cluster + 1 if chains == "past capacity" else int(chains)
+    for (st, tb), capacity in zip(chip_smoke.flagship_tables(case), capacities):
+        path = chip_smoke.steps_path("K1", tb, st, chip_smoke.W, K)
+        assert path == ("wide" if K * wide.cluster <= capacity else "cluster")
+    assert chip_smoke.check_chains("K1", case, {}, ks=(1, K)) == (1, K)
 
 
 def test_k2_wide_launch_past_the_card_raises(gotham_cases):
@@ -833,3 +887,44 @@ def test_multifit_k2_plan_span_counts_the_plan_k2_launches(tmp_path):
     parent = next(r for r in ours if r.id == k2.parent)
     assert parent.name == "pipeline/model" and parent.t0 <= k2.t0 <= k2.t1 <= parent.t1
     assert k2.counts == want
+
+
+def test_fit_k1_counts_the_plan_k1_launches_in_its_sampler_choice_span(tmp_path):
+    """A float32 SpectralFit through K1 on the card (the flagship's 9
+    lines x 561 channels, 128 walkers, one chain): the `pipeline/model`
+    span in which it chooses its sampler counts the wide plan (`wide` 1,
+    64 `ctas`, `staged` 1), the plan every step launch took
+    (cluster.steps_plan's, cached: the span and the launches read one
+    object)."""
+    _require_card()
+    import contextlib
+    import io
+
+    from cha1_mcmc_tpu_torch import FitConfig, SpectralFit
+    from cha1_mcmc_tpu_torch.sampler import FusedEnsembleSampler, cluster
+    from cha1_mcmc_tpu_torch.sampler.fused import FAMILY, LAUNCHES
+    from cha1_mcmc_tpu_torch.utils import metrics
+    from tests.port_problems import write_hc5n_problem
+
+    p = write_hc5n_problem(str(tmp_path))
+    cfg = FitConfig(mol_name="hc5n_hfs", cat_folder=p["cat_folder"], data_path=p["data_path"],
+                    fit_folder=str(tmp_path / "fit"), nwalkers=128, nruns=64,
+                    checkpoint_every=64, device="cuda")
+    fit = SpectralFit(cfg)
+    before = LAUNCHES["fused_steps"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        fit.fit(fit.init_setup())
+    assert isinstance(fit.sampler, FusedEnsembleSampler)
+    assert LAUNCHES["fused_steps"] == before + 4
+    tables = fit.sampler.run_fn.tables
+    _, (La, M, C, _) = FAMILY.tables(tables, torch.float32, tables[0].device, "K1")
+    assert (La, C) == (9, 561)
+    st = fit.sampler.run_fn.statics
+    launched = cluster.checked_plan(FAMILY, "steps", None, 128, 1, 1, st.ndim, La, C, M,
+                                    torch.float32, tables[0].device)
+    assert launched.wide and launched == cluster.plan_wide(FAMILY, 128, 1, st.ndim, La, C, M,
+                                                           torch.float32)
+    ours = [r for r in metrics.spans() if r.trace == fit.throughput.trace_id]
+    (choice,) = [r for r in ours if "ctas" in r.counts]
+    assert choice.name == "pipeline/model"
+    assert choice.counts == dict(wide=1, ctas=64, staged=1)

@@ -256,10 +256,11 @@ def test_shared_memory_plan():
     """K1's cluster plan at the flagship size, and the gate (cluster.admits:
     the plan at 8 CTAs, unstaged where the staged layout does not fit)."""
     # flagship: 128 walkers x 4 dims, 9 lines x 561 channels x 3 entries,
-    # f32, 16 CTAs: 4 proposals a CTA, the tables staged
+    # f32, 16 CTAs: 4 proposals a CTA, the tables staged; each of the 4
+    # groups' 16 chi^2 partials (one a warp of its lnprob's 512 lanes)
     plan = _k1_plan(128, 4, 9, 561, 3, torch.float32)
     assert (plan.cluster, plan.proposals, plan.per_cta, plan.staged) == (16, 64, 4, True)
-    values = 128 * 5 + 10 * 561 + 5 * 9 + 4 * 9 + 16 + 4 * 5 + 4
+    values = 128 * 5 + 10 * 561 + 5 * 9 + 4 * 9 + 4 * 16 + 4 * 5 + 4
     assert plan.smem_bytes == 4 * values + 4 * (3 * 561 + 4 + 2)
     assert _k1_admits(128, 4, 9, torch.float32)
     # 8,192 walkers: 164 KB of f32 state fits a CTA now; 393 KB of f64 does not

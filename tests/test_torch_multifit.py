@@ -618,11 +618,11 @@ def test_k2_plan_counts_and_the_step_launch_take_one_plan(port_k2, monkeypatch, 
     """One chooser: on the CPU, the plan plan_counts reports is the object
     that the step launch's own choice (checked_plan with no plan handed in,
     cluster.steps_plan) returns for the same chains, sizes and device."""
-    from cha1_mcmc_tpu_torch.sampler import cluster, fused_multi
+    from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_multi
 
     asked = []
-    real = fused_multi.steps_plan
-    monkeypatch.setattr(fused_multi, "steps_plan",
+    real = fused.steps_plan       # FusedEnsemble.plan_counts, K2's runner's too
+    monkeypatch.setattr(fused, "steps_plan",
                         lambda *args: asked.append(real(*args)) or asked[-1])
     counts = port_k2.plan_counts(128, n_chains)
     (plan,) = asked
@@ -637,24 +637,25 @@ def test_k2_plan_counts_and_the_step_launch_take_one_plan(port_k2, monkeypatch, 
 
 def test_k1_geometry_and_layout_are_unchanged():
     """K1 keeps its four 4-warp groups a CTA (sampler/cluster.py's
-    constants, which K1's library is checked against) and its layout at
-    the flagship size; K2's cluster plans take four groups of four warps
-    too, each with 16 chi^2 partials (its lnprob's 512 lanes)."""
+    constants, which K1's library is checked against) and its cluster
+    layout at the flagship size, each group now with the 16 chi^2 partials
+    of its lnprob's 512 lanes; K2's cluster plans take four groups of four
+    warps too, each with 16 chi^2 partials (its lnprob's 512 lanes)."""
     from cha1_mcmc_tpu_torch.sampler import cluster, fused, fused_multi
 
     assert (cluster.THREADS, cluster.GROUPS, cluster.GROUP_WARPS) == (512, 4, 4)
     assert fused_multi.K2_LANE_WARPS == fused_multi.FAMILY.partials == 16
-    assert fused.FAMILY.partials == cluster.GROUP_WARPS
+    assert fused.FAMILY.partials == cluster.LANE_WARPS == 16
     assert _k2_plan(128, 4, 66, 1138, 3, torch.float32).warps_per_proposal == 4
     plan = cluster.plan_cluster(fused.FAMILY, 128, 1, 4, 9, 561, 2, torch.float32)
     assert (plan.cluster, plan.per_cta, plan.warps_per_proposal) == (16, 4, 4)
     assert not plan.wide and plan.staged
     # the state (128, 5), the staged chans (3, 561), 4 constants a channel,
     # the entry velocities (2, 561), the lines (5, 9), 4 groups' (9,) tau and
-    # 16 partials, 4 proposals (4, 5) and stretch factors; the entry indices
-    # (2, 561), 4 flags and 2 counters
-    assert plan.smem_bytes == (4 * (128 * 5 + 7 * 561 + 2 * 561 + 5 * 9 + 4 * 9 + 16
-                                    + 4 * 5 + 4) + 4 * (2 * 561 + 4 + 2)) == 27_752
+    # 4 x 16 partials, 4 proposals (4, 5) and stretch factors; the entry
+    # indices (2, 561), 4 flags and 2 counters
+    assert plan.smem_bytes == (4 * (128 * 5 + 7 * 561 + 2 * 561 + 5 * 9 + 4 * 9 + 4 * 16
+                                    + 4 * 5 + 4) + 4 * (2 * 561 + 4 + 2)) == 27_944
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
